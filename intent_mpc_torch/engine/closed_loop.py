@@ -1,0 +1,474 @@
+"""Closed-loop simulation engine: world -> detector -> predictor -> MPC ->
+controller -> dynamics (port of intent_mpc_tpu/engine/closed_loop.py,
+the default branches).
+
+A batch of S scenarios steps together:
+
+  outer loop: 10 Hz MPC cycles (mpcCB, mpcNavigation.cpp:222-370)
+  inner 10 ticks: 100 Hz trajectory execution (trajExeCB :499-567), PID
+    tracking control (acceleration mode), double-integrator dynamics,
+    ~30 Hz detector history pushes (ticks 0/3/6), and the benchmark
+    monitor's per-sample metric updates (run_mpc_benchmark.py:224-385).
+
+The port runs the default branches: the ground-truth fake detector, the
+predictor, the double-integrator plant, the committed-trajectory monitor,
+predefined-goal mode with one path pass, look-ahead yaw.
+`check_supported` raises for every other engine option.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from intent_mpc_torch.models import detector as det
+from intent_mpc_torch.models import mpc as mpclib
+from intent_mpc_torch.models import predictor as predlib
+from intent_mpc_torch.models.controller import (ControllerState, acc_command,
+                                                init_controller)
+from intent_mpc_torch.models.occupancy import (OccupancyGrid, empty_grid,
+                                               is_occupied)
+from intent_mpc_torch.models.world import Scenario, obstacle_state
+from intent_mpc_torch.ops.admm import check_supported as check_solver
+from intent_mpc_torch.utils.config import IntentMPCConfig
+from intent_mpc_torch.utils.device import constant, resolve_device
+
+
+class Metrics(NamedTuple):
+    goal_reached: torch.Tensor
+    travel_time: torch.Tensor
+    collision: torch.Tensor
+    collision_count: torch.Tensor
+    min_obstacle_dist: torch.Tensor
+    path_length: torch.Tensor
+    vel_violations: torch.Tensor
+    acc_violations: torch.Tensor
+    jerk_violations: torch.Tensor
+    samples: torch.Tensor
+    jerk_samples: torch.Tensor
+    max_velocity: torch.Tensor
+    max_acceleration: torch.Tensor
+    sum_velocity: torch.Tensor
+    n_vel_valid: torch.Tensor
+    jerk_sq_sum: torch.Tensor
+    jerk_abs_sum: torch.Tensor
+    solve_attempts: torch.Tensor
+    solve_successes: torch.Tensor
+    prim_res_sum: torch.Tensor     # accumulated chosen-candidate residuals
+    prim_res_max: torch.Tensor
+    traj_collision_cycles: torch.Tensor  # replanCheckCB monitor hits
+    stop_replans: torch.Tensor     # goal-mode stop+replan events (always 0 here)
+
+
+def init_metrics(batch: int, device="cpu") -> Metrics:
+    z = torch.zeros((batch,), dtype=torch.float32, device=device)
+    zi = torch.zeros((batch,), dtype=torch.int32, device=device)
+    zb = torch.zeros((batch,), dtype=torch.bool, device=device)
+    return Metrics(
+        goal_reached=zb, travel_time=z,
+        collision=zb, collision_count=zi,
+        min_obstacle_dist=torch.full((batch,), float("inf"), device=device),
+        path_length=z,
+        vel_violations=zi, acc_violations=zi, jerk_violations=zi,
+        samples=zi, jerk_samples=zi,
+        max_velocity=z, max_acceleration=z, sum_velocity=z, n_vel_valid=zi,
+        jerk_sq_sum=z, jerk_abs_sum=z,
+        solve_attempts=zi, solve_successes=zi,
+        prim_res_sum=z, prim_res_max=z,
+        traj_collision_cycles=zi, stop_replans=zi)
+
+
+class EngineCarry(NamedTuple):
+    pos: torch.Tensor             # (S, 3)
+    vel: torch.Tensor             # (S, 3)
+    detector: det.DetectorState
+    planner: mpclib.PlannerState
+    controller: ControllerState
+    traj_age: torch.Tensor        # (S,) cycles since the executing solution's start
+    traj_ready: torch.Tensor      # (S,) bool (mpcTrajectoryReady_)
+    prev_target_acc: torch.Tensor
+    has_prev_target: torch.Tensor
+    stopping: torch.Tensor        # replanCheck goal-stop triggered
+    stop_pos: torch.Tensor
+    repeats_left: torch.Tensor    # int32 path repetitions remaining
+    tracking_start: torch.Tensor  # time the current tracking round began
+    yaw: torch.Tensor             # heading (look-ahead yaw, trajExeCB :536-553)
+    ref_anchor: torch.Tensor      # (S, 3) goal-mode reference start (unused here)
+    done: torch.Tensor            # monitor goal criterion met
+    metrics: Metrics
+
+
+def check_supported(cfg: IntentMPCConfig) -> None:
+    """Raise for the engine and solver options this port does not run."""
+    e, p = cfg.engine, cfg.planner
+    unported = {
+        "plant": e.plant != "double_integrator",
+        "perfect_tracking": e.perfect_tracking,
+        "use_predictor": not e.use_predictor,
+        "use_fake_detector": not e.use_fake_detector,
+        "use_fov": e.use_fov,
+        "repeat_path": e.repeat_path != 1,
+        "replan_check": not e.replan_check,
+        "goal_mode": e.goal_mode,
+        "predictor_stale_hist": e.predictor_stale_hist,
+        "yaw_lookahead": e.yaw_lookahead <= 0.0,
+        "goal_relax": e.goal_relax,
+        "static_clustering": p.static_clustering,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError("engine options not ported: %s"
+                                  % ", ".join(bad))
+    check_solver(p.solver)
+
+
+def tree_where(cond: torch.Tensor, new, old):
+    """Per-scenario select over matching NamedTuples of (S, ...) tensors."""
+    if new is None:
+        return None
+    if isinstance(new, tuple):
+        return type(new)(*(tree_where(cond, a, b) for a, b in zip(new, old)))
+    c = cond.reshape(cond.shape + (1,) * (new.dim() - cond.dim()))
+    return torch.where(c, new, old)
+
+
+def init_carry(cfg: IntentMPCConfig, scenario: Scenario,
+               device=None) -> EngineCarry:
+    """Initial carry for a batch of scenarios (leading axis S). Runs on
+    the GPU unless `device` names another device."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    scenario = Scenario(*(a.to(dev) for a in scenario))
+    S = scenario.origin.shape[0]
+    pos0, _ = obstacle_state(scenario, torch.zeros((), device=dev))
+    start = torch.tensor(cfg.start, dtype=torch.float32,
+                         device=dev).expand(S, 3).contiguous()
+    kw = dict(dtype=torch.float32, device=dev)
+    return EngineCarry(
+        pos=start.clone(), vel=torch.zeros((S, 3), **kw),
+        detector=det.init_detector(scenario.origin.shape[1], cfg.detector, pos0),
+        planner=mpclib.init_planner_state(cfg.planner, S, dev),
+        controller=init_controller((S,), dev),
+        traj_age=torch.zeros((S,), dtype=torch.int32, device=dev),
+        traj_ready=torch.zeros((S,), dtype=torch.bool, device=dev),
+        prev_target_acc=torch.zeros((S, 3), **kw),
+        has_prev_target=torch.zeros((S,), dtype=torch.bool, device=dev),
+        stopping=torch.zeros((S,), dtype=torch.bool, device=dev),
+        stop_pos=start.clone(),
+        repeats_left=torch.full((S,), cfg.engine.repeat_path,
+                                dtype=torch.int32, device=dev),
+        tracking_start=torch.zeros((S,), **kw),
+        yaw=torch.zeros((S,), **kw),
+        ref_anchor=start.clone(),
+        done=torch.zeros((S,), dtype=torch.bool, device=dev),
+        metrics=init_metrics(S, dev))
+
+
+def _aabb_distance(p: torch.Tensor, centers: torch.Tensor,
+                   bbox: torch.Tensor) -> torch.Tensor:
+    """Distance from p (S, 3) to each box surface (S, N) (0 inside):
+    run_mpc_benchmark.py:352-381 check_collisions."""
+    gap = torch.clamp(torch.abs(p[:, None, :] - centers) - bbox / 2.0, min=0.0)
+    return torch.linalg.vector_norm(gap, dim=-1)
+
+
+def committed_collision(cfg: IntentMPCConfig, planner: mpclib.PlannerState,
+                        occ: OccupancyGrid, elapsed: torch.Tensor,
+                        obs_pos: torch.Tensor, obs_size: torch.Tensor,
+                        visible: torch.Tensor) -> torch.Tensor:
+    """replanCheckCB's committed-trajectory monitor.
+
+    mpcHasCollision (mpcNavigation.cpp:631-656): sample the executing
+    solution at ts steps from startTime = min(1, elapsed) to
+    min(startTime + 2, horizon*ts) against the static inflated map.
+    hasDynamicCollision (:669-700): the same sweep over a 1 s window
+    against the detector's current obstacle boxes. Returns (S,) bool."""
+    p = cfg.planner
+    ts = p.ts
+    t_start = torch.clamp(elapsed, max=1.0)                       # (S,)
+    t_end = p.horizon * ts
+    ar = torch.arange(p.horizon + 1, dtype=torch.float32, device=elapsed.device)
+    tj = t_start[:, None] + ts * ar                               # (S, H+1)
+    pj = mpclib.sample_pos(p, planner.states_sol, tj)             # (S, H+1, 3)
+    static_m = tj <= torch.clamp(t_start + 2.0, max=t_end)[:, None]
+    dyn_m = tj <= torch.clamp(t_start + 1.0, max=t_end)[:, None]
+    occ_hit = is_occupied(occ, pj)
+    static_hit = torch.any(occ_hit & static_m, dim=-1)
+    lo = obs_pos - obs_size / 2.0
+    hi = obs_pos + obs_size / 2.0
+    pjb = pj[:, :, None, :]
+    inside = torch.all((pjb >= lo[:, None]) & (pjb <= hi[:, None]), dim=-1)
+    dyn_hit = torch.any(inside & visible[:, None, :] & dyn_m[:, :, None],
+                        dim=(-2, -1))
+    return static_hit | dyn_hit
+
+
+def _lookahead_yaw(cfg: IntentMPCConfig, planner: mpclib.PlannerState,
+                   t_traj: torch.Tensor, cur_yaw: torch.Tensor,
+                   update_ok: torch.Tensor) -> torch.Tensor:
+    """trajExeCB yaw smoothing (mpcNavigation.cpp:536-553): target yaw
+    points at the first stored-reference point >= yaw_lookahead metres
+    from getRef(t); hold yaw if none within the horizon."""
+    p = cfg.planner
+    dist = cfg.engine.yaw_lookahead
+    ref0 = mpclib.sample_ref(p, planner.xref, t_traj)             # (S, 3)
+    ar = torch.arange(p.horizon + 1, dtype=torch.float32, device=t_traj.device)
+    tj = t_traj[:, None] + p.ts * ar
+    pj = mpclib.sample_ref(p, planner.xref, tj)                   # (S, H+1, 3)
+    far = (torch.linalg.vector_norm(pj - ref0[:, None], dim=-1) >= dist) \
+        & (tj <= p.horizon * p.ts)
+    j = torch.argmax(far.to(torch.int32), dim=-1)                 # first True
+    tgt = mpclib._rows(pj, j)
+    yaw_new = torch.atan2(tgt[:, 1] - ref0[:, 1], tgt[:, 0] - ref0[:, 0])
+    return torch.where(update_ok & torch.any(far, dim=-1), yaw_new, cur_yaw)
+
+
+def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
+                 ref_traj: torch.Tensor, traj_len: int,
+                 occ: OccupancyGrid, carry: EngineCarry, cycle_idx: int,
+                 solver_iters: Optional[int] = None
+                 ) -> Tuple[EngineCarry, torch.Tensor]:
+    """One 10 Hz MPC cycle + its 10 control ticks for S scenarios.
+
+    scenario (S, N, ...); ref_traj (L, 3) shared; traj_len its valid
+    length; cycle_idx the Python cycle counter. Returns (carry, pos (S, 3))."""
+    ecfg = cfg.engine
+    dev = carry.pos.device
+    cycle_dt = ecfg.control_dt * ecfg.ticks_per_cycle
+    dt = ecfg.control_dt
+    t0 = torch.full((), float(cycle_idx), dtype=torch.float32,
+                    device=dev) * cycle_dt
+    goal = constant(tuple(cfg.goal), dev)
+    active = ~carry.done
+
+    # ---- detector updates at cycle start ----
+    obs_pos0, _ = obstacle_state(scenario, t0)
+    d = det.fd_update(cfg.detector, carry.detector, obs_pos0, t0)
+    d = det.hist_push(d, obs_pos0)
+    pos_h, vel_h, acc_h, size_h, hist_len, visible = det.query_history(
+        cfg.detector, d, scenario.bbox, carry.pos)
+
+    # ---- replan-check collision monitor (replanCheckCB :414-422); in
+    # predefined-goal mode it only counts: the engine replans every cycle
+    elapsed = (carry.traj_age.to(torch.float32) + 1.0) * cycle_dt
+    traj_hit = carry.traj_ready & active & committed_collision(
+        cfg, carry.planner, occ, elapsed, pos_h[:, :, 0], size_h[:, :, 0],
+        visible)
+    planner_in = carry.planner
+
+    # ---- predictor + MPC (mpcCB :290-365) ----
+    prediction = predlib.predict(cfg.predictor, pos_h, vel_h, acc_h, size_h,
+                                 hist_len, occ)
+    plan_out = mpclib.make_plan_with_pred(
+        cfg.planner, planner_in, carry.pos, carry.vel, ref_traj, traj_len,
+        prediction, visible, solver_iters, cycle_idx=cycle_idx)
+
+    run_mpc = active & ~carry.stopping
+    planner = tree_where(run_mpc, plan_out.state, planner_in)
+    valid = plan_out.valid & run_mpc
+    traj_ready = carry.traj_ready | valid
+    traj_age = torch.where(valid, torch.zeros_like(carry.traj_age),
+                           carry.traj_age + 1)
+
+    best_prim = mpclib._rows(plan_out.prim_res, plan_out.best_idx)
+    m = carry.metrics
+    metrics = m._replace(
+        solve_attempts=m.solve_attempts + run_mpc.to(torch.int32),
+        solve_successes=m.solve_successes + valid.to(torch.int32),
+        prim_res_sum=m.prim_res_sum
+        + torch.where(run_mpc, best_prim, torch.zeros_like(best_prim)),
+        prim_res_max=torch.where(
+            run_mpc, torch.maximum(m.prim_res_max, best_prim), m.prim_res_max),
+        traj_collision_cycles=m.traj_collision_cycles
+        + traj_hit.to(torch.int32))
+
+    # ---- goal stop (replanCheckCB :414-456), after 3 s of tracking ----
+    near_goal = torch.linalg.vector_norm(carry.pos - goal, dim=-1) \
+        <= ecfg.goal_stop_threshold
+    near_goal = near_goal & (t0 - carry.tracking_start >= 3.0)
+    stopping = carry.stopping | (near_goal & active)
+    stop_pos = tree_where(carry.stopping, carry.stop_pos, carry.pos)
+
+    pos, vel = carry.pos, carry.vel
+    ctrl = carry.controller
+    prev_acc = carry.prev_target_acc
+    has_prev = carry.has_prev_target
+    yaw = carry.yaw
+    done = carry.done
+
+    H = cfg.planner.horizon
+    end_time = H * cfg.planner.ts
+    zero3 = torch.zeros_like(pos)
+
+    for k in range(ecfg.ticks_per_cycle):
+        tk = t0 + k * dt
+        t_traj = traj_age.to(torch.float32) * cycle_dt + k * dt   # (S,)
+
+        # ---- target from trajectory (trajExeCB :499-567) ----
+        tp = mpclib.sample_pos(cfg.planner, planner.states_sol, t_traj)
+        tv = mpclib.sample_vel(cfg.planner, planner.states_sol, t_traj)
+        ta = mpclib.sample_acc(cfg.planner, planner.controls_sol, t_traj)
+        past_end = t_traj >= end_time
+        tv = tree_where(past_end, zero3, tv)
+        ta = tree_where(past_end, zero3, ta)
+        # stop mode or no trajectory: hold position
+        hold = stopping | ~traj_ready
+        hold_pos = tree_where(stopping, stop_pos, pos)
+        tp = tree_where(hold, hold_pos, tp)
+        tv = tree_where(hold, zero3, tv)
+        ta = tree_where(hold, zero3, ta)
+
+        # ---- control + dynamics ----
+        acc_cmd, ctrl_new = acc_command(cfg.control, ctrl, pos, vel, tp, tv,
+                                        ta, dt)
+        ctrl = tree_where(active, ctrl_new, ctrl)
+        new_vel = vel + acc_cmd * dt
+        new_pos = pos + vel * dt + 0.5 * acc_cmd * dt ** 2
+        step_len = torch.linalg.vector_norm(new_pos - pos, dim=-1)
+        pos = tree_where(active, new_pos, pos)
+        vel = tree_where(active, new_vel, vel)
+
+        # ---- world state at this tick ----
+        obs_pos_t, _ = obstacle_state(scenario, tk + dt)
+        # ~30 Hz history pushes; tick 0's push is the cycle-start push above
+        if k in ecfg.hist_ticks and k != 0:
+            d2 = det.fd_update(cfg.detector, d, obs_pos_t, tk + dt)
+            d = det.hist_push(d2, obs_pos_t)
+
+        # ---- monitor updates (masked once done) ----
+        dist_boxes = _aabb_distance(pos, obs_pos_t, scenario.bbox)
+        min_d = torch.amin(dist_boxes, dim=-1)
+        hit = torch.any(dist_boxes <= 0.0, dim=-1)
+        tol = ecfg.violation_tol
+        v_viol = torch.any(torch.abs(tv) > ecfg.vel_limit + tol, dim=-1)
+        a_viol = torch.any(torch.abs(ta) > ecfg.acc_limit + tol, dim=-1)
+        jerk = (ta - prev_acc) / dt
+        j_viol = torch.any(torch.abs(jerk) > ecfg.jerk_limit + tol,
+                           dim=-1) & has_prev
+        jmag = torch.linalg.vector_norm(jerk, dim=-1)
+        vmag = torch.linalg.vector_norm(tv, dim=-1)
+        amag = torch.linalg.vector_norm(ta, dim=-1)
+
+        upd = active
+        ui = upd.to(torch.int32)
+        zf = torch.zeros_like(vmag)
+        m = metrics
+        metrics = m._replace(
+            min_obstacle_dist=torch.where(
+                upd, torch.minimum(m.min_obstacle_dist, min_d),
+                m.min_obstacle_dist),
+            collision=m.collision | (hit & upd),
+            collision_count=m.collision_count + (hit & upd).to(torch.int32),
+            path_length=m.path_length + torch.where(upd, step_len, zf),
+            vel_violations=m.vel_violations + (v_viol & upd).to(torch.int32),
+            acc_violations=m.acc_violations + (a_viol & upd).to(torch.int32),
+            jerk_violations=m.jerk_violations + (j_viol & upd).to(torch.int32),
+            samples=m.samples + ui,
+            jerk_samples=m.jerk_samples + (has_prev & upd).to(torch.int32),
+            max_velocity=torch.where(upd, torch.maximum(m.max_velocity, vmag),
+                                     m.max_velocity),
+            max_acceleration=torch.where(
+                upd, torch.maximum(m.max_acceleration, amag),
+                m.max_acceleration),
+            sum_velocity=m.sum_velocity
+            + torch.where(upd & (vmag > 0.01), vmag, zf),
+            n_vel_valid=m.n_vel_valid + (upd & (vmag > 0.01)).to(torch.int32),
+            jerk_sq_sum=m.jerk_sq_sum
+            + torch.where(upd & has_prev, jmag ** 2, zf),
+            jerk_abs_sum=m.jerk_abs_sum
+            + torch.where(upd & has_prev, jmag, zf),
+        )
+        prev_acc = tree_where(active, ta, prev_acc)
+        has_prev = has_prev | active
+        yaw = _lookahead_yaw(cfg, planner, t_traj, yaw,
+                             active & traj_ready & ~hold & ~past_end)
+
+        # goal criterion (run_mpc_benchmark.py:268-276)
+        reached = (torch.linalg.vector_norm(pos - goal, dim=-1)
+                   < ecfg.goal_dist_threshold) \
+            & (torch.linalg.vector_norm(vel, dim=-1) < ecfg.goal_vel_threshold) \
+            & active
+        metrics = metrics._replace(
+            goal_reached=metrics.goal_reached | reached,
+            travel_time=torch.where(reached & ~done, tk + dt,
+                                    metrics.travel_time))
+        done = done | reached
+        active = ~done
+
+    new_carry = EngineCarry(
+        pos=pos, vel=vel, detector=d, planner=planner, controller=ctrl,
+        traj_age=traj_age, traj_ready=traj_ready,
+        prev_target_acc=prev_acc, has_prev_target=has_prev,
+        stopping=stopping, stop_pos=stop_pos, repeats_left=carry.repeats_left,
+        tracking_start=carry.tracking_start, yaw=yaw,
+        ref_anchor=carry.ref_anchor, done=done, metrics=metrics)
+    return new_carry, pos
+
+
+def run_episode(cfg: IntentMPCConfig, scenario: Scenario,
+                ref_traj: torch.Tensor, traj_len,
+                occ: Optional[OccupancyGrid] = None,
+                solver_iters: Optional[int] = None,
+                num_cycles: Optional[int] = None,
+                record_path: bool = False,
+                device=None):
+    """Run a batch of episodes (scenario axis S) on `device` (the GPU by
+    default). Returns (final EngineCarry, path (S, C, 3) or None)."""
+    dev = resolve_device(device)
+    scenario = Scenario(*(a.to(dev) for a in scenario))
+    ref_traj = ref_traj.to(dev)
+    occ = occ if occ is not None else empty_grid(dev)
+    n = num_cycles if num_cycles is not None else cfg.engine.num_cycles
+    carry = init_carry(cfg, scenario, device=dev)
+    traj_len = int(traj_len)
+    paths = []
+    for i in range(n):
+        carry, p = episode_step(cfg, scenario, ref_traj, traj_len, occ, carry,
+                                i, solver_iters)
+        if record_path:
+            paths.append(p)
+    return carry, (torch.stack(paths, dim=1) if record_path else None)
+
+
+def summarize(cfg: IntentMPCConfig, carry: EngineCarry) -> list:
+    """Host-side metric summary per scenario (BenchmarkMetrics fields)."""
+    m = Metrics(*(a.detach().cpu() for a in carry.metrics))
+    straight = float(torch.linalg.vector_norm(
+        torch.tensor(cfg.goal) - torch.tensor(cfg.start)))
+    dt = cfg.engine.control_dt
+    out = []
+    for i in range(m.goal_reached.shape[0]):
+        pl = float(m.path_length[i])
+        n_j = max(int(m.jerk_samples[i]), 1)
+        out.append({
+            "goal_reached": bool(m.goal_reached[i]),
+            "timeout_reached": not bool(m.goal_reached[i]),
+            "collision": bool(m.collision[i]),
+            "collision_count": int(m.collision_count[i]),
+            "flight_travel_time": float(m.travel_time[i]),
+            "path_length": pl,
+            "straight_line_distance": straight,
+            "path_efficiency": pl / straight if straight > 0 else 0.0,
+            "min_distance_to_obstacles": float(m.min_obstacle_dist[i]),
+            "vel_violation_count": int(m.vel_violations[i]),
+            "acc_violation_count": int(m.acc_violations[i]),
+            "jerk_violation_count": int(m.jerk_violations[i]),
+            "vel_total_samples": int(m.samples[i]),
+            "acc_total_samples": int(m.samples[i]),
+            "jerk_total_samples": int(m.jerk_samples[i]),
+            "max_velocity": float(m.max_velocity[i]),
+            "max_acceleration": float(m.max_acceleration[i]),
+            "avg_velocity": float(m.sum_velocity[i])
+            / max(int(m.n_vel_valid[i]), 1),
+            "jerk_rms": float(torch.sqrt(m.jerk_sq_sum[i] / n_j)),
+            "jerk_integral": float(m.jerk_abs_sum[i]) * dt,
+            "mpc_solve_count": int(m.solve_attempts[i]),
+            "mpc_solve_successes": int(m.solve_successes[i]),
+            "mpc_prim_res_avg": float(m.prim_res_sum[i])
+            / max(int(m.solve_attempts[i]), 1),
+            "mpc_prim_res_max": float(m.prim_res_max[i]),
+            "traj_collision_cycles": int(m.traj_collision_cycles[i]),
+            "stop_replans": int(m.stop_replans[i]),
+        })
+    return out

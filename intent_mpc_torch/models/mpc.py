@@ -1,0 +1,429 @@
+"""MPC planner: intent-weighted multi-hypothesis candidate solve and
+selection (port of intent_mpc_tpu/models/mpc.py, the predictor path).
+
+Rebuild of trajPlanner::mpcPlanner (trajectory_planner/mpcPlanner.cpp).
+The reference solves <=6 candidate QPs sequentially under a 0.15 s
+budget (makePlanWithPred, :571-661); here the 6 candidates of every
+scenario are one (S, 6) batch solved together.
+
+Reference quirks reproduced deliberately (as in the JAX package):
+  * candidates sort intent combos by descending probability, but
+    evaluateTraj indexes the weight vector with the sorted position.
+  * findClosestObstacle's 10-step loop reads statesSol[0]/[1] only.
+  * the first solve of an episode runs with no obstacle constraints.
+
+Every function takes a leading scenario axis S.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from intent_mpc_torch.models.predictor import (FORWARD, LEFT, RIGHT, STOP,
+                                               Prediction)
+from intent_mpc_torch.ops import qp as qplib
+from intent_mpc_torch.ops.admm import Factor, admm_factor, admm_solve
+from intent_mpc_torch.utils.config import PlannerConfig
+from intent_mpc_torch.utils.device import constant
+
+
+class PlannerState(NamedTuple):
+    """Warm-start / bookkeeping carry (mpcPlanner member state), (S, ...)."""
+
+    states_sol: torch.Tensor     # (S, H, 8) previous solution states
+    controls_sol: torch.Tensor   # (S, W, 5)
+    first_time: torch.Tensor     # (S,) bool (mpcPlanner::firstTime_)
+    has_solution: torch.Tensor   # (S,) bool
+    last_ref_start: torch.Tensor  # (S,) int32 (lastRefStartIdx_)
+    xref: torch.Tensor           # (S, H, 3) last reference window
+    rho: torch.Tensor            # (S,) ADMM base penalty
+    # carried shared factor (solver.factor_reuse_cycles > 1 only), refreshed
+    # every k-th cycle
+    fac_d: Optional[torch.Tensor] = None       # (S, n)
+    fac_e: Optional[qplib.ConVec] = None       # constraint-space scaling
+    fac_c: Optional[torch.Tensor] = None       # (S,)
+    fac_minv: Optional[torch.Tensor] = None    # (S, n, n)
+
+
+class PlanOutput(NamedTuple):
+    state: PlannerState
+    valid: torch.Tensor          # (S,) bool: this cycle produced a usable traj
+    best_idx: torch.Tensor       # (S,) int64 chosen candidate (sorted order)
+    candidate_states: torch.Tensor  # (S, 6, H, 8)
+    solved: torch.Tensor         # (S, 6) bool
+    prim_res: torch.Tensor       # (S, 6)
+
+
+def init_planner_state(cfg: PlannerConfig, batch: int,
+                       device="cpu") -> PlannerState:
+    H, W = cfg.horizon, cfg.mpc_window
+    S = batch
+    kw = dict(dtype=torch.float32, device=device)
+    fac = {}
+    if cfg.solver.factor_reuse_cycles > 1:
+        # identity-preconditioner placeholder until the first refresh;
+        # obs scaling sized for K slots + 1 second-series slot
+        n = cfg.num_vars
+        K = cfg.max_obstacles
+        fac = dict(
+            fac_d=torch.ones((S, n), **kw),
+            fac_e=qplib.ConVec(eq=torch.ones((S, H, 8), **kw),
+                               sb=torch.ones((S, H, 8), **kw),
+                               cb=torch.ones((S, W, 5), **kw),
+                               obs=torch.ones((S, W, K + 1), **kw)),
+            fac_c=torch.ones((S,), **kw),
+            fac_minv=torch.eye(n, **kw).expand(S, n, n).clone())
+    return PlannerState(
+        states_sol=torch.zeros((S, H, 8), **kw),
+        controls_sol=torch.zeros((S, W, 5), **kw),
+        first_time=torch.ones((S,), dtype=torch.bool, device=device),
+        has_solution=torch.zeros((S,), dtype=torch.bool, device=device),
+        last_ref_start=torch.zeros((S,), dtype=torch.int32, device=device),
+        xref=torch.zeros((S, H, 3), **kw),
+        rho=torch.full((S,), cfg.solver.rho, **kw),
+        **fac,
+    )
+
+
+def reference_window(cfg: PlannerConfig, input_traj: torch.Tensor,
+                     traj_len: int, curr_pos: torch.Tensor,
+                     last_start: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """getReferenceTraj (mpcPlanner.cpp:1199-1231): windowed nearest-point
+    search <= 3 s ahead of the monotone last start index; pads with the
+    last waypoint. input_traj (L, 3) shared by the batch; curr_pos (S, 3);
+    last_start (S,). Returns (xref (S, H, 3), new_start (S,))."""
+    L = input_traj.shape[0]
+    dev = curr_pos.device
+    max_fwd = int(round(cfg.max_ref_forward_time / cfg.ts))
+    idxs = last_start.to(torch.int64)[:, None] + torch.arange(max_fwd, device=dev)
+    in_range = idxs < traj_len
+    pts = input_traj[torch.clamp(idxs, 0, L - 1)]               # (S, F, 3)
+    d = torch.linalg.vector_norm(pts - curr_pos[:, None, :], dim=-1)
+    d = torch.where(in_range, d, torch.full_like(d, float("inf")))
+    start = last_start.to(torch.int64) + torch.argmin(d, dim=-1)
+    ref_idx = torch.clamp(start[:, None] + torch.arange(cfg.horizon, device=dev),
+                          0, traj_len - 1)
+    xref = input_traj[torch.clamp(ref_idx, 0, L - 1)]
+    return xref, start.to(torch.int32)
+
+
+def find_closest_obstacle(cfg: PlannerConfig, state: PlannerState,
+                          curr_pos: torch.Tensor, nominal_pos: torch.Tensor,
+                          visible: torch.Tensor) -> torch.Tensor:
+    """findClosestObstacle (mpcPlanner.cpp:663-708). nominal_pos (S, O, 3)
+    is predPos[i][FORWARD][0]. Returns (S,) int64."""
+    d = torch.linalg.vector_norm(curr_pos[:, None, :] - nominal_pos, dim=-1)
+    p0 = state.states_sol[:, 0, 0:3]
+    p1 = state.states_sol[:, 1, 0:3]
+    traj_dir = torch.atan2(p1[:, 1] - p0[:, 1], p1[:, 0] - p0[:, 0])
+    obs_dir = torch.atan2(nominal_pos[..., 1] - p0[:, None, 1],
+                          nominal_pos[..., 0] - p0[:, None, 0])
+    d_sol = torch.linalg.vector_norm(p0[:, None, :] - nominal_pos, dim=-1)
+    a = cfg.direction_weight_a
+    directional = d_sol * (a - torch.cos(traj_dir[:, None] - obs_dir))
+    use_d = (state.first_time | ~state.has_solution)[:, None]
+    score = torch.where(use_d, d, directional)
+    score = torch.where(visible, score, torch.full_like(score, float("inf")))
+    return torch.argmin(score, dim=-1)
+
+
+def intent_comb_weights(prob: torch.Tensor) -> torch.Tensor:
+    """Per-combo weights of the closest obstacle (getIntentComb :722-727 /
+    evaluateTraj :868-873): [STOP, LEFT, RIGHT, FORWARD, max(L,F), max(R,F)].
+    prob (S, 4) -> (S, 6)."""
+    return torch.stack([
+        prob[:, STOP], prob[:, LEFT], prob[:, RIGHT], prob[:, FORWARD],
+        torch.maximum(prob[:, LEFT], prob[:, FORWARD]),
+        torch.maximum(prob[:, RIGHT], prob[:, FORWARD]),
+    ], dim=-1)
+
+
+# combo -> (first series intent, second series intent or -1)
+_COMBO_FIRST = (STOP, LEFT, RIGHT, FORWARD, LEFT, RIGHT)
+_COMBO_SECOND = (-1, -1, -1, -1, FORWARD, FORWARD)
+
+
+def _rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t[s, idx[s, ...]] for a per-scenario index tensor."""
+    S = t.shape[0]
+    ar = torch.arange(S, device=t.device).reshape((S,) + (1,) * (idx.dim() - 1))
+    return t[ar, idx]
+
+
+def build_candidates(cfg: PlannerConfig, pred: Prediction,
+                     visible: torch.Tensor, closest: torch.Tensor):
+    """Per-candidate obstacle series (getIntentComb :710-769).
+
+    Slot layout (K = O + 1): slot j<O holds obstacle j (the closest one
+    carries the combo's first intent series, the others their argmax
+    intent); slot O holds the combo's second series of the closest
+    obstacle (combos 4/5 only).
+
+    Returns pos (S, 6, H, K, 3), size (S, 6, H, K, 3), active (S, 6, K).
+    """
+    S, O = pred.pos.shape[0], pred.pos.shape[1]
+    H = cfg.horizon
+    dev = pred.pos.device
+    am = torch.argmax(pred.intent_prob, dim=-1)                   # (S, O)
+    idx = am[:, :, None, None, None].expand(-1, -1, 1, pred.pos.shape[3], 3)
+    base_pos = torch.gather(pred.pos, 2, idx)[:, :, 0, :H]        # (S,O,H,3)
+    base_size = torch.gather(pred.size, 2, idx)[:, :, 0, :H]
+
+    cl_pos = _rows(pred.pos, closest)[:, :, :H]                   # (S,4,H,3)
+    cl_size = _rows(pred.size, closest)[:, :, :H]
+
+    first = constant(_COMBO_FIRST, dev, torch.int64)
+    second = constant(tuple(max(c, 0) for c in _COMBO_SECOND), dev,
+                      torch.int64)
+    has_second = constant(tuple(c >= 0 for c in _COMBO_SECOND), dev,
+                          torch.bool)
+    first_pos, first_size = cl_pos[:, first], cl_size[:, first]   # (S,6,H,3)
+    second_pos, second_size = cl_pos[:, second], cl_size[:, second]
+
+    is_cl = (torch.arange(O, device=dev)[None, :] == closest[:, None])
+    is_cl = is_cl[:, None, :, None, None]                         # (S,1,O,1,1)
+    pos = torch.where(is_cl, first_pos[:, :, None], base_pos[:, None])
+    size = torch.where(is_cl, first_size[:, :, None], base_size[:, None])
+    pos = torch.cat([pos, second_pos[:, :, None]], dim=2)         # (S,6,O+1,H,3)
+    size = torch.cat([size, second_size[:, :, None]], dim=2)
+
+    vis_cl = _rows(visible, closest)                              # (S,)
+    active = visible[:, None, :].expand(S, 6, O)
+    active = torch.cat(
+        [active, (has_second[None, :] & vis_cl[:, None])[..., None]], dim=-1)
+    return (pos.transpose(2, 3), size.transpose(2, 3),
+            active.to(pos.dtype))
+
+
+def _scores(cfg: PlannerConfig, cand_states, prev_states, have_prev, xref,
+            obs_pos, obs_size, obs_active):
+    """getTrajectoryScore components (mpcPlanner.cpp:771-848).
+
+    cand_states (S,6,H,8); prev_states (S,H,8); have_prev (S,);
+    xref (S,H,3); obs_pos/size (S,6,H,K,3); obs_active (S,6,K)."""
+    H = cfg.horizon
+    p = cand_states[..., 0:3]                                     # (S,6,H,3)
+
+    ncs = min(cfg.consistency_steps, H)
+    dc = torch.linalg.vector_norm(
+        p[:, :, :ncs] - prev_states[:, None, :ncs, 0:3], dim=-1)
+    consistency = torch.clamp(torch.mean(dc, dim=-1), min=0.1)
+    consistency = torch.where(have_prev[:, None], consistency,
+                              torch.zeros_like(consistency))
+
+    dd = torch.linalg.vector_norm(p - xref[:, None], dim=-1)
+    detour = torch.clamp(torch.mean(dd, dim=-1), min=0.1)
+
+    pz0 = torch.cat([p[..., 0:2], torch.zeros_like(p[..., 2:3])], dim=-1)
+    op = torch.cat([obs_pos[..., 0:2], torch.zeros_like(obs_pos[..., 2:3])],
+                   dim=-1)
+    d = torch.linalg.vector_norm(pz0[:, :, :, None, :] - op, dim=-1)  # (S,6,H,K)
+    max_size = torch.sqrt(obs_size[..., 0] ** 2 + obs_size[..., 1] ** 2)
+    w = 1.0 - torch.tanh(
+        0.5493061443340549 / (cfg.dynamic_safety_dist + max_size) * d)
+    w = w * obs_active[:, :, None, :]
+    tw = torch.sum(w, dim=-1)
+    step_score = torch.sum(d * w, dim=-1) / torch.clamp(tw, min=1e-12)
+    safety = torch.mean(step_score, dim=-1)
+    return consistency, detour, safety
+
+
+def evaluate_candidates(cfg: PlannerConfig, consistency, detour, safety,
+                        weights_sorted, solved):
+    """evaluateTraj (mpcPlanner.cpp:850-887): batch-average-normalized
+    scores, weighted by the position-permuted intent weights; masked
+    argmax over successful candidates. All (S, 6); returns (S,)."""
+    ok = solved.to(consistency.dtype)
+    n_ok = torch.clamp(torch.sum(ok, dim=-1), min=1.0)
+
+    def avg(v):
+        return (torch.sum(v * ok, dim=-1) / n_ok)[:, None]
+
+    cons = torch.where(consistency > 0,
+                       avg(consistency) / torch.clamp(consistency, min=1e-12),
+                       torch.zeros_like(consistency))
+    det = avg(detour) / torch.clamp(detour, min=1e-12)
+    saf = safety / torch.clamp(avg(safety), min=1e-12)
+    weighted = weights_sorted * (cons + det + saf)
+    weighted = torch.where(solved, weighted,
+                           torch.full_like(weighted, float("-inf")))
+    return torch.argmax(weighted, dim=-1)
+
+
+def _where_s(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """torch.where with a (S,) condition against (S, ...) tensors."""
+    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
+
+
+def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
+                        curr_pos: torch.Tensor, curr_vel: torch.Tensor,
+                        input_traj: torch.Tensor, traj_len: int,
+                        pred: Prediction, visible: torch.Tensor,
+                        max_iter: Optional[int] = None,
+                        cycle_idx: Optional[int] = None) -> PlanOutput:
+    """One replanning cycle (mpcCB body + makePlanWithPred) for a batch
+    of S scenarios; the 6 intent-combination QPs of each are one batch.
+
+    curr_pos/curr_vel (S, 3); input_traj (L, 3); pred over (S, O);
+    visible (S, O) bool; cycle_idx is the Python cycle counter that
+    drives the shared-factor refresh."""
+    W = cfg.mpc_window
+    S, O = pred.pos.shape[0], pred.pos.shape[1]
+    dev = curr_pos.device
+
+    # Cap the QP's obstacle slots at cfg.max_obstacles: keep the nearest
+    # visible obstacles. A stable descending sort breaks ties (the
+    # invisible ones all score -inf) by lower index first, as top_k does.
+    if O > cfg.max_obstacles:
+        d2 = torch.linalg.vector_norm(
+            pred.pos[:, :, FORWARD, 0, 0:2] - curr_pos[:, None, 0:2], dim=-1)
+        score = torch.where(visible, -d2, torch.full_like(d2, float("-inf")))
+        _, order = torch.sort(score, dim=-1, descending=True, stable=True)
+        nearest = order[:, :cfg.max_obstacles]
+        pred = Prediction(pos=_rows(pred.pos, nearest),
+                          size=_rows(pred.size, nearest),
+                          intent_prob=_rows(pred.intent_prob, nearest))
+        visible = _rows(visible, nearest)
+
+    xref, new_start = reference_window(
+        cfg, input_traj, traj_len, curr_pos, state.last_ref_start)
+
+    any_visible = torch.any(visible, dim=-1)
+    nominal = pred.pos[:, :, FORWARD, 0]                          # (S, O, 3)
+    closest = find_closest_obstacle(cfg, state, curr_pos, nominal, visible)
+
+    cand_pos, cand_size, cand_active = build_candidates(
+        cfg, pred, visible, closest)                              # (S,6,H,K,*)
+
+    # sort combos by (weight, combo-id) descending: a stable ascending
+    # argsort reversed gives descending weight with descending id on ties
+    w6 = intent_comb_weights(_rows(pred.intent_prob, closest))     # (S, 6)
+    order = torch.argsort(w6, dim=-1, stable=True).flip(-1)
+    cand_pos = _rows(cand_pos, order)
+    cand_size = _rows(cand_size, order)
+    cand_active = _rows(cand_active, order)
+
+    # firstTime / no-pred: no obstacle constraints (makePlanWithPred :593-602)
+    use_obs = (~state.first_time) & any_visible
+    cand_active = cand_active * use_obs.to(cand_active.dtype)[:, None, None]
+
+    # obstacle param conversion (updateObstacleParam :1148-1197):
+    # semi-axes = size/2 + dynamic safety; yaw 0; all dynamic.
+    qsize = cand_size[:, :, :W] / 2.0 + cfg.dynamic_safety_dist
+    qpos = cand_pos[:, :, :W]
+    qyaw = torch.zeros(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
+    qdyn = torch.ones(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
+    qact = cand_active[:, :, None, :].expand(qpos.shape[:-1])
+
+    # linearization points: previous solution states or current position
+    lin = _where_s(state.has_solution, state.states_sol[:, :W, 0:3],
+                   curr_pos[:, None, :].expand(S, W, 3))
+    x0 = torch.cat([curr_pos, curr_vel], dim=-1)
+    qps = qplib.build_qp(cfg, x0[:, None], xref[:, None], qpos, qsize, qyaw,
+                         qdyn, qact, lin[:, None])              # batch (S, 6)
+
+    warm = _where_s(state.has_solution,
+                    qplib.merge_z(state.states_sol, state.controls_sol),
+                    torch.zeros((S, cfg.num_vars), dtype=qpos.dtype,
+                                device=dev))
+    warm6 = warm[:, None, :].expand(S, 6, cfg.num_vars).contiguous()
+    rho = state.rho[:, None]          # broadcasts over the candidate axis
+
+    # one factorization per scenario: the candidate-mean QP with union
+    # obstacle activity; each candidate refines against its own M
+    qp_mean = qplib.QPData(
+        q=qps.q.mean(1), l=qps.l.map(lambda a: a.mean(1)),
+        u=qps.u.map(lambda a: a.mean(1)), G=qps.G.mean(1),
+        obs_dyn=qps.obs_dyn.mean(1), obs_active=qps.obs_active.amax(1),
+        obs_slack=qps.obs_slack.mean(1))
+    # temporal factor reuse: refresh only every k-th cycle (a batch-uniform
+    # predicate, so the skipped factorization is not computed); CG against
+    # each candidate's own operator absorbs the drift. Without a carried
+    # factor (k = 1) or a cycle counter, every call refreshes.
+    k_reuse = cfg.solver.factor_reuse_cycles
+    reuse = (k_reuse > 1 and state.fac_minv is not None
+             and cycle_idx is not None)
+    Kq = qps.G.shape[-2]      # the carried obs scaling is sized for the maximum
+    if reuse and cycle_idx % k_reuse != 0:
+        fac = Factor(D=state.fac_d,
+                     E=state.fac_e._replace(obs=state.fac_e.obs[..., :Kq]),
+                     c=state.fac_c, Minv=state.fac_minv)
+    else:
+        fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
+    fac_carry = None
+    if reuse:
+        e_pad = torch.cat([fac.E.obs, state.fac_e.obs[..., Kq:]], dim=-1)
+        fac_carry = (fac.D, fac.E._replace(obs=e_pad), fac.c, fac.Minv)
+    res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho, factor=fac)
+    states6, _ = qplib.split_z(res.x, cfg)                        # (S,6,H,8)
+
+    # Acceptance mirrors the reference: OSQP's status is never checked
+    # (mpcPlanner.cpp:513-526); only numerically broken results are rejected.
+    accepted = torch.isfinite(res.prim_res) & (res.prim_res < 1e3) \
+        & torch.all(torch.isfinite(res.x), dim=-1)
+
+    consistency, detour, safety = _scores(
+        cfg, states6, state.states_sol, state.has_solution & ~state.first_time,
+        xref, cand_pos, cand_size, cand_active)
+
+    # weight permutation quirk: sorted position i gets weight of combo id i
+    best = evaluate_candidates(cfg, consistency, detour, safety, w6, accepted)
+
+    valid = torch.any(accepted, dim=-1)
+    x_best = _rows(res.x, best)
+    Xb, Ub = qplib.split_z(x_best, cfg)
+
+    def keep(new, old):
+        return _where_s(valid, new, old)
+
+    new_state = PlannerState(
+        states_sol=keep(Xb, state.states_sol),
+        controls_sol=keep(Ub, state.controls_sol),
+        first_time=state.first_time & ~valid,
+        has_solution=state.has_solution | valid,
+        last_ref_start=new_start,
+        xref=keep(xref, state.xref),
+        rho=state.rho,
+        fac_d=fac_carry[0] if fac_carry is not None else state.fac_d,
+        fac_e=fac_carry[1] if fac_carry is not None else state.fac_e,
+        fac_c=fac_carry[2] if fac_carry is not None else state.fac_c,
+        fac_minv=fac_carry[3] if fac_carry is not None else state.fac_minv,
+    )
+    return PlanOutput(state=new_state, valid=valid, best_idx=best,
+                      candidate_states=states6, solved=res.solved,
+                      prim_res=res.prim_res)
+
+
+# ---------------------------------------------------------------------------
+# Trajectory sampling (getPos/getVel/getAcc/getRef, mpcPlanner.cpp:1257-1324)
+# ---------------------------------------------------------------------------
+
+def _interp(rows: torch.Tensor, ts: float, t: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation with end clamping: rows (S, N, d), t (S, ...)
+    float32 -> (S, ..., d). idx = floor(t/ts) clamped; next = min(idx+1, N-1)."""
+    n = rows.shape[1]
+    idx = torch.clamp(torch.floor(t / ts).to(torch.int64), 0, n - 1)
+    nxt = torch.clamp(idx + 1, max=n - 1)
+    frac = (t - idx.to(rows.dtype) * ts) / ts
+    r0 = _rows(rows, idx)
+    r1 = _rows(rows, nxt)
+    return r0 + (r1 - r0) * frac[..., None]
+
+
+def sample_pos(cfg: PlannerConfig, states_sol: torch.Tensor, t) -> torch.Tensor:
+    return _interp(states_sol[..., 0:3], cfg.ts, t)
+
+
+def sample_vel(cfg: PlannerConfig, states_sol: torch.Tensor, t) -> torch.Tensor:
+    return _interp(states_sol[..., 3:6], cfg.ts, t)
+
+
+def sample_acc(cfg: PlannerConfig, controls_sol: torch.Tensor, t) -> torch.Tensor:
+    return _interp(controls_sol[..., 0:3], cfg.ts, t)
+
+
+def sample_ref(cfg: PlannerConfig, xref: torch.Tensor, t) -> torch.Tensor:
+    return _interp(xref, cfg.ts, t)

@@ -1,0 +1,93 @@
+"""The PyTorch port stands alone: no module of intent_mpc_torch, and not
+chip_smoke.py, imports jax, jaxlib or the JAX package, and the entry
+points run on the GPU unless told otherwise."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "intent_mpc_tpu")
+
+torch.set_num_threads(1)
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "intent_mpc_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def test_no_jax_imports_in_port_sources():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported(p)
+           if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_port_loads_no_jax():
+    """Every module of the package, imported in a fresh interpreter."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import intent_mpc_torch as p\n"
+        "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "assert len(mods) > 15, mods\n"
+        "assert not bad, bad\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def _entry_calls():
+    from intent_mpc_torch.engine import closed_loop as cl
+    from intent_mpc_torch.models.world import straight_line_ref_traj
+    from intent_mpc_torch.parallel import sharding as sh
+    from intent_mpc_torch.utils.config import small_config
+    cfg = small_config(num_obstacles=2, horizon=4)
+    scen = sh.stack_scenarios(cfg, [0], device="cpu")
+    ref = straight_line_ref_traj(cfg.start, cfg.goal)
+    return {
+        "init_carry": lambda: cl.init_carry(cfg, scen),
+        "run_episode": lambda: cl.run_episode(cfg, scen, ref, ref.shape[0],
+                                              num_cycles=1),
+        "stack_scenarios": lambda: sh.stack_scenarios(cfg, [0]),
+        "batch_rollout": lambda: sh.batch_rollout(cfg, scen, ref,
+                                                  ref.shape[0], num_cycles=1),
+    }
+
+
+@pytest.mark.parametrize("entry", ["init_carry", "run_episode",
+                                   "stack_scenarios", "batch_rollout"])
+def test_entry_points_default_to_cuda(entry):
+    """Without a device argument an entry point runs on CUDA; with no CUDA
+    device it raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_calls()[entry]()

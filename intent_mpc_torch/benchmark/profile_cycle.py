@@ -1,7 +1,7 @@
 """Where a closed-loop cycle's time goes on the GPU.
 
     python -m intent_mpc_torch.benchmark.profile_cycle [--scenarios 128]
-        [--cycles 4] [--trace chiprun_out/cycle_trace.json]
+        [--cycles 4] [--trace cycle_trace.json]
 
 Runs the default DYNUS closed loop, warms up on cycles 0-3, then
 profiles `--cycles` further cycles (4.. , so one factor refresh and

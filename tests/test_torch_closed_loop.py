@@ -1,5 +1,5 @@
 """Port parity: the closed loop (intent_mpc_torch.engine.closed_loop) per
-cycle against the JAX package on the driver-entry config, and per seed on
+cycle against the JAX package on the `__graft_entry__` config, and per seed on
 the production DYNUS config (slow)."""
 
 import jax

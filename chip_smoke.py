@@ -18,7 +18,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
   5. card/cpu  the same scenarios on the GPU and on the CPU (plain
                versions): positions held to 1e-3 m where the iteration is
                stable (see the phase)
-  6. modules   neither jax nor the JAX package was imported
+  6. kernel    fleet_admm against its plain version at 128 and at 32
+               scenarios, on the real candidate QPs of a constrained cycle
+               of the fused DYNUS loop: after 1 iteration x within 1e-5 of
+               max|x|, after 10 the unscaled candidate states within
+               1e-3 m, after 100 both finite with the same acceptance
+               mask; and the full solve of a small config within 1e-3
+  7. loop_fused the DYNUS loop with fused_solve=True (bench.py --fused)
+               for 8 cycles at 128 and at 32 scenarios: exactly one
+               fleet_admm launch per cycle and no ew_chain launch
+  8. card/cpu  the fused loop on the small config, held to 1e-3 m
+  9. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -174,6 +184,14 @@ def finite_carry(carry):
     return not bad
 
 
+def fused(cfg):
+    """The config with the fleet-fused solve, as bench.py --fused sets it."""
+    import dataclasses
+    return cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                fused_solve=True)))
+
+
 def run_loop(cfg, S, cycles, device):
     """Drive the closed loop through the public entry points; returns
     (carry, per-cycle seconds with a synchronize after each cycle)."""
@@ -198,6 +216,158 @@ def run_loop(cfg, S, cycles, device):
     return carry, secs, positions
 
 
+def capture_fused_qps(cfg, S, cycle, device):
+    """The candidate QPs that the planner hands to fleet_admm at `cycle` of
+    the fused DYNUS loop (cycles 0..cycle run from a fresh carry): a
+    recorder stands in for mpc.fleet_admm during this run only."""
+    from intent_mpc_torch.models import mpc as mpclib
+    solve = mpclib.fleet_admm
+    seen = []
+
+    def record(cfg_, qps, warm, max_iter=None, **kw):
+        seen.append((qps, warm, kw.get("rho_override")))
+        return solve(cfg_, qps, warm, max_iter, **kw)
+    mpclib.fleet_admm = record
+    try:
+        run_loop(fused(cfg), S, cycle + 1, device)
+    finally:
+        mpclib.fleet_admm = solve
+    return seen[cycle]
+
+
+def small_fleet_qps(pcfg, S, device):
+    """(S, 6) seeded candidate QPs at the small config of the fleet parity
+    test (horizon 10, 4 obstacle slots, 3 active, static ones yawed)."""
+    import numpy as np
+    import torch
+    from intent_mpc_torch.ops import qp as qplib
+    H, W, K = pcfg.horizon, pcfg.mpc_window, pcfg.max_obstacles
+    cols = [[] for _ in range(8)]
+    for p in range(S * 6):
+        rng = np.random.RandomState(p)
+        x0 = np.array([0.0, 0.0, 2.0, 1.0, 0.0, 0.0])
+        xref = np.stack([np.linspace(0, 2.5 * H, H), np.zeros(H),
+                         np.full(H, 2.0)], axis=-1)
+        oxyz, osize = np.zeros((W, K, 3)), np.ones((W, K, 3))
+        yaw, dyn, act = np.zeros((W, K)), np.ones((W, K)), np.zeros((W, K))
+        for k in range(3):
+            p0 = np.array([5.0 + 3 * k, (-1) ** k * 2.5, 2.0])
+            v = np.array([0.2, -0.1 * (-1) ** k, 0.0])
+            oxyz[:, k] = p0 + np.arange(W)[:, None] * 0.1 * v
+            osize[:, k] = 0.4 + pcfg.dynamic_safety_dist
+            act[:, k] = 1.0
+            if k % 2 == 1:
+                dyn[:, k] = 0.0
+                yaw[:, k] = rng.uniform(-1, 1)
+        lin = x0[None, 0:3] + np.arange(W)[:, None] * 0.1 * x0[None, 3:6]
+        for i, a in enumerate((x0, xref, oxyz, osize, yaw, dyn, act, lin)):
+            cols[i].append(a)
+    args = [torch.as_tensor(np.stack(c).reshape((S, 6) + c[0].shape),
+                            dtype=torch.float32, device=device) for c in cols]
+    return qplib.build_qp(pcfg, *args)
+
+
+def accepted(res):
+    """The planner's acceptance rule (models/mpc.py)."""
+    import torch
+    return (torch.isfinite(res.prim_res) & (res.prim_res < 1e3)
+            & torch.all(torch.isfinite(res.x), dim=-1))
+
+
+def fleet_bound(pcfg, fp, iters, refine, live_k):
+    """Least time for the fleet solve on an H100: each input read once
+    (Minv's live n x n block; A_ext as its CSR arrays) and each output
+    written once, over HBM bandwidth, against the float32 operations this
+    solve needs over the float32 peak: per live candidate and iteration
+    (1 + refine) Minv applies of 2 n^2, 2 + 2 refine sparse A_ext products
+    of 2 nnz, and the obstacle, linear-row and vector elementwise work."""
+    from intent_mpc_torch.ops import fleet as fl
+    S, n = fp.minv.shape[0], pcfg.num_vars
+    d = fl.fleet_dims(pcfg, fp.gx.shape[-1], S)
+    nnz = int(fl.csr(fl.a_ext(pcfg, d.K))[0][-1])
+    per_iter = ((1 + refine) * 2 * n * n + (2 + 2 * refine) * 2 * nnz
+                + (20 * refine + 30) * d.W * live_k
+                + (3 * refine + 14) * d.m_lin + (8 + 5 * refine) * n)
+    flops = per_iter * fl.LIVE * S * iters
+    nbytes = S * n * n * 4 + 2 * (2 * nnz + d.n_ext + d.n_pad + 2) * 4
+    nbytes += sum(t.numel() * 4 for f, t in zip(fp._fields, fp)
+                  if f not in ("a_ext", "minv"))
+    nbytes += S * fl.LANES * (d.n_pad + d.lin_pad + d.W * d.K) * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops)
+
+
+def check_fleet_kernel(cfg, S, dev):
+    """fleet_admm against fleet_solve_reference on the QPs of the third
+    cycle (the second with obstacle rows) of the fused DYNUS loop."""
+    import torch
+    from intent_mpc_torch.ops import fleet as fl
+    from intent_mpc_torch.ops import qp as qplib
+    pcfg = cfg.planner
+    refine = pcfg.solver.shared_refine_iters
+    qps, warm, rho = capture_fused_qps(cfg, S, 2, dev)
+    rows = int(qps.obs_active.sum())
+    check(rows > 0, "the captured cycle has no obstacle rows")
+    fp, fac = fl.fleet_setup(pcfg, qps, warm, rho_override=rho)
+    out = {"scenarios": S, "problems": S * 6, "active_obstacle_rows": rows}
+    for iters in (1, 10, 100):
+        got = fl.fleet_solve(pcfg, fp, iters, refine)
+        want = fl.fleet_solve_reference(pcfg, fp, iters, refine)
+        torch.cuda.synchronize()
+        rg = fl.fleet_result(pcfg, qps, fac, *got)
+        rw = fl.fleet_result(pcfg, qps, fac, *want)
+        xg, xw = got[0][:, :fl.LIVE], want[0][:, :fl.LIVE]
+        rel_x = float((xg - xw).abs().max() / xw.abs().max())
+        states = float((qplib.split_z(rg.x, pcfg)[0]
+                        - qplib.split_z(rw.x, pcfg)[0]).abs().max())
+        duals = max(float((a - b).abs().max() / (b.abs().max() + 1.0))
+                    for a, b in zip(rg.y, rw.y))
+        same_mask = bool(torch.equal(accepted(rg), accepted(rw)))
+        out["iters_%d" % iters] = dict(
+            x_rel_diff=rel_x, state_max_abs_diff=states, dual_rel_diff=duals,
+            accepted=int(accepted(rg).sum()), same_acceptance=same_mask)
+        if iters == 1:
+            check(rel_x <= 1e-5, ("fleet_admm 1 iteration", S, rel_x))
+        elif iters == 10:
+            check(states <= 1e-3, ("fleet_admm 10 iterations", S, states))
+            out["max_abs_err"] = states
+        else:
+            check(all(bool(torch.isfinite(t).all())
+                      for t in list(got) + list(want)),
+                  ("fleet_admm 100 iterations: non-finite", S))
+            check(same_mask, ("fleet_admm 100 iterations: acceptance", S))
+    ms = cuda_time_ms(lambda: fl.fleet_solve(pcfg, fp, 100, refine), reps=20)
+    plain_ms = cuda_time_ms(
+        lambda: fl.fleet_solve_reference(pcfg, fp, 100, refine), reps=3)
+    bound_ms, bound_by, nbytes, flops = fleet_bound(pcfg, fp, 100, refine,
+                                                    qps.G.shape[-2])
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, iters_timed=100)
+    return out
+
+
+def check_fleet_small(dev):
+    """The full 60-iteration solve at the fleet parity test's config
+    (horizon 10, 4 slots, 4 scenarios, stationary refinement x3): kernel
+    and plain version agree to 1e-3."""
+    import torch
+    from intent_mpc_torch.ops import fleet as fl
+    from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
+    pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+        max_iter=60, shared_refine_mode="stationary", shared_refine_iters=3))
+    qps = small_fleet_qps(pcfg, 4, dev)
+    warm = torch.zeros((4, 6, pcfg.num_vars), device=dev)
+    fp, _ = fl.fleet_setup(pcfg, qps, warm)
+    got = fl.fleet_solve(pcfg, fp, 60, 3)
+    want = fl.fleet_solve_reference(pcfg, fp, 60, 3)
+    torch.cuda.synchronize()
+    diff = float((got[0][:, :fl.LIVE] - want[0][:, :fl.LIVE]).abs().max())
+    check(diff <= 1e-3, ("fleet_admm small config", diff))
+    return diff
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -206,6 +376,7 @@ def main():
     sys.path.insert(0, HERE)
     from intent_mpc_torch.ops import build
     from intent_mpc_torch.ops import ew_chain as ew
+    from intent_mpc_torch.ops import fleet as fl
     from intent_mpc_torch.utils.config import IntentMPCConfig, small_config
     from intent_mpc_torch.utils.device import resolve_device
 
@@ -250,15 +421,19 @@ def main():
     for s in (128, 32):
         run_loop(cfg, s, 1, dev)          # warm-up: library handles, caches
         ew.EW_LAUNCHES = 0
+        fl.FLEET_LAUNCHES = 0
         carry, secs, _ = run_loop(cfg, s, 8, dev)
         launches = ew.EW_LAUNCHES
         iters = cfg.planner.solver.max_iter
         check(launches == 8 * iters, ("kernel launches", launches, 8 * iters))
+        check(fl.FLEET_LAUNCHES == 0, ("fleet_admm launches on the default "
+                                       "path", fl.FLEET_LAUNCHES))
         check(finite_carry(carry), "non-finite carry leaf")
         succ = carry.metrics.solve_successes
         check(int(succ.sum()) > 0, "no successful solve")
         elapsed = sum(secs)
-        loop[s] = dict(launches=launches, cycle_ms=elapsed / 8 * 1e3,
+        loop[s] = dict(launches=launches, fleet_admm_launches=0,
+                       cycle_ms=elapsed / 8 * 1e3,
                        cycle_ms_each=[round(x * 1e3, 3) for x in secs],
                        solves_per_s=s * 6 * 8 / elapsed,
                        min_solve_successes=int(succ.min()))
@@ -286,7 +461,49 @@ def main():
         phase("card_vs_cpu", config=name, scenarios=2, cycles=4,
               max_pos_diff_per_cycle=diffs, held_cycles=held, tol=1e-3)
 
-    # ---- 6. clean modules ----
+    # ---- 6. fleet kernel against plain version, real QPs ----
+    fleet = {}
+    for S in (128, 32):
+        fleet[S] = check_fleet_kernel(cfg, S, dev)
+        phase("kernel", kernel="fleet_admm", **fleet[S])
+    phase("kernel", kernel="fleet_admm", config="small", scenarios=4,
+          iters=60, max_abs_diff=check_fleet_small(dev), tol=1e-3)
+
+    # ---- 7. fused closed loop at production size ----
+    loop_f = {}
+    for s in (128, 32):
+        run_loop(fused(cfg), s, 1, dev)   # warm-up
+        ew.EW_LAUNCHES = 0
+        fl.FLEET_LAUNCHES = 0
+        carry, secs, _ = run_loop(fused(cfg), s, 8, dev)
+        launches, ew_launches = fl.FLEET_LAUNCHES, ew.EW_LAUNCHES
+        check(launches == 8, ("fleet_admm launches", launches, 8))
+        check(ew_launches == 0, ("ew_chain launches on the fused path",
+                                 ew_launches))
+        check(finite_carry(carry), "non-finite carry leaf (fused)")
+        succ = carry.metrics.solve_successes
+        check(int(succ.sum()) > 0, "no successful solve (fused)")
+        elapsed = sum(secs)
+        loop_f[s] = dict(launches=launches, ew_chain_launches=ew_launches,
+                         cycle_ms=elapsed / 8 * 1e3,
+                         cycle_ms_each=[round(x * 1e3, 3) for x in secs],
+                         solves_per_s=s * 6 * 8 / elapsed,
+                         min_solve_successes=int(succ.min()))
+        phase("loop_fused", scenarios=s, cycles=8, **loop_f[s])
+
+    # ---- 8. fused loop, card against CPU, small config ----
+    cc, _, pg = run_loop(fused(tiny), 2, 4, dev)
+    cc_cpu, _, pc = run_loop(fused(tiny), 2, 4, "cpu")
+    diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
+    check(max(diffs) <= 1e-3, ("fused small", diffs))
+    check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
+    check(torch.equal(cc.metrics.solve_successes.cpu(),
+                      cc_cpu.metrics.solve_successes),
+          ("solve counts differ", "fused small"))
+    phase("card_vs_cpu", config="small", solve="fused", scenarios=2,
+          cycles=4, max_pos_diff_per_cycle=diffs, held_cycles=4, tol=1e-3)
+
+    # ---- 9. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -305,6 +522,20 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "fleet_admm",
+        "route": "cuda",
+        "source": "intent_mpc_torch/csrc/fleet_admm.cu",
+        "replaces": "intent_mpc_tpu/ops/pallas_fused.py:300 (_fleet_kernel)",
+        "launches": loop_f[128]["launches"],
+        "max_abs_err": fleet[128]["max_abs_err"],
+        "max_abs_diff": fleet[128]["max_abs_err"],
+        "max_abs_err_of": "unscaled candidate states after 10 iterations",
+        "ms": fleet[128]["ms"],
+        "plain_ms": fleet[128]["plain_ms"],
+        "bound_ms": fleet[128]["bound_ms"],
+        "bound_by": fleet[128]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
 """Where a closed-loop cycle's time goes on the GPU.
 
     python -m intent_mpc_torch.benchmark.profile_cycle [--scenarios 128]
-        [--cycles 4] [--trace cycle_trace.json]
+        [--cycles 4] [--fused] [--trace cycle_trace.json]
 
-Runs the default DYNUS closed loop, warms up on cycles 0-3, then
+Runs the default DYNUS closed loop (with `--fused`, the fleet-fused
+solve of bench.py --fused), warms up on cycles 0-3, then
 profiles `--cycles` further cycles (4.. , so one factor refresh and
 three reuse cycles at the default k = 4) with torch.profiler, and prints
 one JSON line: wall time per cycle, device-busy time per cycle (the
@@ -21,12 +22,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from intent_mpc_torch.benchmark.bench import bench_config
 from intent_mpc_torch.engine import closed_loop as cl
 from intent_mpc_torch.models.occupancy import empty_grid
 from intent_mpc_torch.models.world import straight_line_ref_traj
 from intent_mpc_torch.ops import ew_chain as ew
+from intent_mpc_torch.ops import fleet as fl
 from intent_mpc_torch.parallel import sharding as sh
-from intent_mpc_torch.utils.config import IntentMPCConfig
 from intent_mpc_torch.utils.device import resolve_device
 
 
@@ -34,11 +36,12 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scenarios", type=int, default=128)
     ap.add_argument("--cycles", type=int, default=4)
+    ap.add_argument("--fused", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
     dev = resolve_device(None)
-    cfg = IntentMPCConfig()
+    cfg = bench_config(fused=args.fused)
     scen = sh.stack_scenarios(cfg, range(args.scenarios), device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device=dev)
     occ = empty_grid(dev)
@@ -47,7 +50,7 @@ def main():
         carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
     torch.cuda.synchronize()
 
-    ew.EW_LAUNCHES = 0
+    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(4, 4 + args.cycles):
@@ -74,12 +77,13 @@ def main():
     c = args.cycles
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "scenarios": args.scenarios, "cycles": c,
+        "scenarios": args.scenarios, "cycles": c, "fused": args.fused,
         "wall_ms_per_cycle": wall / c * 1e3,
         "device_busy_ms_per_cycle": busy_us / c / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernel_launches_per_cycle": len(kernels) / c,
         "ew_chain_launches_per_cycle": ew.EW_LAUNCHES / c,
+        "fleet_admm_launches_per_cycle": fl.FLEET_LAUNCHES / c,
         "top_kernels": [{"name": k[:80], "count_per_cycle": n / c,
                          "device_ms_per_cycle": t / c / 1e3}
                         for k, (n, t) in top],

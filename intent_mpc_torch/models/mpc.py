@@ -24,7 +24,9 @@ import torch
 from intent_mpc_torch.models.predictor import (FORWARD, LEFT, RIGHT, STOP,
                                                Prediction)
 from intent_mpc_torch.ops import qp as qplib
-from intent_mpc_torch.ops.admm import Factor, admm_factor, admm_solve
+from intent_mpc_torch.ops.admm import (Factor, admm_factor, admm_solve,
+                                       candidate_mean)
+from intent_mpc_torch.ops.fleet import fleet_admm
 from intent_mpc_torch.utils.config import PlannerConfig
 from intent_mpc_torch.utils.device import constant
 
@@ -332,32 +334,36 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
     warm6 = warm[:, None, :].expand(S, 6, cfg.num_vars).contiguous()
     rho = state.rho[:, None]          # broadcasts over the candidate axis
 
-    # one factorization per scenario: the candidate-mean QP with union
-    # obstacle activity; each candidate refines against its own M
-    qp_mean = qplib.QPData(
-        q=qps.q.mean(1), l=qps.l.map(lambda a: a.mean(1)),
-        u=qps.u.map(lambda a: a.mean(1)), G=qps.G.mean(1),
-        obs_dyn=qps.obs_dyn.mean(1), obs_active=qps.obs_active.amax(1),
-        obs_slack=qps.obs_slack.mean(1))
-    # temporal factor reuse: refresh only every k-th cycle (a batch-uniform
-    # predicate, so the skipped factorization is not computed); CG against
-    # each candidate's own operator absorbs the drift. Without a carried
-    # factor (k = 1) or a cycle counter, every call refreshes.
-    k_reuse = cfg.solver.factor_reuse_cycles
-    reuse = (k_reuse > 1 and state.fac_minv is not None
-             and cycle_idx is not None)
-    Kq = qps.G.shape[-2]      # the carried obs scaling is sized for the maximum
-    if reuse and cycle_idx % k_reuse != 0:
-        fac = Factor(D=state.fac_d,
-                     E=state.fac_e._replace(obs=state.fac_e.obs[..., :Kq]),
-                     c=state.fac_c, Minv=state.fac_minv)
-    else:
-        fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
     fac_carry = None
-    if reuse:
-        e_pad = torch.cat([fac.E.obs, state.fac_e.obs[..., Kq:]], dim=-1)
-        fac_carry = (fac.D, fac.E._replace(obs=e_pad), fac.c, fac.Minv)
-    res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho, factor=fac)
+    if cfg.solver.fused_solve:
+        # the fleet kernel (ops/fleet.py): one launch solves every candidate
+        # of every scenario; it factors each cycle and carries no factor,
+        # so the carried fac_* fields pass through unchanged
+        res = fleet_admm(cfg, qps, warm6, max_iter, rho_override=state.rho)
+    else:
+        # one factorization per scenario: the candidate-mean QP with union
+        # obstacle activity; each candidate refines against its own M
+        qp_mean = candidate_mean(qps)
+        # temporal factor reuse: refresh only every k-th cycle (a
+        # batch-uniform predicate, so the skipped factorization is not
+        # computed); CG against each candidate's own operator absorbs the
+        # drift. Without a carried factor (k = 1) or a cycle counter, every
+        # call refreshes.
+        k_reuse = cfg.solver.factor_reuse_cycles
+        reuse = (k_reuse > 1 and state.fac_minv is not None
+                 and cycle_idx is not None)
+        Kq = qps.G.shape[-2]  # the carried obs scaling is sized for the maximum
+        if reuse and cycle_idx % k_reuse != 0:
+            fac = Factor(D=state.fac_d,
+                         E=state.fac_e._replace(obs=state.fac_e.obs[..., :Kq]),
+                         c=state.fac_c, Minv=state.fac_minv)
+        else:
+            fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
+        if reuse:
+            e_pad = torch.cat([fac.E.obs, state.fac_e.obs[..., Kq:]], dim=-1)
+            fac_carry = (fac.D, fac.E._replace(obs=e_pad), fac.c, fac.Minv)
+        res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
+                         factor=fac)
     states6, _ = qplib.split_z(res.x, cfg)                        # (S,6,H,8)
 
     # Acceptance mirrors the reference: OSQP's status is never checked

@@ -1,5 +1,7 @@
 """Batched OSQP-style ADMM solver (port of intent_mpc_tpu/ops/admm.py,
-the default closed-loop path).
+the default closed-loop path). The fleet-fused path
+(`SolverConfig.fused_solve`) solves with ops/fleet.py instead and shares
+only `admm_factor` with this module.
 
 Same algorithm as OSQP: Ruiz equilibration, per-row penalty rho (1e3x on
 equality rows, 1e-6 on loose rows), over-relaxed ADMM:
@@ -59,8 +61,21 @@ class Factor(NamedTuple):
     Minv: torch.Tensor       # (..., n, n)
 
 
-def check_supported(scfg: SolverConfig) -> None:
-    """Raise for the solver options this port does not run yet."""
+# options that only admm_solve reads: the fleet-fused solve (ops/fleet.py)
+# ignores them, as the JAX planner's fused branch does (mpc.py:419-453)
+_SOLVE_ONLY = ("truncation", "adaptive_rho", "woodbury_candidates",
+               "block_refine", "folded_refine", "flat_iter",
+               "shared_refine_warm_frac", "shared_factor",
+               "shared_refine_mode", "factor_drift_refresh")
+
+
+def check_supported(scfg: SolverConfig, fused: Optional[bool] = None) -> None:
+    """Raise for the solver options this port does not run yet. With
+    `fused` True the options that only admm_solve reads are not checked
+    (the fleet-fused solve and the factor ignore them); by default
+    `fused` is the config's own fused_solve, and admm_solve passes
+    False."""
+    fused = scfg.fused_solve if fused is None else fused
     unported = {
         "truncation": scfg.truncation != "fixed",
         "adaptive_rho": scfg.adaptive_rho,
@@ -68,7 +83,6 @@ def check_supported(scfg: SolverConfig) -> None:
         "block_refine": scfg.block_refine,
         "folded_refine": scfg.folded_refine,
         "flat_iter": scfg.flat_iter,
-        "fused_solve": scfg.fused_solve,
         "minv_dtype": scfg.minv_dtype != "f32",
         "shared_refine_warm_frac": scfg.shared_refine_warm_frac != 0.0,
         "structured_factor": not scfg.structured_factor,
@@ -78,7 +92,8 @@ def check_supported(scfg: SolverConfig) -> None:
         "temporal_rho": scfg.temporal_rho,
         "polish": scfg.polish,
     }
-    bad = [k for k, v in unported.items() if v]
+    bad = [k for k, v in unported.items()
+           if v and not (fused and k in _SOLVE_ONLY)]
     if bad:
         raise NotImplementedError(
             "solver options not ported: %s" % ", ".join(bad))
@@ -130,13 +145,24 @@ def ruiz_equilibrate(cfg: PlannerConfig, qp: QPData, hdiag: torch.Tensor,
     return Scaling(D=D, E=E, c=c)
 
 
+def candidate_mean(qps: QPData) -> QPData:
+    """The QP one shared factor represents for the candidates on axis 1:
+    the mean of every leaf, with the union of the obstacle activity."""
+    return QPData(
+        q=qps.q.mean(1), l=qps.l.map(lambda a: a.mean(1)),
+        u=qps.u.map(lambda a: a.mean(1)), G=qps.G.mean(1),
+        obs_dyn=qps.obs_dyn.mean(1), obs_active=qps.obs_active.amax(1),
+        obs_slack=qps.obs_slack.mean(1))
+
+
 def admm_factor(cfg: PlannerConfig, qp: QPData,
                 scfg: Optional[SolverConfig] = None,
                 rho_override=None) -> Factor:
     """Scaling + explicit normal-matrix inverse of one (representative)
     QP per batch entry, for reuse via admm_solve(factor=...)."""
     scfg = scfg or cfg.solver
-    check_supported(scfg)
+    # both solves use this factor: check only what they share
+    check_supported(scfg, fused=True)
     hdiag = qplib.hessian_diag(cfg, qp.q.device)
     D, E, c = ruiz_equilibrate(cfg, qp, hdiag, scfg.scaling_iters)
     h_s = c[..., None] * D * D * hdiag
@@ -168,7 +194,7 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     closed form.
     """
     scfg = scfg or cfg.solver
-    check_supported(scfg)
+    check_supported(scfg, fused=False)
     dev = qp.q.device
     n = cfg.num_vars
     nb = qp.q.dim() - 1

@@ -204,8 +204,11 @@ class SolverConfig:
     shared_factor: bool = True        # one factor per scenario (candidate-
                                       # mean QP), candidates refine against
                                       # their own normal matrix (True ported)
-    fused_solve: bool = False         # fleet kernel (pallas_fused in the
-                                      # reference; not ported yet)
+    fused_solve: bool = False         # solve every candidate QP of a cycle
+                                      # with the fleet kernel: one launch of
+                                      # csrc/fleet_admm.cu (ops/fleet.py),
+                                      # stationary refinement, a fresh
+                                      # factor every cycle (ported)
     woodbury_candidates: bool = False  # exact Woodbury x-update (not ported)
     block_refine: bool = False        # block-apply refinement (not ported)
     folded_refine: bool = False       # pre-folded refinement (not ported)

@@ -6,7 +6,9 @@ the port's field names whose leaves are numpy arrays (for example the
 JAX package's NamedTuples after mapping `np.asarray` over them; fields
 the port does not carry are ignored) and build the port's NamedTuples
 on a device, so that both implementations can start from identical
-state, including the carried shared factor.
+state, including the carried shared factor. `fleet_problem_from_lanes`
+and `fleet_outputs_to_lanes` carry the fleet solve's packed problem and
+its outputs between the TPU lane layout and the port's layout.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from intent_mpc_torch.models.controller import ControllerState
 from intent_mpc_torch.models.detector import DetectorState
 from intent_mpc_torch.models.mpc import PlannerState
 from intent_mpc_torch.models.world import Scenario
+from intent_mpc_torch.ops.fleet import LANES, FleetProblem
 from intent_mpc_torch.ops.qp import ConVec, QPData
 
 # NamedTuple fields that hold another NamedTuple
@@ -74,3 +77,35 @@ def carry_from_numpy(tree, device="cpu", add_batch_axis=False) -> EngineCarry:
 def carry_to_numpy(carry: EngineCarry) -> EngineCarry:
     """The same NamedTuple structure with numpy leaves on the host."""
     return _from(carry, EngineCarry, lambda t: t.detach().cpu().numpy())
+
+
+def _from_lanes(a: np.ndarray) -> np.ndarray:
+    """(rows..., 8 S) -> (S, 8, rows...)."""
+    a = np.asarray(a)
+    a = a.reshape(a.shape[:-1] + (a.shape[-1] // LANES, LANES))
+    return np.moveaxis(np.moveaxis(a, -2, 0), -1, 1)
+
+
+def _to_lanes(a: np.ndarray) -> np.ndarray:
+    """(S, 8, rows...) -> (rows..., 8 S)."""
+    a = np.moveaxis(np.moveaxis(np.asarray(a), 1, -1), 0, -2)
+    return a.reshape(a.shape[:-2] + (-1,))
+
+
+def fleet_problem_from_lanes(tree, device="cpu") -> FleetProblem:
+    """The port's FleetProblem from one in the TPU lane layout (problems on
+    the last axis, P = 8 S: (rows, P) and (W, K, P) leaves; a_ext and minv
+    as they are), given with numpy leaves, such as the JAX package's
+    pack_fleet output after mapping np.asarray over it."""
+    def leaf(f):
+        v = np.asarray(getattr(tree, f))
+        if f not in ("a_ext", "minv"):
+            v = _from_lanes(v)
+        return torch.as_tensor(np.array(v, order="C"), device=device)
+    return FleetProblem(*(leaf(f) for f in FleetProblem._fields))
+
+
+def fleet_outputs_to_lanes(*outs):
+    """The fleet solve's outputs ((S, 8, rows) and (S, 8, W, K) tensors) as
+    numpy arrays in the TPU lane layout ((rows, P) and (W, K, P))."""
+    return tuple(_to_lanes(t.detach().cpu().numpy()) for t in outs)

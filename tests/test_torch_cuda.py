@@ -7,6 +7,8 @@ which imports jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+import json
 import os
 import sys
 
@@ -15,12 +17,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from chip_smoke import small_fleet_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
 from intent_mpc_torch.ops import ew_chain as ew  # noqa: E402
+from intent_mpc_torch.ops import fleet as fl  # noqa: E402
 from intent_mpc_torch.ops.qp import ConVec  # noqa: E402
 from intent_mpc_torch.parallel import sharding as sh  # noqa: E402
-from intent_mpc_torch.utils.config import small_config  # noqa: E402
+from intent_mpc_torch.utils.config import (IntentMPCConfig,  # noqa: E402
+                                           PlannerConfig, SolverConfig,
+                                           small_config)
 
 torch.set_num_threads(1)
 
@@ -105,3 +111,83 @@ def test_closed_loop_on_card_matches_cpu(cuda_device):
     assert torch.allclose(gpu.pos.cpu(), cpu.pos, atol=1e-4, rtol=0)
     assert torch.equal(gpu.metrics.solve_successes.cpu(),
                        cpu.metrics.solve_successes)
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_matches_plain_version(cuda_device):
+    """csrc/fleet_admm.cu against fleet_solve_reference on the card at the
+    fleet parity config (horizon 10, 4 slots, 4 scenarios, stationary
+    refinement x3; the QPs chip_smoke.py uses): one launch per solve; after 1 iteration x within 1e-5
+    of max|x|, after 60 within 1e-3 (the two sum in different orders);
+    the inert slots come back as zeros."""
+    pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+        max_iter=60, shared_refine_mode="stationary", shared_refine_iters=3))
+    qps = small_fleet_qps(pcfg, 4, cuda_device)
+    warm = torch.zeros((4, 6, pcfg.num_vars), device=cuda_device)
+    fp, _ = fl.fleet_setup(pcfg, qps, warm)
+    for iters, tol in ((1, 1e-5), (60, 1e-3)):
+        before = fl.FLEET_LAUNCHES
+        got = fl.fleet_solve(pcfg, fp, iters, 3)
+        want = fl.fleet_solve_reference(pcfg, fp, iters, 3)
+        torch.cuda.synchronize()
+        assert fl.FLEET_LAUNCHES == before + 1
+        live = want[0][:, :fl.LIVE]
+        err = float((got[0][:, :fl.LIVE] - live).abs().max())
+        assert err <= tol * float(live.abs().max()), (iters, err)
+        for a, b in zip(got[1:], want[1:]):
+            b = b[:, :fl.LIVE]
+            assert float((a[:, :fl.LIVE] - b).abs().max()) \
+                <= 1e-3 * (float(b.abs().max()) + 1.0)
+        for t in got:
+            assert not bool(t[:, fl.LIVE:].any())
+
+
+def _fused(cfg):
+    return cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                fused_solve=True)))
+
+
+@pytest.mark.cuda
+def test_fused_loop_on_card_matches_cpu(cuda_device):
+    """The small closed loop with fused_solve=True on the card and on the
+    CPU: one fleet_admm launch per cycle, no ew_chain launch, positions
+    within 1e-3 m over 4 cycles."""
+    cfg = _fused(small_config(num_obstacles=4, horizon=8, timeout=0.5,
+                              max_obstacles=4, hist=8).replace(
+        goal=(6.0, 0.0, 2.0)))
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 0.5)
+    fl.FLEET_LAUNCHES = ew.EW_LAUNCHES = 0
+    gpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1]), ref,
+                            ref.shape[0], num_cycles=4)
+    assert fl.FLEET_LAUNCHES == 4 and ew.EW_LAUNCHES == 0
+    cpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1], device="cpu"),
+                            ref, ref.shape[0], num_cycles=4, device="cpu")
+    assert torch.allclose(gpu.pos.cpu(), cpu.pos, atol=1e-3, rtol=0)
+    assert torch.equal(gpu.metrics.solve_successes.cpu(),
+                       cpu.metrics.solve_successes)
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_fused_dynus_episodes_end_finite(cuda_device):
+    """DYNUS seeds 0-7 as one batch at the production config with
+    fused_solve=True, to the episode end: every episode ends with a
+    finite state. Prints one JSON line with success and collision per
+    seed (run with -s to read it)."""
+    cfg = _fused(IntentMPCConfig())
+    seeds = list(range(8))
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5)
+    carry, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, seeds), ref,
+                              ref.shape[0])
+    m = carry.metrics
+    print(json.dumps({
+        "fused_dynus_seeds": seeds,
+        "goal_reached": m.goal_reached.cpu().tolist(),
+        "collision": m.collision.cpu().tolist(),
+        "solve_successes": m.solve_successes.cpu().tolist(),
+        "solve_attempts": m.solve_attempts.cpu().tolist(),
+        "device": torch.cuda.get_device_name(0)}))
+    assert bool(torch.isfinite(carry.pos).all())
+    assert bool(torch.isfinite(carry.vel).all())
+    assert int(m.solve_successes.min()) > 0

@@ -28,7 +28,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
                for 8 cycles at 128 and at 32 scenarios: exactly one
                fleet_admm launch per cycle and no ew_chain launch
   8. card/cpu  the fused loop on the small config, held to 1e-3 m
-  9. modules   neither jax nor the JAX package was imported
+  9. kernel    dense_loop against its plain version at 128 and at 32
+               scenarios, on the real candidate QPs of a constrained cycle
+               of the default DYNUS loop as the dense-A path builds them
+               (structured factor, refine 0): after 1 iteration x within
+               1e-5 of max|x|, after 10 the unscaled candidate states
+               within 1e-3 m, after 100 both finite with the same
+               acceptance mask; on a small config (dense factor, 150
+               iterations, refine 0 and 1) within 1e-3 of max|x|, and
+               admm_solve_dense against admm_solve within 2e-3
+     entry     admm_solve_dense on the 128-scenario candidates through its
+               public signature: exactly one dense_loop launch; the loop
+               phases (4, 7) launched it no time
+ 10. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -235,6 +247,26 @@ def capture_fused_qps(cfg, S, cycle, device):
     return seen[cycle]
 
 
+def capture_default_qps(cfg, S, cycle, device):
+    """The candidate QPs and warm starts that the planner hands to
+    admm_solve at `cycle` of the default DYNUS loop (cycles 0..cycle run
+    from a fresh carry): a recorder stands in for mpc.admm_solve during
+    this run only."""
+    from intent_mpc_torch.models import mpc as mpclib
+    solve = mpclib.admm_solve
+    seen = []
+
+    def record(cfg_, qps, x0=None, max_iter=None, **kw):
+        seen.append((qps, x0))
+        return solve(cfg_, qps, x0, max_iter, **kw)
+    mpclib.admm_solve = record
+    try:
+        run_loop(cfg, S, cycle + 1, device)
+    finally:
+        mpclib.admm_solve = solve
+    return seen[cycle]
+
+
 def small_fleet_qps(pcfg, S, device):
     """(S, 6) seeded candidate QPs at the small config of the fleet parity
     test (horizon 10, 4 obstacle slots, 3 active, static ones yawed)."""
@@ -348,6 +380,137 @@ def check_fleet_kernel(cfg, S, dev):
     return out
 
 
+def dense_bound(sp, iters, refine):
+    """Least time for the dense loop on an H100: each input the solve reads
+    once (M only when refine > 0) and x written once, over HBM bandwidth,
+    against the padded dense float32 operations over the float32 peak:
+    per candidate the prologue's A x0 and A^T (rho z) (4 m n), then per
+    iteration A^T w and A x (4 m n), 1 + refine Minv and refine M products
+    (2 n^2 each), and the elementwise work (12 per row, 6 + 2 refine per
+    variable). Also returns what the kernel's design streams: A once and
+    Minv (and M) 1 + refine (refine) times per iteration."""
+    C, n = sp.q.shape
+    m = sp.rho.shape[-1]
+    per_iter = 4 * m * n + (1 + 2 * refine) * 2 * n * n + 12 * m \
+        + (6 + 2 * refine) * n
+    flops = C * (4 * m * n + 3 * m + 3 * n + iters * per_iter)
+    nbytes = sum(t.numel() * 4 for f, t in zip(sp._fields, sp)
+                 if f != "mmat" or refine) + C * n * 4
+    stream = C * 4 * (m * n + iters * (m * n + (1 + 2 * refine) * n * n))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, flops, stream)
+
+
+def check_dense_kernel(cfg, S, dev):
+    """dense_loop against dense_loop_reference on the QPs of the third
+    cycle (the second with obstacle rows) of the default DYNUS loop, built
+    as admm_solve_dense builds them. Returns the phase's fields and the
+    plain version's 100-iteration acceptance mask."""
+    import torch
+    from intent_mpc_torch.ops import admm as admmlib
+    from intent_mpc_torch.ops import dense_loop as dl
+    from intent_mpc_torch.ops import qp as qplib
+    pcfg = cfg.planner
+    scfg = pcfg.solver
+    refine = scfg.refine_iters
+    n = pcfg.num_vars
+    qps, warm = capture_default_qps(cfg, S, 2, dev)
+    rows = int(qps.obs_active.sum())
+    check(rows > 0, "the captured cycle has no obstacle rows")
+    n_pad, m_pad = admmlib.dense_pads(pcfg, qps.G.shape[-2])
+    flat = admmlib._flatten(qps, 2)
+    sp, (D, _, _) = admmlib._dense_scaled_problem(
+        pcfg, flat, warm.reshape(-1, n), scfg, n_pad, m_pad)
+    # A's nonzeros (for a CSR form: 8 bytes each plus m + 1 row pointers)
+    m = 2 * 8 * pcfg.horizon + (5 + qps.G.shape[-2]) * pcfg.mpc_window
+    nnz = int((sp.amat != 0).sum()) / (S * 6)
+    out = {"scenarios": S, "problems": S * 6, "active_obstacle_rows": rows,
+           "n_pad": n_pad, "m_pad": m_pad, "refine": refine,
+           "structured_factor": scfg.structured_factor,
+           "a_nnz_per_candidate": nnz,
+           "a_nonzero_share": nnz / (m * n),
+           "a_csr_bytes_per_candidate": nnz * 8 + (m + 1) * 4}
+    for iters in (1, 10, 100):
+        got = dl.admm_iterations_dense(sp, iters, scfg.sigma, scfg.alpha,
+                                       refine)
+        want = dl.dense_loop_reference(sp, iters, scfg.sigma, scfg.alpha,
+                                       refine)
+        torch.cuda.synchronize()
+        rel_x = float((got - want).abs().max() / want.abs().max())
+        xg, xw = D * got[:, :n], D * want[:, :n]
+        states = float((qplib.split_z(xg, pcfg)[0]
+                        - qplib.split_z(xw, pcfg)[0]).abs().max())
+        rg = admmlib.dense_result(pcfg, flat, xg, scfg)
+        rw = admmlib.dense_result(pcfg, flat, xw, scfg)
+        same_mask = bool(torch.equal(accepted(rg), accepted(rw)))
+        out["iters_%d" % iters] = dict(
+            x_rel_diff=rel_x, state_max_abs_diff=states,
+            accepted=int(accepted(rg).sum()), same_acceptance=same_mask)
+        if iters == 1:
+            check(rel_x <= 1e-5, ("dense_loop 1 iteration", S, rel_x))
+        elif iters == 10:
+            check(states <= 1e-3, ("dense_loop 10 iterations", S, states))
+            out["max_abs_err"] = states
+        else:
+            check(bool(torch.isfinite(got).all())
+                  and bool(torch.isfinite(want).all()),
+                  ("dense_loop 100 iterations: non-finite", S))
+            check(same_mask, ("dense_loop 100 iterations: acceptance", S))
+            mask = accepted(rw).reshape(S, 6)
+    reps = 5
+    ms = cuda_time_ms(lambda: dl.admm_iterations_dense(
+        sp, 100, scfg.sigma, scfg.alpha, refine), reps=reps)
+    plain_ms = cuda_time_ms(lambda: dl.dense_loop_reference(
+        sp, 100, scfg.sigma, scfg.alpha, refine), reps=3)
+    bound_ms, bound_by, nbytes, flops, stream = dense_bound(sp, 100, refine)
+    out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               bytes=nbytes, flops=flops, stream_bytes=stream,
+               stream_ms_at_peak=stream / PEAK_BYTES_PER_S * 1e3,
+               iters_timed=100, reps=reps)
+    return out, mask, qps, warm
+
+
+def check_dense_small(dev):
+    """The horizon-10, 4-slot config of tests/test_pallas_admm.py (dense
+    factor, 150 iterations) on 4 x 6 seeded QPs: kernel and plain version
+    within 1e-3 of max|x| at refine 0 and 1, and admm_solve_dense against
+    admm_solve (factor=None) within 2e-3 (rtol and atol) at refine 0."""
+    import dataclasses
+    import torch
+    from intent_mpc_torch.ops import admm as admmlib
+    from intent_mpc_torch.ops import dense_loop as dl
+    from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
+    pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+        max_iter=150, refine_iters=0, structured_factor=False))
+    n = pcfg.num_vars
+    qps = small_fleet_qps(pcfg, 4, dev)
+    warm = torch.zeros((4, 6, n), device=dev)
+    n_pad, m_pad = admmlib.dense_pads(pcfg, qps.G.shape[-2])
+    out = {}
+    for refine in (0, 1):
+        scfg = dataclasses.replace(pcfg.solver, refine_iters=refine)
+        sp, _ = admmlib._dense_scaled_problem(
+            pcfg, admmlib._flatten(qps, 2), warm.reshape(-1, n), scfg,
+            n_pad, m_pad)
+        got = dl.admm_iterations_dense(sp, 150, scfg.sigma, scfg.alpha, refine)
+        want = dl.dense_loop_reference(sp, 150, scfg.sigma, scfg.alpha, refine)
+        torch.cuda.synchronize()
+        diff = float((got - want).abs().max())
+        rel = diff / float(want.abs().max())
+        check(rel <= 1e-3, ("dense_loop small config", refine, diff, rel))
+        out["refine_%d" % refine] = dict(max_abs_diff=diff, x_rel_diff=rel)
+    res = admmlib.admm_solve_dense(pcfg, qps, warm, 150)
+    ref = admmlib.admm_solve(pcfg, qps, warm, 150)
+    torch.cuda.synchronize()
+    diff = float((res.x - ref.x).abs().max())
+    check(bool(torch.allclose(res.x, ref.x, rtol=2e-3, atol=2e-3)),
+          ("admm_solve_dense against admm_solve", diff))
+    out["entry_vs_admm_solve_max_abs_diff"] = diff
+    return out
+
+
 def check_fleet_small(dev):
     """The full 60-iteration solve at the fleet parity test's config
     (horizon 10, 4 slots, 4 scenarios, stationary refinement x3): kernel
@@ -374,7 +537,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from intent_mpc_torch.ops import admm as admmlib
     from intent_mpc_torch.ops import build
+    from intent_mpc_torch.ops import dense_loop as dl
     from intent_mpc_torch.ops import ew_chain as ew
     from intent_mpc_torch.ops import fleet as fl
     from intent_mpc_torch.utils.config import IntentMPCConfig, small_config
@@ -422,17 +587,21 @@ def main():
         run_loop(cfg, s, 1, dev)          # warm-up: library handles, caches
         ew.EW_LAUNCHES = 0
         fl.FLEET_LAUNCHES = 0
+        dl.DENSE_LAUNCHES = 0
         carry, secs, _ = run_loop(cfg, s, 8, dev)
         launches = ew.EW_LAUNCHES
         iters = cfg.planner.solver.max_iter
         check(launches == 8 * iters, ("kernel launches", launches, 8 * iters))
         check(fl.FLEET_LAUNCHES == 0, ("fleet_admm launches on the default "
                                        "path", fl.FLEET_LAUNCHES))
+        check(dl.DENSE_LAUNCHES == 0, ("dense_loop launches on the default "
+                                       "path", dl.DENSE_LAUNCHES))
         check(finite_carry(carry), "non-finite carry leaf")
         succ = carry.metrics.solve_successes
         check(int(succ.sum()) > 0, "no successful solve")
         elapsed = sum(secs)
         loop[s] = dict(launches=launches, fleet_admm_launches=0,
+                       dense_loop_launches=0,
                        cycle_ms=elapsed / 8 * 1e3,
                        cycle_ms_each=[round(x * 1e3, 3) for x in secs],
                        solves_per_s=s * 6 * 8 / elapsed,
@@ -475,16 +644,20 @@ def main():
         run_loop(fused(cfg), s, 1, dev)   # warm-up
         ew.EW_LAUNCHES = 0
         fl.FLEET_LAUNCHES = 0
+        dl.DENSE_LAUNCHES = 0
         carry, secs, _ = run_loop(fused(cfg), s, 8, dev)
         launches, ew_launches = fl.FLEET_LAUNCHES, ew.EW_LAUNCHES
         check(launches == 8, ("fleet_admm launches", launches, 8))
         check(ew_launches == 0, ("ew_chain launches on the fused path",
                                  ew_launches))
+        check(dl.DENSE_LAUNCHES == 0, ("dense_loop launches on the fused "
+                                       "path", dl.DENSE_LAUNCHES))
         check(finite_carry(carry), "non-finite carry leaf (fused)")
         succ = carry.metrics.solve_successes
         check(int(succ.sum()) > 0, "no successful solve (fused)")
         elapsed = sum(secs)
         loop_f[s] = dict(launches=launches, ew_chain_launches=ew_launches,
+                         dense_loop_launches=0,
                          cycle_ms=elapsed / 8 * 1e3,
                          cycle_ms_each=[round(x * 1e3, 3) for x in secs],
                          solves_per_s=s * 6 * 8 / elapsed,
@@ -503,7 +676,40 @@ def main():
     phase("card_vs_cpu", config="small", solve="fused", scenarios=2,
           cycles=4, max_pos_diff_per_cycle=diffs, held_cycles=4, tol=1e-3)
 
-    # ---- 9. clean modules ----
+    # ---- 9. dense-A kernel against plain version, real QPs; the entry ----
+    dense, entry_in = {}, None
+    for S in (128, 32):
+        dense[S], mask, qps_d, warm_d = check_dense_kernel(cfg, S, dev)
+        phase("kernel", kernel="dense_loop", **dense[S])
+        if S == 128:
+            entry_in = (qps_d, warm_d, mask)
+        del qps_d, warm_d
+        torch.cuda.empty_cache()
+    phase("kernel", kernel="dense_loop", config="small", scenarios=4,
+          iters=150, tol_rel=1e-3, entry_tol=2e-3, **check_dense_small(dev))
+    qps_d, warm_d, mask = entry_in
+    dl.DENSE_LAUNCHES = 0
+    res = admmlib.admm_solve_dense(cfg.planner, qps_d, warm_d)
+    torch.cuda.synchronize()
+    dense_launches = dl.DENSE_LAUNCHES
+    check(dense_launches == 1, ("dense_loop launches per admm_solve_dense "
+                                "call", dense_launches))
+    n = cfg.planner.num_vars
+    check(tuple(res.x.shape) == (128, 6, n), ("entry x shape", res.x.shape))
+    check(bool(torch.isfinite(res.x).all()), "entry: non-finite x")
+    check(torch.equal(accepted(res), mask),
+          "entry: acceptance differs from the plain version's")
+    check(bool(torch.isnan(res.dual_res).all())
+          and all(bool(torch.isnan(g).all()) for g in res.y),
+          "entry: the duals are not NaN")
+    phase("entry", fn="admm_solve_dense", scenarios=128, problems=128 * 6,
+          iters=cfg.planner.solver.max_iter, launches=dense_launches,
+          accepted=int(accepted(res).sum()), solved=int(res.solved.sum()),
+          loop_phase_launches=0)
+    del entry_in, qps_d, warm_d, res
+    torch.cuda.empty_cache()
+
+    # ---- 10. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -536,6 +742,21 @@ def main():
         "plain_ms": fleet[128]["plain_ms"],
         "bound_ms": fleet[128]["bound_ms"],
         "bound_by": fleet[128]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "dense_loop",
+        "route": "cuda",
+        "source": "intent_mpc_torch/csrc/dense_loop.cu",
+        "replaces": "intent_mpc_tpu/ops/pallas_admm.py:70 (_kernel)",
+        "launches": dense_launches,
+        "launches_of": "one admm_solve_dense call (no closed-loop path)",
+        "max_abs_err": dense[128]["max_abs_err"],
+        "max_abs_diff": dense[128]["max_abs_err"],
+        "max_abs_err_of": "unscaled candidate states after 10 iterations",
+        "ms": dense[128]["ms"],
+        "plain_ms": dense[128]["plain_ms"],
+        "bound_ms": dense[128]["bound_ms"],
+        "bound_by": dense[128]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,8 @@ equality rows, 1e-6 on loose rows), over-relaxed ADMM:
 
 A never materializes (ops/qp.py closed forms); the x-update normal matrix
 has an explicit inverse from the block-tridiagonal Cholesky
-(ops/block_chol.py). With a shared Factor (one per scenario), each
+(ops/block_chol.py), or with `structured_factor=False` from the dense
+Cholesky of the assembled matrix. With a shared Factor (one per scenario), each
 candidate refines against its own normal matrix with preconditioned
 CG-2, warm-started from the previous iteration's x-tilde. Iterations are
 a fixed-count Python loop. The elementwise tail of each iteration is one
@@ -22,6 +23,11 @@ launch of the CUDA kernel ops/ew_chain.py when `ew_kernel` is on.
 Batching: the QP carries leading axes (..., C). A Factor either has the
 same leading axes (one factor per problem) or one axis fewer (one factor
 per group of C candidates, shared by them, as the planner uses it).
+
+`admm_solve_dense` is a separate entry (port of `admm_solve_pallas`): it
+materializes each candidate's scaled dense A, M and Minv and runs every
+iteration in one launch of csrc/dense_loop.cu (ops/dense_loop.py). No
+closed-loop path calls it.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 
 from intent_mpc_torch.ops import qp as qplib
 from intent_mpc_torch.ops.block_chol import structured_minv
+from intent_mpc_torch.ops.dense_loop import (DenseScaledProblem,
+                                             admm_iterations_dense)
 from intent_mpc_torch.ops.ew_chain import ew_chain
 from intent_mpc_torch.ops.qp import ConVec, QPData
 from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
@@ -85,7 +93,6 @@ def check_supported(scfg: SolverConfig, fused: Optional[bool] = None) -> None:
         "flat_iter": scfg.flat_iter,
         "minv_dtype": scfg.minv_dtype != "f32",
         "shared_refine_warm_frac": scfg.shared_refine_warm_frac != 0.0,
-        "structured_factor": not scfg.structured_factor,
         "shared_factor": not scfg.shared_factor,
         "shared_refine_mode": scfg.shared_refine_mode != "cg",
         "factor_drift_refresh": scfg.factor_drift_refresh > 0,
@@ -169,8 +176,25 @@ def admm_factor(cfg: PlannerConfig, qp: QPData,
     rho_base = scfg.rho if rho_override is None else rho_override
     rho = qplib.rho_vec(cfg, qp, rho_base, scfg.rho_eq_scale)
     rho_inner = rho.map(lambda r, e: r * e * e, E)
-    Minv = structured_minv(cfg, qp, h_s, scfg.sigma, rho_inner, D)
+    Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
     return Factor(D=D, E=E, c=c, Minv=Minv)
+
+
+def _explicit_minv(cfg: PlannerConfig, qp: QPData, h_s, scfg: SolverConfig,
+                   rho_inner: ConVec, D) -> torch.Tensor:
+    """Explicit inverse (..., n, n) of the scaled x-update normal matrix,
+    via the block-tridiagonal factorization (default) or the dense
+    Cholesky of the assembled matrix (`structured_factor=False`)."""
+    if scfg.structured_factor:
+        return structured_minv(cfg, qp, h_s, scfg.sigma, rho_inner, D)
+    M = qplib.assemble_normal_matrix(cfg, qp, h_s, scfg.sigma, rho_inner,
+                                     col_scale=D)
+    # cholesky_ex: no host sync on the info flag; a matrix that is not
+    # positive definite gives a non-finite inverse, as in the JAX version
+    L, _ = torch.linalg.cholesky_ex(M)
+    eye = torch.eye(cfg.num_vars, dtype=M.dtype, device=M.device)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    return torch.matmul(Linv.mT, Linv)
 
 
 def _vdot(a, b):
@@ -232,7 +256,7 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
 
     if factor is None:
         rho_inner = rho.map(lambda r, e: r * e * e, E)
-        Minv = structured_minv(cfg, qp, h_s, sigma, rho_inner, D)
+        Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
         refine = scfg.refine_iters
     else:
         Minv = factor.Minv
@@ -335,3 +359,124 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
                            rho_b)
     return ADMMResult(x=x, y=y, prim_res=prim, dual_res=dual,
                       solved=prim < feas_tol, rho_suggest=rho_next)
+
+
+# ---------------------------------------------------------------------------
+# Dense-A path: setup (scaling, factorization, dense-A materialization) in
+# PyTorch, the iteration loop in one launch of csrc/dense_loop.cu
+# (ops/dense_loop.py)
+# ---------------------------------------------------------------------------
+
+def _dense_scaled_problem(cfg: PlannerConfig, qp: QPData, x0: torch.Tensor,
+                          scfg: SolverConfig, n_pad: int, m_pad: int):
+    """Per-candidate kernel inputs, Ruiz scaling applied to the dense A,
+    for a QP with leading axes (...). Returns (DenseScaledProblem with the
+    same leading axes, (D, E, c)). Padded rows and columns: Minv and M
+    take the identity there, A zeros, rho 1e-6 and the bounds +-inf."""
+    n = cfg.num_vars
+    lead = qp.q.shape[:-1]
+    dev, dt = qp.q.device, qp.q.dtype
+    hdiag = qplib.hessian_diag(cfg, dev)
+    D, E, c = ruiz_equilibrate(cfg, qp, hdiag, scfg.scaling_iters)
+    h_s = c[..., None] * D * D * hdiag
+    q_s = c[..., None] * D * qp.q
+    rho = qplib.rho_vec(cfg, qp, scfg.rho, scfg.rho_eq_scale)
+    rho_inner = rho.map(lambda r, e: r * e * e, E)
+    M = qplib.assemble_normal_matrix(cfg, qp, h_s, scfg.sigma, rho_inner,
+                                     col_scale=D)
+    # the same Minv as admm_solve's (structured by default), so that both
+    # paths share their iterates
+    Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
+
+    # E A D, scaled in place: at 768 candidates A alone is ~3 GB
+    A = qplib.dense_a_matrix(cfg, qp)                     # (..., m, n)
+    A.mul_(qplib.con_to_flat(E)[..., :, None]).mul_(D[..., None, :])
+    m = A.shape[-2]
+    A_pad = torch.zeros(lead + (m_pad, n_pad), dtype=dt, device=dev)
+    A_pad[..., :m, :n] = A
+    del A
+
+    def pad_mat(Mx):
+        out = torch.eye(n_pad, dtype=dt, device=dev).repeat(lead + (1, 1))
+        out[..., :n, :n] = Mx
+        return out
+
+    def pad_vec(v, size, fill):
+        out = torch.full(lead + (size,), fill, dtype=dt, device=dev)
+        out[..., :v.shape[-1]] = v
+        return out
+
+    sp = DenseScaledProblem(
+        minv=pad_mat(Minv), mmat=pad_mat(M), amat=A_pad,
+        q=pad_vec(q_s, n_pad, 0.0), x0=pad_vec(x0 / D, n_pad, 0.0),
+        rho=pad_vec(qplib.con_to_flat(rho), m_pad, 1e-6),
+        lo=pad_vec(qplib.con_to_flat(qp.l.scale(E)), m_pad, -qplib.INF),
+        hi=pad_vec(qplib.con_to_flat(qp.u.scale(E)), m_pad, qplib.INF))
+    return sp, (D, E, c)
+
+
+def primal_residual(cfg: PlannerConfig, qps: QPData, x: torch.Tensor):
+    """(||A x - clip(A x, l, u)||_inf, A x) of an unscaled x, in closed
+    form: the residual of the solves that return no z."""
+    ax = qplib.a_matvec(cfg, qps, x)
+    z = ax.map(lambda a, lo, hi: torch.clamp(a, lo, hi), qps.l, qps.u)
+    return (ax - z).inf_norm(), ax
+
+
+def dense_result(cfg: PlannerConfig, qps: QPData, x: torch.Tensor,
+                 scfg: SolverConfig, feas_tol: float = 5e-2) -> ADMMResult:
+    """The ADMMResult of the dense path from the unscaled x. The kernel
+    returns no duals, so y and dual_res are NaN (a caller comparing them
+    with admm_solve fails loudly), and rho_suggest is scfg.rho."""
+    prim, ax = primal_residual(cfg, qps, x)
+    return ADMMResult(
+        x=x, y=ax.map(lambda a: torch.full_like(a, float("nan"))),
+        prim_res=prim, dual_res=torch.full_like(prim, float("nan")),
+        solved=prim < feas_tol, rho_suggest=torch.full_like(prim, scfg.rho))
+
+
+def dense_pads(cfg: PlannerConfig, K: int):
+    """(n_pad, m_pad) of the dense path: the variable and constraint-row
+    counts rounded up to multiples of 128, as the JAX version pads."""
+    n = cfg.num_vars
+    m = 2 * qplib.NX * cfg.horizon + (qplib.NU + K) * cfg.mpc_window
+    return ((n + 127) // 128) * 128, ((m + 127) // 128) * 128
+
+
+def _flatten(qp: QPData, nb: int) -> QPData:
+    """The QP with its nb leading axes merged into one."""
+    def f(t):
+        return t.reshape((-1,) + t.shape[nb:])
+    return QPData(*(ConVec(*map(f, v)) if isinstance(v, ConVec) else f(v)
+                    for v in qp))
+
+
+def admm_solve_dense(cfg: PlannerConfig, qps: QPData, x0: torch.Tensor,
+                     max_iter: Optional[int] = None,
+                     scfg: Optional[SolverConfig] = None,
+                     feas_tol: float = 5e-2) -> ADMMResult:
+    """Batched solve on each candidate's materialized, scaled dense A, with
+    every iteration in one launch of the dense-loop kernel (port of
+    `admm_solve_pallas`, intent_mpc_tpu/ops/admm.py:927-972). qps and x0
+    carry any leading batch axes (the planner's (S, 6) included); they are
+    flattened to one candidate axis for the solve. Runs where the QP's
+    tensors lie: CUDA launches the kernel, the CPU runs its plain version.
+
+    The setup follows the JAX version: Ruiz scaling, the penalty from
+    scfg.rho (no rho_override), Minv from `_explicit_minv`, n and m padded
+    to multiples of 128, `refine_iters` stationary refinement steps
+    through the dense M. The kernel returns x in scaled space; this
+    unscales it (x = D xs[:n]) and computes the primal residual in closed
+    form. y and dual_res are NaN and rho_suggest is scfg.rho, as in JAX."""
+    scfg = scfg or cfg.solver
+    iters = max_iter if max_iter is not None else scfg.max_iter
+    n = cfg.num_vars
+    n_pad, m_pad = dense_pads(cfg, qps.G.shape[-2])
+    lead = qps.q.shape[:-1]
+    flat = _flatten(qps, len(lead))
+    sp, (D, _, _) = _dense_scaled_problem(
+        cfg, flat, x0.expand(lead + (n,)).reshape(-1, n), scfg, n_pad, m_pad)
+    xs = admm_iterations_dense(sp, iters, scfg.sigma, scfg.alpha,
+                               refine=scfg.refine_iters)
+    x = (D * xs[:, :n]).reshape(lead + (n,))
+    return dense_result(cfg, qps, x, scfg, feas_tol)

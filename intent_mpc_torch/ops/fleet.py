@@ -46,7 +46,7 @@ import torch
 
 from intent_mpc_torch.ops import qp as qplib
 from intent_mpc_torch.ops.admm import (ADMMResult, Factor, admm_factor,
-                                       candidate_mean)
+                                       candidate_mean, primal_residual)
 from intent_mpc_torch.ops.qp import NU, NX, ConVec, QPData
 from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
 
@@ -503,9 +503,7 @@ def fleet_result(cfg: PlannerConfig, qps: QPData, fac: Factor, x_l, yl_l,
                * fac.E.cb[:, None] * cinv,
                obs=yo_l[:, :LIVE, :, :K] * fac.E.obs[:, None] * cinv)
 
-    ax = qplib.a_matvec(cfg, qps, x)
-    z = ax.map(lambda a, lo, hi: torch.clamp(a, lo, hi), qps.l, qps.u)
-    prim = (ax - z).inf_norm()
+    prim, _ = primal_residual(cfg, qps, x)
     return ADMMResult(
         x=x, y=y, prim_res=prim,
         dual_res=torch.full_like(prim, float("nan")),

@@ -221,26 +221,28 @@ def build_qp(cfg: PlannerConfig, x0, xref, oxyz, osize, yaw, obs_dyn,
 # Structured matvecs
 # ---------------------------------------------------------------------------
 
-def a_matvec(cfg: PlannerConfig, qp: QPData, z: torch.Tensor) -> ConVec:
-    """A @ z in constraint-group space (closed-form, no sparse matrix)."""
+def _eq_rows(cfg: PlannerConfig, X: torch.Tensor, U: torch.Tensor
+             ) -> torch.Tensor:
+    """The dynamics rows of A z: eq[0] = -x_0 ; eq[i] = A x_{i-1} + B u_{i-1} - x_i."""
     ts = cfg.ts
-    X, U = split_z(z, cfg)
     p, v, d = X[..., 0:3], X[..., 3:6], X[..., 6:8]
     a, s = U[..., 0:3], U[..., 3:5]
-
-    # eq rows: eq[0] = -x_0 ; eq[i] = A x_{i-1} + B u_{i-1} - x_i
     nxt_p = p[..., :-1, :] + ts * v[..., :-1, :] + 0.5 * ts * ts * a \
         - p[..., 1:, :]
     nxt_v = v[..., :-1, :] + ts * a - v[..., 1:, :]
     nxt_d = s - d[..., 1:, :]
-    eq = torch.cat([-X[..., 0:1, :],
-                    torch.cat([nxt_p, nxt_v, nxt_d], dim=-1)], dim=-2)
+    return torch.cat([-X[..., 0:1, :],
+                      torch.cat([nxt_p, nxt_v, nxt_d], dim=-1)], dim=-2)
 
+
+def a_matvec(cfg: PlannerConfig, qp: QPData, z: torch.Tensor) -> ConVec:
+    """A @ z in constraint-group space (closed-form, no sparse matrix)."""
+    X, U = split_z(z, cfg)
     slack = qp.obs_dyn * U[..., 3:4] + (1.0 - qp.obs_dyn) * U[..., 4:5]
     slack = slack * qp.obs_slack
     # obs row (i,k): G . p_i - s_i  (state index i, 0..W-1; mpcPlanner.cpp:1061-1069)
-    obs = _wd(qp.G, p[..., :-1, :]) - slack * qp.obs_active
-    return ConVec(eq=eq, sb=X, cb=U, obs=obs)
+    obs = _wd(qp.G, X[..., :-1, 0:3]) - slack * qp.obs_active
+    return ConVec(eq=_eq_rows(cfg, X, U), sb=X, cb=U, obs=obs)
 
 
 def at_matvec(cfg: PlannerConfig, qp: QPData, w: ConVec) -> torch.Tensor:
@@ -347,8 +349,8 @@ def a_colmax(cfg: PlannerConfig, qp: QPData, E: ConVec) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Dense normal-matrix assembly (tests only):
-# M = diag(h) + sigma I + A^T diag(rho) A
+# Dense normal-matrix assembly (the dense factor and the dense-A path,
+# ops/admm.py): M = diag(h) + sigma I + A^T diag(rho) A
 # ---------------------------------------------------------------------------
 
 def assemble_normal_matrix(cfg: PlannerConfig, qp: QPData, hdiag, sigma: float,
@@ -418,3 +420,57 @@ def assemble_normal_matrix(cfg: PlannerConfig, qp: QPData, hdiag, sigma: float,
     if col_scale is not None:
         M = col_scale[..., :, None] * M * col_scale[..., None, :]
     return M + torch.diag_embed(hdiag + sigma)
+
+
+# ---------------------------------------------------------------------------
+# Dense A and the flat constraint order [eq | sb | cb | obs]
+# ---------------------------------------------------------------------------
+
+def dense_a_matrix(cfg: PlannerConfig, qp: QPData) -> torch.Tensor:
+    """Materialize the dense constraint matrix A (..., m, n), rows in
+    con_to_flat order.
+
+    The JAX version applies a_matvec to every unit vector. Here the
+    eq/sb/cb rows come from a_matvec's closed form on the identity, and
+    the obstacle rows (the only ones that depend on the QP) get their
+    nonzeros scattered in place: G on the step's position columns and
+    the negated slack mix on its two slack controls. That gives the same
+    entries without the (..., n, W, K) intermediate."""
+    H, W = cfg.horizon, cfg.mpc_window
+    K = qp.G.shape[-2]
+    n = cfg.num_vars
+    lead = qp.q.shape[:-1]
+    dev, dt = qp.q.device, qp.q.dtype
+    X, U = split_z(torch.eye(n, dtype=dt, device=dev), cfg)
+    top = torch.cat([_eq_rows(cfg, X, U).flatten(-2), X.flatten(-2),
+                     U.flatten(-2)], dim=-1).t()            # (16H + 5W, n)
+    m_lin = top.shape[0]
+    m = m_lin + W * K
+    A = torch.zeros(lead + (m, n), dtype=dt, device=dev)
+    A[..., :m_lin, :] = top
+    flat = A.view(lead + (m * n,))
+    w = torch.arange(W, device=dev)[:, None]
+    row = (m_lin + w * K + torch.arange(K, device=dev)[None, :]) * n  # (W, K)
+    for d in range(3):
+        flat[..., (row + NX * w + d).flatten()] = qp.G[..., d].flatten(-2)
+    u3 = -(qp.obs_dyn * qp.obs_slack * qp.obs_active)
+    u4 = -((1.0 - qp.obs_dyn) * qp.obs_slack * qp.obs_active)
+    ucol = row + NX * H + NU * w
+    flat[..., (ucol + 3).flatten()] = u3.flatten(-2)
+    flat[..., (ucol + 4).flatten()] = u4.flatten(-2)
+    return A
+
+
+def con_to_flat(w: ConVec) -> torch.Tensor:
+    """(..., m) in the order eq, sb, cb, obs, each group row-major."""
+    return torch.cat([g.flatten(-2) for g in w], dim=-1)
+
+
+def flat_to_con(v: torch.Tensor, cfg: PlannerConfig, K: int) -> ConVec:
+    H, W = cfg.horizon, cfg.mpc_window
+    lead = v.shape[:-1]
+    s0, s1, s2 = NX * H, 2 * NX * H, 2 * NX * H + NU * W
+    return ConVec(eq=v[..., :s0].reshape(lead + (H, NX)),
+                  sb=v[..., s0:s1].reshape(lead + (H, NX)),
+                  cb=v[..., s1:s2].reshape(lead + (W, NU)),
+                  obs=v[..., s2:].reshape(lead + (W, K)))

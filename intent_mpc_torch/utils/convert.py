@@ -8,7 +8,8 @@ the port does not carry are ignored) and build the port's NamedTuples
 on a device, so that both implementations can start from identical
 state, including the carried shared factor. `fleet_problem_from_lanes`
 and `fleet_outputs_to_lanes` carry the fleet solve's packed problem and
-its outputs between the TPU lane layout and the port's layout.
+its outputs between the TPU lane layout and the port's layout;
+`dense_problem_from_numpy` carries the dense-A path's problem.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from intent_mpc_torch.models.controller import ControllerState
 from intent_mpc_torch.models.detector import DetectorState
 from intent_mpc_torch.models.mpc import PlannerState
 from intent_mpc_torch.models.world import Scenario
+from intent_mpc_torch.ops.dense_loop import DenseScaledProblem
 from intent_mpc_torch.ops.fleet import LANES, FleetProblem
 from intent_mpc_torch.ops.qp import ConVec, QPData
 
@@ -109,3 +111,16 @@ def fleet_outputs_to_lanes(*outs):
     """The fleet solve's outputs ((S, 8, rows) and (S, 8, W, K) tensors) as
     numpy arrays in the TPU lane layout ((rows, P) and (W, K, P))."""
     return tuple(_to_lanes(t.detach().cpu().numpy()) for t in outs)
+
+
+def dense_problem_from_numpy(tree, device="cpu") -> DenseScaledProblem:
+    """The port's DenseScaledProblem from one with numpy leaves and the
+    JAX package's (C, rows, 1) vector columns, such as
+    `_dense_scaled_problem`'s output after mapping np.asarray over it: the
+    trailing column of q, x0, rho, lo and hi is dropped."""
+    def leaf(f):
+        v = np.asarray(getattr(tree, f))
+        if f not in ("minv", "mmat", "amat"):
+            v = v[..., 0]
+        return torch.as_tensor(np.array(v, order="C"), device=device)
+    return DenseScaledProblem(*(leaf(f) for f in DenseScaledProblem._fields))

@@ -8,6 +8,7 @@ which imports jax):
 """
 
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -20,6 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from chip_smoke import small_fleet_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
+from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
+from intent_mpc_torch.ops import dense_loop as dl  # noqa: E402
 from intent_mpc_torch.ops import ew_chain as ew  # noqa: E402
 from intent_mpc_torch.ops import fleet as fl  # noqa: E402
 from intent_mpc_torch.ops.qp import ConVec  # noqa: E402
@@ -140,6 +143,95 @@ def test_fleet_kernel_matches_plain_version(cuda_device):
                 <= 1e-3 * (float(b.abs().max()) + 1.0)
         for t in got:
             assert not bool(t[:, fl.LIVE:].any())
+
+
+def _dense_problem(pcfg, device, candidates=None):
+    """The dense-A problem of small_fleet_qps(pcfg, 1) (6 candidates, or
+    the first `candidates`), as admm_solve_dense builds it."""
+    n = pcfg.num_vars
+    qps = admmlib._flatten(small_fleet_qps(pcfg, 1, device), 2)
+    if candidates is not None:
+        qps = type(qps)(*(type(v)(*(t[:candidates] for t in v))
+                          if isinstance(v, ConVec) else v[:candidates]
+                          for v in qps))
+    warm = torch.zeros((qps.q.shape[0], n), device=device)
+    n_pad, m_pad = admmlib.dense_pads(pcfg, qps.G.shape[-2])
+    sp, _ = admmlib._dense_scaled_problem(pcfg, qps, warm, pcfg.solver,
+                                          n_pad, m_pad)
+    return sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [0, 1])
+def test_dense_kernel_matches_plain_version(cuda_device, refine):
+    """csrc/dense_loop.cu against dense_loop_reference on the card at the
+    config of tests/test_pallas_admm.py (horizon 10, 4 slots, dense
+    factor): one launch per call; after 1 iteration x within 1e-5 of
+    max|x| (5e-5 with a refinement step: the residual rhs - M xt, with
+    cond(M) ~1e5, carries the summation order's rounding, as on the CPU
+    against JAX in test_torch_dense.py), after 150 within 1e-3 of it (the
+    two sum in different orders; cond(M) amplifies that over the
+    iterations); the padded entries stay 0."""
+    pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+        max_iter=150, refine_iters=refine, structured_factor=False))
+    sp = _dense_problem(pcfg, cuda_device)
+    for iters, tol in ((1, 5e-5 if refine else 1e-5), (150, 1e-3)):
+        before = dl.DENSE_LAUNCHES
+        got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
+        want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, refine)
+        torch.cuda.synchronize()
+        assert dl.DENSE_LAUNCHES == before + 1
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (iters, err)
+        assert not bool(got[:, pcfg.num_vars:].any())
+
+
+@pytest.mark.cuda
+def test_dense_kernel_production_pair(cuda_device):
+    """Two candidates at production shapes (horizon 30, 65 slots: n_pad
+    512, m_pad 2560) with the production solver settings (structured
+    factor, refine 0): after 1 iteration within 1e-5 of max|x|, after 10
+    within 5e-4 of it (the tolerance of the CPU parity test against JAX
+    at these shapes)."""
+    pcfg = PlannerConfig(horizon=30, max_obstacles=65)
+    sp = _dense_problem(pcfg, cuda_device, candidates=2)
+    assert tuple(sp.amat.shape) == (2, 2560, 512)
+    for iters, tol in ((1, 1e-5), (10, 5e-4)):
+        got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, 0)
+        want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, 0)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (iters, err)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_is_deterministic(cuda_device):
+    """No atomics and fixed summation orders: two launches on the same
+    production-shape problem give the same bits."""
+    pcfg = PlannerConfig(horizon=30, max_obstacles=65)
+    sp = _dense_problem(pcfg, cuda_device)
+    a = dl.admm_iterations_dense(sp, 20, 1e-6, ALPHA, 1)
+    b = dl.admm_iterations_dense(sp, 20, 1e-6, ALPHA, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_raises_on_shapes_it_cannot_take(cuda_device):
+    """A CUDA problem the kernel cannot take raises instead of running the
+    plain version: n_pad above 512, or vectors beyond shared memory."""
+    def problem(C, n_pad, m_pad):
+        z = functools.partial(torch.zeros, device=cuda_device)
+        return dl.DenseScaledProblem(
+            z((C, n_pad, n_pad)), z((C, n_pad, n_pad)), z((C, m_pad, n_pad)),
+            z((C, n_pad)), z((C, n_pad)), z((C, m_pad)), z((C, m_pad)),
+            z((C, m_pad)))
+    before = dl.DENSE_LAUNCHES
+    with pytest.raises(ValueError, match="n_pad"):
+        dl.admm_iterations_dense(problem(1, 640, 128), 1, 1e-6, ALPHA, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        dl.admm_iterations_dense(problem(1, 128, 12800), 1, 1e-6, ALPHA, 0)
+    assert dl.DENSE_LAUNCHES == before
 
 
 def _fused(cfg):

@@ -33,7 +33,7 @@
 // and there is no stored A^T.
 //
 // Bound. Each input is needed once: at 128 scenarios (768 candidates) and
-// refine 0 that is 4.86 GB (1.45 ms at 3.35 TB/s), against 450 GFLOP of
+// refine 0 that is 4.86 GB (1.45 ms at 3.35 TB/s), against 448 GFLOP of
 // padded dense float32 work for 100 iterations (6.7 ms at 67 TFLOP/s):
 // operations. The kernel is far from that bound: it streams A and Minv
 // from memory on every iteration (6.3 MB per candidate and iteration at
@@ -285,7 +285,8 @@ extern "C" int dense_loop_args_size() { return (int)sizeof(DenseArgs); }
 // cudaError_t of the launch (0 on success), or cudaErrorInvalidValue for
 // shapes the kernel does not take (n_pad not a multiple of 4 or above 512,
 // vectors beyond one block's shared memory); the wrapper
-// (intent_mpc_torch/ops/dense_loop.py) checks the same before it calls.
+// (intent_mpc_torch/ops/dense_loop.py) raises on it. This is the one
+// place where the kernel's shape limits are checked.
 extern "C" int dense_loop_launch(const void* args, void* stream) {
   const DenseArgs& a = *static_cast<const DenseArgs*>(args);
   if (a.n_pad <= 0 || a.n_pad % 4 != 0 || a.n_pad > kMaxN || a.m_pad <= 0 ||

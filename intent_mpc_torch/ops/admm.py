@@ -181,14 +181,16 @@ def admm_factor(cfg: PlannerConfig, qp: QPData,
 
 
 def _explicit_minv(cfg: PlannerConfig, qp: QPData, h_s, scfg: SolverConfig,
-                   rho_inner: ConVec, D) -> torch.Tensor:
+                   rho_inner: ConVec, D, M=None) -> torch.Tensor:
     """Explicit inverse (..., n, n) of the scaled x-update normal matrix,
     via the block-tridiagonal factorization (default) or the dense
-    Cholesky of the assembled matrix (`structured_factor=False`)."""
+    Cholesky of the assembled matrix (`structured_factor=False`; a caller
+    that has assembled it already passes it as M)."""
     if scfg.structured_factor:
         return structured_minv(cfg, qp, h_s, scfg.sigma, rho_inner, D)
-    M = qplib.assemble_normal_matrix(cfg, qp, h_s, scfg.sigma, rho_inner,
-                                     col_scale=D)
+    if M is None:
+        M = qplib.assemble_normal_matrix(cfg, qp, h_s, scfg.sigma, rho_inner,
+                                         col_scale=D)
     # cholesky_ex: no host sync on the info flag; a matrix that is not
     # positive definite gives a non-finite inverse, as in the JAX version
     L, _ = torch.linalg.cholesky_ex(M)
@@ -386,7 +388,7 @@ def _dense_scaled_problem(cfg: PlannerConfig, qp: QPData, x0: torch.Tensor,
                                      col_scale=D)
     # the same Minv as admm_solve's (structured by default), so that both
     # paths share their iterates
-    Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
+    Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D, M)
 
     # E A D, scaled in place: at 768 candidates A alone is ~3 GB
     A = qplib.dense_a_matrix(cfg, qp)                     # (..., m, n)

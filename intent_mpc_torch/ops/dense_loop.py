@@ -36,13 +36,8 @@ import torch
 # kernel launches since the last reset (only the CUDA path counts)
 DENSE_LAUNCHES = 0
 
-# What csrc/dense_loop.cu takes: n_pad a multiple of 4 up to 512 (a warp
-# row-dot holds 4 float4 columns per lane), and the block's vectors
-# (5 of n_pad, 8 warp partials of n_pad, 5 of m_pad floats) inside one
-# block's shared memory.
-MAX_N_PAD = 512
-WARPS = 8
-SMEM_LIMIT = 232448
+# what dense_loop_launch returns for shapes the kernel does not take
+_CUDA_ERROR_INVALID_VALUE = 1
 
 
 class DenseScaledProblem(NamedTuple):
@@ -58,11 +53,6 @@ class DenseScaledProblem(NamedTuple):
     rho: torch.Tensor    # (C, m_pad)
     lo: torch.Tensor     # (C, m_pad)
     hi: torch.Tensor     # (C, m_pad)
-
-
-def smem_bytes(n_pad: int, m_pad: int) -> int:
-    """Shared memory of one kernel block (csrc/dense_loop.cu smem_bytes)."""
-    return 4 * ((5 + WARPS) * n_pad + 5 * m_pad)
 
 
 def dense_loop_reference(sp: DenseScaledProblem, iters: int, sigma: float,
@@ -168,14 +158,6 @@ def admm_iterations_dense(sp: DenseScaledProblem, iters: int, sigma: float,
                          "got %s" % dev)
     C, n_pad = sp.q.shape
     m_pad = sp.rho.shape[-1]
-    if n_pad % 4 or n_pad > MAX_N_PAD:
-        raise ValueError("dense_loop kernel takes n_pad a multiple of 4 up "
-                         "to %d, got %d" % (MAX_N_PAD, n_pad))
-    if smem_bytes(n_pad, m_pad) > SMEM_LIMIT:
-        raise ValueError("dense_loop kernel: the vectors of n_pad = %d, "
-                         "m_pad = %d need %d bytes of shared memory, more "
-                         "than %d" % (n_pad, m_pad, smem_bytes(n_pad, m_pad),
-                                      SMEM_LIMIT))
     if iters < 0 or refine < 0:
         raise ValueError("iters and refine must be >= 0")
     x = torch.empty((C, n_pad), dtype=torch.float32, device=dev)
@@ -188,6 +170,12 @@ def admm_iterations_dense(sp: DenseScaledProblem, iters: int, sigma: float,
     a.beta = 1.0 - alpha      # rounded to float once, as torch rounds it
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().dense_loop_launch(ctypes.addressof(a), stream)
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(
+            "dense_loop kernel does not take n_pad = %d, m_pad = %d: it needs "
+            "n_pad a multiple of 4 up to kMaxN and the block's vectors "
+            "within one block's shared memory (csrc/dense_loop.cu)"
+            % (n_pad, m_pad))
     if err != 0:
         raise RuntimeError("dense_loop kernel launch failed: cudaError %d"
                            % err)

@@ -219,7 +219,8 @@ def test_dense_kernel_is_deterministic(cuda_device):
 @pytest.mark.cuda
 def test_dense_kernel_raises_on_shapes_it_cannot_take(cuda_device):
     """A CUDA problem the kernel cannot take raises instead of running the
-    plain version: n_pad above 512, or vectors beyond shared memory."""
+    plain version: n_pad above 512 or not a multiple of 4, or vectors
+    beyond shared memory."""
     def problem(C, n_pad, m_pad):
         z = functools.partial(torch.zeros, device=cuda_device)
         return dl.DenseScaledProblem(
@@ -227,8 +228,9 @@ def test_dense_kernel_raises_on_shapes_it_cannot_take(cuda_device):
             z((C, n_pad)), z((C, n_pad)), z((C, m_pad)), z((C, m_pad)),
             z((C, m_pad)))
     before = dl.DENSE_LAUNCHES
-    with pytest.raises(ValueError, match="n_pad"):
-        dl.admm_iterations_dense(problem(1, 640, 128), 1, 1e-6, ALPHA, 0)
+    for n_pad in (640, 130):
+        with pytest.raises(ValueError, match="n_pad = %d" % n_pad):
+            dl.admm_iterations_dense(problem(1, n_pad, 128), 1, 1e-6, ALPHA, 0)
     with pytest.raises(ValueError, match="shared memory"):
         dl.admm_iterations_dense(problem(1, 128, 12800), 1, 1e-6, ALPHA, 0)
     assert dl.DENSE_LAUNCHES == before

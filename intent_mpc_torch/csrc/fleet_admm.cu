@@ -94,8 +94,39 @@ struct FleetArgs {
   float* yl_out;        // (S, 8, lin_pad)
   float* yo_out;        // (S, 8, W, K), also the y_obs iterate
   float* zo;            // (S, 8, W, K), the z_obs iterate
+  long long* clk;       // (S, kPhases) phase cycles, or null (see PhaseClock)
   int S, n, n_pad, lin_pad, W, Wp, K, n_ext, iters, refine;
   float sigma, alpha, beta;  // beta = 1 - alpha, rounded to float on the host
+};
+
+// Phase kinds of the optional cycle count (fleet_phases.py reads it).
+enum Phase { kMinvApply, kCsrA, kCsrAt, kLinRows, kObsRows, kVecUpdate,
+             kPhases };
+
+// Thread 0 of each block adds the clock64() cycles of each phase, from the
+// barrier that ends the previous phase to the one that ends this one, and
+// writes them to clk[block][kind] at the end. With clk null (every caller
+// but the measuring script) it does nothing.
+struct PhaseClock {
+  long long* out;
+  long long t;
+  long long acc[kPhases];
+  __device__ explicit PhaseClock(long long* o) : out(o), t(0) {
+#pragma unroll
+    for (int k = 0; k < kPhases; ++k) acc[k] = 0;
+    if (out && threadIdx.x == 0) t = clock64();
+  }
+  __device__ __forceinline__ void lap(Phase k) {
+    if (out && threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[k] += now - t;
+      t = now;
+    }
+  }
+  __device__ void store() const {
+    if (out && threadIdx.x == 0)
+      for (int k = 0; k < kPhases; ++k) out[blockIdx.x * kPhases + k] = acc[k];
+  }
 };
 
 // What an obstacle or linear-row pass computes from the fresh A_ext image.
@@ -125,7 +156,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ void csr_apply(const int* __restrict__ ptr,
                           const int* __restrict__ col,
                           const float* __restrict__ val, int rows,
-                          const float* in, int in_len, float* out) {
+                          const float* in, int in_len, float* out,
+                          PhaseClock& pc, Phase kind) {
   for (int i = threadIdx.x; i < kLive * rows; i += kThreads) {
     const int c = i / rows;
     const int r = i - c * rows;
@@ -137,6 +169,7 @@ __device__ void csr_apply(const int* __restrict__ ptr,
     out[c * rows + r] = acc;
   }
   __syncthreads();
+  pc.lap(kind);
 }
 
 // out[c][i] = (out[c][i] if kAdd) + sum_{j<n} m[i][j] * in[c][j] for the
@@ -145,7 +178,7 @@ __device__ void csr_apply(const int* __restrict__ ptr,
 // past n are zero, and so are in's pad rows).
 template <bool kAdd>
 __device__ void minv_apply(const float* __restrict__ m, int n, int n_pad,
-                           const float* in, float* out) {
+                           const float* in, float* out, PhaseClock& pc) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n4 = (n + 3) >> 2;
@@ -185,6 +218,7 @@ __device__ void minv_apply(const float* __restrict__ m, int n, int n_pad,
     }
   }
   __syncthreads();
+  pc.lap(kMinvApply);
 }
 
 // Per-block views of one scenario's inputs and iterates.
@@ -291,14 +325,20 @@ __device__ void obstacle_rows(const FleetArgs& a, const Scenario& sc,
 template <Pass kPass>
 __device__ void a_s_pass(const FleetArgs& a, const Scenario& sc,
                          const float* v, float* sT, float* sE, float* sZl,
-                         float* sYl) {
+                         float* sYl, PhaseClock& pc) {
   for (int i = threadIdx.x; i < kLive * a.n_pad; i += kThreads)
     sT[i] = sc.d[i] * v[i];
   __syncthreads();
-  csr_apply(a.a_ptr, a.a_col, a.a_val, a.n_ext, sT, a.n_pad, sE);
+  pc.lap(kVecUpdate);
+  csr_apply(a.a_ptr, a.a_col, a.a_val, a.n_ext, sT, a.n_pad, sE, pc, kCsrA);
   linear_rows<kPass>(a, sc, sE, sZl, sYl);
+  if (pc.out) {  // the two row kinds share a phase unless they are timed
+    __syncthreads();
+    pc.lap(kLinRows);
+  }
   obstacle_rows<kPass>(a, sc, sE);
   __syncthreads();
+  pc.lap(kObsRows);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -340,32 +380,39 @@ fleet_admm_kernel(const FleetArgs a) {
   sc.yo = a.yo_out + vo;
   const float* minv = a.minv + (size_t)s * n_pad * n_pad;
   const int nv = kLive * n_pad;
+  PhaseClock pc(a.clk);
 
   for (int i = threadIdx.x; i < nv; i += kThreads) sX[i] = sc.x0[i];
   __syncthreads();
-  a_s_pass<kInit>(a, sc, sX, sT, sE, sZl, sYl);
+  pc.lap(kVecUpdate);
+  a_s_pass<kInit>(a, sc, sX, sT, sE, sZl, sYl, pc);
 
   for (int it = 0; it < a.iters; ++it) {
     // rhs = sigma x - q + d * A^T(w); sE holds w from the previous pass
-    csr_apply(a.at_ptr, a.at_col, a.at_val, n_pad, sE, a.n_ext, sT);
+    csr_apply(a.at_ptr, a.at_col, a.at_val, n_pad, sE, a.n_ext, sT, pc,
+              kCsrAt);
     for (int i = threadIdx.x; i < nv; i += kThreads)
       sRhs[i] = a.sigma * sX[i] - sc.q[i] + sc.d[i] * sT[i];
     __syncthreads();
-    minv_apply<false>(minv, a.n, n_pad, sRhs, sXt);
+    pc.lap(kVecUpdate);
+    minv_apply<false>(minv, a.n, n_pad, sRhs, sXt, pc);
     for (int r = 0; r < a.refine; ++r) {
       // residual rhs - (hs xt + at_s(rho a_s(xt))), then xt += Minv residual
-      a_s_pass<kMApply>(a, sc, sXt, sT, sE, sZl, sYl);
-      csr_apply(a.at_ptr, a.at_col, a.at_val, n_pad, sE, a.n_ext, sT);
+      a_s_pass<kMApply>(a, sc, sXt, sT, sE, sZl, sYl, pc);
+      csr_apply(a.at_ptr, a.at_col, a.at_val, n_pad, sE, a.n_ext, sT, pc,
+                kCsrAt);
       for (int i = threadIdx.x; i < nv; i += kThreads)
         sT[i] = sRhs[i] - (sc.hs[i] * sXt[i] + sc.d[i] * sT[i]);
       __syncthreads();
-      minv_apply<true>(minv, a.n, n_pad, sT, sXt);
+      pc.lap(kVecUpdate);
+      minv_apply<true>(minv, a.n, n_pad, sT, sXt, pc);
     }
     // z/y update from a_s(xt); x blend
-    a_s_pass<kUpdate>(a, sc, sXt, sT, sE, sZl, sYl);
+    a_s_pass<kUpdate>(a, sc, sXt, sT, sE, sZl, sYl, pc);
     for (int i = threadIdx.x; i < nv; i += kThreads)
       sX[i] = a.alpha * sXt[i] + a.beta * sX[i];
     __syncthreads();
+    pc.lap(kVecUpdate);
   }
 
   float* x_out = a.x_out + vn;
@@ -377,6 +424,9 @@ fleet_admm_kernel(const FleetArgs a) {
   const int no = a.W * a.K;
   for (int i = kLive * no + threadIdx.x; i < kLanes * no; i += kThreads)
     sc.yo[i] = 0.0f;
+  __syncthreads();
+  pc.lap(kVecUpdate);
+  pc.store();
 }
 
 size_t smem_bytes(const FleetArgs& a) {
@@ -386,6 +436,7 @@ size_t smem_bytes(const FleetArgs& a) {
 }  // namespace
 
 extern "C" int fleet_admm_args_size() { return (int)sizeof(FleetArgs); }
+extern "C" int fleet_admm_phases() { return kPhases; }
 
 // args: host pointer to a FleetArgs; stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 on success). The wrapper

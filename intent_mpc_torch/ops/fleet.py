@@ -53,6 +53,11 @@ from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
 # kernel launches since the last reset (only the CUDA path counts)
 FLEET_LAUNCHES = 0
 
+# the kernel's phase kinds, in the order of its optional cycle count
+# (enum Phase in csrc/fleet_admm.cu; benchmark/fleet_phases.py reads it)
+PHASES = ("minv_apply", "csr_a", "csr_at", "linear_rows", "obstacle_rows",
+          "vector_updates")
+
 LANES = 8       # candidate slots per scenario in the layout
 LIVE = 6        # live candidates per scenario (slots 6, 7 are inert)
 BIG = 1e30      # finite stand-in for an infinite bound
@@ -355,7 +360,7 @@ class _FleetArgs(ctypes.Structure):
                              "at_val", "minv", "d", "q", "hs", "x0", "el",
                              "rl", "irl", "lol", "hil", "gx", "gy", "gz",
                              "s3", "s4", "ro", "iro", "loo", "x_out",
-                             "yl_out", "yo_out", "zo")]
+                             "yl_out", "yo_out", "zo", "clk")]
         + [(k, ctypes.c_int) for k in ("S", "n", "n_pad", "lin_pad", "W",
                                        "Wp", "K", "n_ext", "iters",
                                        "refine")]
@@ -374,11 +379,17 @@ def _library():
         lib.fleet_admm_launch.restype = ctypes.c_int
         lib.fleet_admm_args_size.argtypes = []
         lib.fleet_admm_args_size.restype = ctypes.c_int
+        lib.fleet_admm_phases.argtypes = []
+        lib.fleet_admm_phases.restype = ctypes.c_int
         if lib.fleet_admm_args_size() != ctypes.sizeof(_FleetArgs):
             raise RuntimeError("fleet_admm argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
                                % (lib.fleet_admm_args_size(),
                                   ctypes.sizeof(_FleetArgs)))
+        if lib.fleet_admm_phases() != len(PHASES):
+            raise RuntimeError("fleet_admm counts %d phase kinds, the "
+                               "wrapper names %d" % (lib.fleet_admm_phases(),
+                                                     len(PHASES)))
         _LIB = lib
     return _LIB
 
@@ -414,7 +425,6 @@ def fleet_solve(cfg: PlannerConfig, fp: FleetProblem, iters: int,
     """Run the whole solve; returns the scaled (x (S, 8, n_pad), y_lin
     (S, 8, lin_pad), y_obs (S, 8, W, K)). On the card the inert slots 6
     and 7 are not iterated and come back as zeros."""
-    global FLEET_LAUNCHES
     d = _check(cfg, fp)
     dev = fp.minv.device
     if dev.type == "cpu":
@@ -422,6 +432,16 @@ def fleet_solve(cfg: PlannerConfig, fp: FleetProblem, iters: int,
     if dev.type != "cuda":
         raise ValueError("fleet_solve runs on CPU or CUDA tensors, got %s"
                          % dev)
+    return _launch(cfg, fp, d, iters, refine)
+
+
+def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
+            refine: int, clk: Optional[torch.Tensor] = None):
+    """One launch of the kernel on a checked CUDA problem. `clk`, an int64
+    (S, len(PHASES)) tensor, receives each block's cycles per phase kind
+    (benchmark/fleet_phases.py); every other caller passes None."""
+    global FLEET_LAUNCHES
+    dev = fp.minv.device
     S = fp.minv.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     x = torch.empty((S, LANES, d.n_pad), **kw)
@@ -441,6 +461,13 @@ def fleet_solve(cfg: PlannerConfig, fp: FleetProblem, iters: int,
                  ("ro", fp.rho_obs), ("iro", fp.ir_obs), ("loo", fp.lo_obs),
                  ("x_out", x), ("yl_out", yl), ("yo_out", yo), ("zo", zo)):
         setattr(a, k, t.data_ptr())
+    if clk is not None:
+        if (clk.dtype != torch.int64 or clk.device != dev
+                or tuple(clk.shape) != (S, len(PHASES))
+                or not clk.is_contiguous()):
+            raise ValueError("clk must be a contiguous int64 (S, %d) tensor "
+                             "on the problem's device" % len(PHASES))
+        a.clk = clk.data_ptr()
     a.S, a.n, a.n_pad, a.lin_pad = S, d.n, d.n_pad, d.lin_pad
     a.W, a.Wp, a.K, a.n_ext = d.W, d.Wp, d.K, d.n_ext
     a.iters, a.refine = iters, refine

@@ -23,7 +23,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
                of the fused DYNUS loop: after 1 iteration x within 1e-5 of
                max|x|, after 10 the unscaled candidate states within
                1e-3 m, after 100 both finite with the same acceptance
-               mask; and the full solve of a small config within 1e-3
+               mask; its time, bound, the design's streamed bytes (and
+               their time at HBM peak) and its phase split; and the full
+               solve of a small config within 1e-3
   7. loop_fused the DYNUS loop with fused_solve=True (bench.py --fused)
                for 8 cycles at 128 and at 32 scenarios: exactly one
                fleet_admm launch per cycle and no ew_chain launch
@@ -331,10 +333,30 @@ def fleet_bound(pcfg, fp, iters, refine, live_k):
             nbytes, flops)
 
 
+def fleet_stream(pcfg, fp, iters, refine, obs_shared):
+    """What the fleet kernel's design streams from L2 or HBM in one solve:
+    per scenario and iteration, Minv's live rows (n x n rounded up to 4
+    columns) once per apply, the obstacle records (32 B per live slot)
+    once per row pass, and z_obs / y_obs read and written in the update
+    pass when they are not in shared memory; plus the first pass's records
+    and z/y writes."""
+    from intent_mpc_torch.ops import fleet as fl
+    S, n = fp.minv.shape[0], pcfg.num_vars
+    d = fl.fleet_dims(pcfg, fp.gx.shape[-1], S)
+    slots = fl.LIVE * d.W * d.K
+    minv = n * ((n + 3) // 4 * 4) * 4
+    rec = slots * 32
+    zy = 0 if obs_shared else slots * 4
+    per_iter = (1 + refine) * (minv + rec) + 4 * zy
+    return S * (iters * per_iter + rec + 2 * zy)
+
+
 def check_fleet_kernel(cfg, S, dev):
     """fleet_admm against fleet_solve_reference on the QPs of the third
-    cycle (the second with obstacle rows) of the fused DYNUS loop."""
+    cycle (the second with obstacle rows) of the fused DYNUS loop; its
+    time, bound, the design's streamed bytes and its phase split."""
     import torch
+    from intent_mpc_torch.benchmark import fleet_phases
     from intent_mpc_torch.ops import fleet as fl
     from intent_mpc_torch.ops import qp as qplib
     pcfg = cfg.planner
@@ -375,8 +397,20 @@ def check_fleet_kernel(cfg, S, dev):
         lambda: fl.fleet_solve_reference(pcfg, fp, 100, refine), reps=3)
     bound_ms, bound_by, nbytes, flops = fleet_bound(pcfg, fp, 100, refine,
                                                     qps.G.shape[-2])
+    smem, obs_shared = fl.kernel_plan(pcfg, fp)
+    stream = fleet_stream(pcfg, fp, 100, refine, obs_shared)
+    d = fl._check(pcfg, fp)
+    clk = torch.zeros((S, len(fl.PHASES)), dtype=torch.int64, device=dev)
+    counted_ms = cuda_time_ms(
+        lambda: fl._launch(pcfg, fp, d, 100, refine, clk), reps=5)
+    split = fleet_phases.phase_split(pcfg, fp, 100, refine, ms, counted_ms)
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               bytes=nbytes, flops=flops, iters_timed=100)
+               bytes=nbytes, flops=flops, iters_timed=100,
+               streamed_bytes=stream,
+               streamed_ms=stream / PEAK_BYTES_PER_S * 1e3,
+               smem_bytes=smem, obs_in_shared=obs_shared,
+               phase_split={k: split[k]["share"] for k in fl.PHASES},
+               phase_count_overhead=split["count_overhead"])
     return out
 
 

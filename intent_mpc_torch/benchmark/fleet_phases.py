@@ -9,7 +9,9 @@ candidate QPs as the planner does, and launches csrc/fleet_admm.cu with
 its cycle count on: thread 0 of every block adds the clock64() cycles of
 each phase, from the barrier that ends one phase to the barrier that ends
 the next, per kind (`fleet.PHASES`: Minv apply, A_ext CSR, A_ext^T CSR,
-linear rows, obstacle rows, vector updates). Prints one JSON line per
+linear rows, obstacle rows, vector updates; where the kernel fuses two
+kinds into one phase, its source says under which kind the phase
+counts). Prints one JSON line per
 size: each kind's share of the block's cycles (mean over blocks), its
 cycles per iteration, and that share of the kernel's time with the count
 off (CUDA events), beside the time with it on. Needs a CUDA device.

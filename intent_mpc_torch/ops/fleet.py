@@ -26,7 +26,9 @@ candidate group (6 live candidates, 2 inert slots with the same fill
 values), so `utils/convert.fleet_problem_from_lanes` maps one layout
 onto the other element for element. The TPU tiling (scenarios per grid
 cell, the VMEM window and the manual DMA of the inverse stack) has no
-counterpart here.
+counterpart here. The kernel reads the eight read-only obstacle arrays
+as one record tensor (`pack_obstacle_records`, (S, 6, W, K, 8)), which
+the wrapper builds from the FleetProblem fields once per solve.
 
 `fleet_solve` launches the hand-written CUDA kernel csrc/fleet_admm.cu
 once per solve when the problem lies on a CUDA device, and runs
@@ -280,6 +282,18 @@ def pack_fleet(cfg: PlannerConfig, qps: QPData, minv: torch.Tensor,
     )
 
 
+# the read-only obstacle arrays in the order of a packed record
+OBS_FIELDS = ("gx", "gy", "gz", "s3", "s4", "rho_obs", "ir_obs", "lo_obs")
+
+
+def pack_obstacle_records(fp: FleetProblem) -> torch.Tensor:
+    """The kernel's form of the obstacle arrays: the live slots' eight
+    per-slot values side by side, (S, 6, W, K, 8) float32, so that the
+    kernel reads a slot with two 16-byte loads."""
+    return torch.stack([getattr(fp, f)[:, :LIVE] for f in OBS_FIELDS],
+                       dim=-1).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # The solve: plain version and kernel
 # ---------------------------------------------------------------------------
@@ -358,12 +372,11 @@ class _FleetArgs(ctypes.Structure):
     _fields_ = (
         [(k, _PTR) for k in ("a_ptr", "a_col", "a_val", "at_ptr", "at_col",
                              "at_val", "minv", "d", "q", "hs", "x0", "el",
-                             "rl", "irl", "lol", "hil", "gx", "gy", "gz",
-                             "s3", "s4", "ro", "iro", "loo", "x_out",
+                             "rl", "irl", "lol", "hil", "rec", "x_out",
                              "yl_out", "yo_out", "zo", "clk")]
         + [(k, ctypes.c_int) for k in ("S", "n", "n_pad", "lin_pad", "W",
                                        "Wp", "K", "n_ext", "iters",
-                                       "refine")]
+                                       "refine", "nnz")]
         + [(k, ctypes.c_float) for k in ("sigma", "alpha", "beta")])
 
 
@@ -381,6 +394,8 @@ def _library():
         lib.fleet_admm_args_size.restype = ctypes.c_int
         lib.fleet_admm_phases.argtypes = []
         lib.fleet_admm_phases.restype = ctypes.c_int
+        lib.fleet_admm_smem.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.fleet_admm_smem.restype = ctypes.c_longlong
         if lib.fleet_admm_args_size() != ctypes.sizeof(_FleetArgs):
             raise RuntimeError("fleet_admm argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
@@ -435,6 +450,39 @@ def fleet_solve(cfg: PlannerConfig, fp: FleetProblem, iters: int,
     return _launch(cfg, fp, d, iters, refine)
 
 
+def _args(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
+          refine: int) -> _FleetArgs:
+    """The kernel's arguments for the problem's inputs and sizes (the
+    outputs, scratch and records are set by the caller)."""
+    a = _FleetArgs()
+    sparse = _a_ext_on(cfg, d.K, fp.minv.device)[1]
+    for k, t in zip(("a_ptr", "a_col", "a_val", "at_ptr", "at_col", "at_val"),
+                    sparse):
+        setattr(a, k, t.data_ptr())
+    for k, t in (("minv", fp.minv), ("d", fp.d_scale), ("q", fp.q),
+                 ("hs", fp.hsig), ("x0", fp.x0), ("el", fp.e_lin),
+                 ("rl", fp.rho_lin), ("irl", fp.ir_lin), ("lol", fp.lo_lin),
+                 ("hil", fp.hi_lin)):
+        setattr(a, k, t.data_ptr())
+    a.S, a.n, a.n_pad, a.lin_pad = fp.minv.shape[0], d.n, d.n_pad, d.lin_pad
+    a.W, a.Wp, a.K, a.n_ext = d.W, d.Wp, d.K, d.n_ext
+    a.iters, a.refine, a.nnz = iters, refine, sparse[1].numel()
+    a.sigma, a.alpha = cfg.solver.sigma, cfg.solver.alpha
+    a.beta = 1.0 - cfg.solver.alpha   # rounded to float once, as torch does
+    return a
+
+
+def kernel_plan(cfg: PlannerConfig, fp: FleetProblem) -> Tuple[int, bool]:
+    """The kernel's shared-memory bytes for this problem (0 if its shapes
+    do not fit) and whether z_obs and y_obs live in shared memory (else in
+    device memory). Loads the kernel's library."""
+    d = _check(cfg, fp)
+    obs_shared = ctypes.c_int(0)
+    nbytes = _library().fleet_admm_smem(
+        ctypes.addressof(_args(cfg, fp, d, 0, 0)), ctypes.byref(obs_shared))
+    return int(nbytes), bool(obs_shared.value)
+
+
 def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
             refine: int, clk: Optional[torch.Tensor] = None):
     """One launch of the kernel on a checked CUDA problem. `clk`, an int64
@@ -447,19 +495,11 @@ def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
     x = torch.empty((S, LANES, d.n_pad), **kw)
     yl = torch.empty((S, LANES, d.lin_pad), **kw)
     yo = torch.empty((S, LANES, d.W, d.K), **kw)
-    zo = torch.empty((S, LANES, d.W, d.K), **kw)     # z_obs iterate
-    sparse = _a_ext_on(cfg, d.K, dev)[1]
-    a = _FleetArgs()
-    for k, t in zip(("a_ptr", "a_col", "a_val", "at_ptr", "at_col", "at_val"),
-                    sparse):
-        setattr(a, k, t.data_ptr())
-    for k, t in (("minv", fp.minv), ("d", fp.d_scale), ("q", fp.q),
-                 ("hs", fp.hsig), ("x0", fp.x0), ("el", fp.e_lin),
-                 ("rl", fp.rho_lin), ("irl", fp.ir_lin), ("lol", fp.lo_lin),
-                 ("hil", fp.hi_lin), ("gx", fp.gx), ("gy", fp.gy),
-                 ("gz", fp.gz), ("s3", fp.s3), ("s4", fp.s4),
-                 ("ro", fp.rho_obs), ("iro", fp.ir_obs), ("loo", fp.lo_obs),
-                 ("x_out", x), ("yl_out", yl), ("yo_out", yo), ("zo", zo)):
+    zo = torch.empty((S, LIVE, d.W, d.K), **kw)       # z_obs iterate
+    rec = pack_obstacle_records(fp)
+    a = _args(cfg, fp, d, iters, refine)
+    for k, t in (("rec", rec), ("x_out", x), ("yl_out", yl), ("yo_out", yo),
+                 ("zo", zo)):
         setattr(a, k, t.data_ptr())
     if clk is not None:
         if (clk.dtype != torch.int64 or clk.device != dev
@@ -468,11 +508,6 @@ def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
             raise ValueError("clk must be a contiguous int64 (S, %d) tensor "
                              "on the problem's device" % len(PHASES))
         a.clk = clk.data_ptr()
-    a.S, a.n, a.n_pad, a.lin_pad = S, d.n, d.n_pad, d.lin_pad
-    a.W, a.Wp, a.K, a.n_ext = d.W, d.Wp, d.K, d.n_ext
-    a.iters, a.refine = iters, refine
-    a.sigma, a.alpha = cfg.solver.sigma, cfg.solver.alpha
-    a.beta = 1.0 - cfg.solver.alpha   # rounded to float once, as torch does
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _library().fleet_admm_launch(ctypes.addressof(a), stream)
     if err != 0:

@@ -18,7 +18,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import small_fleet_qps  # noqa: E402
+from chip_smoke import capture_fused_qps, small_fleet_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
 from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
@@ -143,6 +143,81 @@ def test_fleet_kernel_matches_plain_version(cuda_device):
                 <= 1e-3 * (float(b.abs().max()) + 1.0)
         for t in got:
             assert not bool(t[:, fl.LIVE:].any())
+
+
+_FLEET_SMALL = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+    max_iter=60, shared_refine_mode="stationary", shared_refine_iters=3))
+_FLEET_PRODUCTION = PlannerConfig(horizon=30, max_obstacles=65)
+
+
+def _fleet_problem(pcfg, S, device):
+    qps = small_fleet_qps(pcfg, S, device)
+    warm = torch.zeros((S, 6, pcfg.num_vars), device=device)
+    return fl.fleet_setup(pcfg, qps, warm)[0]
+
+
+def _check_fleet(pcfg, fp, iters, refine, tol):
+    """One launch against fleet_solve_reference, with the tolerances of
+    test_fleet_kernel_matches_plain_version: x within tol of max|x|, the
+    duals within 1e-3 of their scale, the inert slots zero."""
+    before = fl.FLEET_LAUNCHES
+    got = fl.fleet_solve(pcfg, fp, iters, refine)
+    want = fl.fleet_solve_reference(pcfg, fp, iters, refine)
+    torch.cuda.synchronize()
+    assert fl.FLEET_LAUNCHES == before + 1
+    live = want[0][:, :fl.LIVE]
+    err = float((got[0][:, :fl.LIVE] - live).abs().max())
+    assert err <= tol * float(live.abs().max()), (iters, refine, err)
+    for a, b in zip(got[1:], want[1:]):
+        b = b[:, :fl.LIVE]
+        assert float((a[:, :fl.LIVE] - b).abs().max()) \
+            <= 1e-3 * (float(b.abs().max()) + 1.0)
+    for t in got:
+        assert not bool(t[:, fl.LIVE:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["small", "production"])
+@pytest.mark.parametrize("S", [1, 133])
+def test_fleet_kernel_at_scenario_counts(cuda_device, config, S):
+    """One scenario, and more scenarios than the H100 has SMs (one block
+    each), at the small config (z_obs and y_obs in shared memory) and at
+    the production shapes (horizon 30, 72 slots: in device memory): after
+    1 iteration within 1e-5 of max|x|, after 60 within 1e-3."""
+    pcfg = _FLEET_SMALL if config == "small" else _FLEET_PRODUCTION
+    refine = pcfg.solver.shared_refine_iters
+    fp = _fleet_problem(pcfg, S, cuda_device)
+    assert fl.kernel_plan(pcfg, fp)[1] == (config == "small")
+    for iters, tol in ((1, 1e-5), (60, 1e-3)):
+        _check_fleet(pcfg, fp, iters, refine, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [0, 1])
+@pytest.mark.parametrize("refine", [0, 1, 2, 3])
+def test_fleet_kernel_refine_and_iters(cuda_device, refine, iters):
+    """Every refinement count the configs use and the shortest solves:
+    0 iterations returns the warm start and zero duals, 1 iteration is
+    within 1e-5 of max|x|."""
+    fp = _fleet_problem(_FLEET_SMALL, 4, cuda_device)
+    _check_fleet(_FLEET_SMALL, fp, iters, refine, 1e-5)
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_is_deterministic(cuda_device):
+    """No atomics and fixed summation orders: two 100-iteration launches on
+    the candidate QPs of cycle 2 of the production fused loop (4
+    scenarios) give the same bits."""
+    cfg = _fused(IntentMPCConfig())
+    pcfg = cfg.planner
+    qps, warm, rho = capture_fused_qps(cfg, 4, 2, cuda_device)
+    fp, _ = fl.fleet_setup(pcfg, qps, warm, rho_override=rho)
+    refine = pcfg.solver.shared_refine_iters
+    a = fl.fleet_solve(pcfg, fp, 100, refine)
+    b = fl.fleet_solve(pcfg, fp, 100, refine)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def _dense_problem(pcfg, device, candidates=None):

@@ -7,6 +7,8 @@ Config of tests/test_pallas_fused.py:44-47: horizon 10, 4 obstacle slots
 refinement x3."""
 
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -155,6 +157,41 @@ def test_fleet_solve_on_cpu_is_the_plain_version(fleet):
     bad = fp._replace(q=fp.q[:, :6].contiguous())
     with pytest.raises(ValueError, match="shape"):
         tf.fleet_solve(f["tcfg"], bad, 1, REFINE)
+
+
+@pytest.mark.parametrize("horizon,max_obstacles", [(10, 4), (30, 65)],
+                         ids=["small", "production"])
+def test_obstacle_records_unpack_to_the_fleet_problem(horizon,
+                                                       max_obstacles):
+    """The kernel's obstacle records, (S, 6, W, K, 8) with the eight
+    read-only per-slot arrays side by side, unpack bit for bit to the
+    FleetProblem fields pack_fleet built, the inert slots' fills and the
+    padded slots past the QPs' own count included."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import small_fleet_qps
+    from intent_mpc_torch.utils.config import PlannerConfig
+    pcfg = PlannerConfig(horizon=horizon, max_obstacles=max_obstacles)
+    qps = small_fleet_qps(pcfg, 2, "cpu")
+    fp, _ = tf.fleet_setup(pcfg, qps, torch.zeros((2, 6, pcfg.num_vars)))
+    d = tf.fleet_dims(pcfg, max_obstacles, 2)
+    assert d.K > max_obstacles             # the K padding is in the records
+    rec = tf.pack_obstacle_records(fp)
+    assert rec.shape == (2, tf.LIVE, d.W, d.K, 8)
+    assert rec.dtype == torch.float32 and rec.is_contiguous()
+    # unpack: each field's live slots from the record, the inert slots 6
+    # and 7 with pack_fleet's fills
+    fills = dict(gx=0.0, gy=0.0, gz=0.0, s3=0.0, s4=0.0, rho_obs=1e-6,
+                 ir_obs=1e6, lo_obs=-tf.BIG)
+    for i, name in enumerate(tf.OBS_FIELDS):
+        inert = torch.full((2, tf.LANES - tf.LIVE, d.W, d.K), fills[name])
+        back = torch.cat([rec[..., i], inert], dim=1)
+        want = getattr(fp, name)
+        assert torch.equal(back.view(torch.int32),
+                           want.view(torch.int32)), name
+    # the fills the records carry in the padded slots
+    assert bool((rec[..., 5][..., max_obstacles:] == np.float32(1e-6)).all())
+    assert bool((rec[..., 7][..., max_obstacles:] == -tf.BIG).all())
 
 
 def test_layout_maps_problem_p_to_scenario_and_slot():

@@ -25,8 +25,9 @@
 // ~3.2 MB per scenario and iteration, ~41 GB per 100-iteration solve at
 // 128 scenarios (76 MB of Minv and 51 MB of records, above the 50 MB L2),
 // ~12 ms at 3.35 TB/s. At 32 scenarios the streams fit in L2, and the
-// time is set by shared-memory reads and latency inside each SM, with 100
-// of the 132 SMs idle (a cluster per scenario is the later answer).
+// time is set by instruction issue and latency inside each SM (an apply
+// takes several times its FMAs' cycles), with 100 of the 132 SMs idle
+// (a cluster per scenario is the later answer).
 //
 // Design. One 512-thread block per scenario runs the whole solve;
 // scenarios are independent, so there is no grid-wide synchronisation, no

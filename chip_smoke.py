@@ -72,27 +72,6 @@ def check(ok, what):
         raise RuntimeError("chip_smoke check failed: %s" % (what,))
 
 
-def cuda_time_ms(fn, reps=50):
-    """Median of `reps` CUDA-event timings of fn() (after one warm-up).
-
-    Each timing starts behind a ~2 ms device-side spin, so the host has
-    enqueued fn()'s launches before the device reaches them and the events
-    time device work, not host launch overhead."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def production_ew_inputs(S, cfg, device):
     """Seeded inputs of the elementwise chain at the main path's shapes,
     in the production regime: +-inf bounds, equality rows, rho = 1e-6 on
@@ -198,77 +177,6 @@ def finite_carry(carry):
     return not bad
 
 
-def fused(cfg):
-    """The config with the fleet-fused solve, as bench.py --fused sets it."""
-    import dataclasses
-    return cfg.replace(planner=dataclasses.replace(
-        cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
-                                                fused_solve=True)))
-
-
-def run_loop(cfg, S, cycles, device):
-    """Drive the closed loop through the public entry points; returns
-    (carry, per-cycle seconds with a synchronize after each cycle)."""
-    import torch
-    from intent_mpc_torch.engine import closed_loop as cl
-    from intent_mpc_torch.models.occupancy import empty_grid
-    from intent_mpc_torch.models.world import straight_line_ref_traj
-    from intent_mpc_torch.parallel import sharding as sh
-    scen = sh.stack_scenarios(cfg, range(S), device=device)
-    ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5,
-                                 device=device)
-    occ = empty_grid(device)
-    carry = cl.init_carry(cfg, scen, device=device)
-    secs, positions = [], []
-    for i in range(cycles):
-        t0 = time.perf_counter()
-        carry, pos = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        positions.append(pos.detach().cpu())
-    return carry, secs, positions
-
-
-def capture_fused_qps(cfg, S, cycle, device):
-    """The candidate QPs that the planner hands to fleet_admm at `cycle` of
-    the fused DYNUS loop (cycles 0..cycle run from a fresh carry): a
-    recorder stands in for mpc.fleet_admm during this run only."""
-    from intent_mpc_torch.models import mpc as mpclib
-    solve = mpclib.fleet_admm
-    seen = []
-
-    def record(cfg_, qps, warm, max_iter=None, **kw):
-        seen.append((qps, warm, kw.get("rho_override")))
-        return solve(cfg_, qps, warm, max_iter, **kw)
-    mpclib.fleet_admm = record
-    try:
-        run_loop(fused(cfg), S, cycle + 1, device)
-    finally:
-        mpclib.fleet_admm = solve
-    return seen[cycle]
-
-
-def capture_default_qps(cfg, S, cycle, device):
-    """The candidate QPs and warm starts that the planner hands to
-    admm_solve at `cycle` of the default DYNUS loop (cycles 0..cycle run
-    from a fresh carry): a recorder stands in for mpc.admm_solve during
-    this run only."""
-    from intent_mpc_torch.models import mpc as mpclib
-    solve = mpclib.admm_solve
-    seen = []
-
-    def record(cfg_, qps, x0=None, max_iter=None, **kw):
-        seen.append((qps, x0))
-        return solve(cfg_, qps, x0, max_iter, **kw)
-    mpclib.admm_solve = record
-    try:
-        run_loop(cfg, S, cycle + 1, device)
-    finally:
-        mpclib.admm_solve = solve
-    return seen[cycle]
-
-
 def small_fleet_qps(pcfg, S, device):
     """(S, 6) seeded candidate QPs at the small config of the fleet parity
     test (horizon 10, 4 obstacle slots, 3 active, static ones yawed)."""
@@ -333,20 +241,19 @@ def fleet_bound(pcfg, fp, iters, refine, live_k):
             nbytes, flops)
 
 
-def fleet_stream(pcfg, fp, iters, refine, obs_shared):
+def fleet_stream(pcfg, fp, iters, refine):
     """What the fleet kernel's design streams from L2 or HBM in one solve:
     per scenario and iteration, Minv's live rows (n x n rounded up to 4
     columns) once per apply, the obstacle records (32 B per live slot)
     once per row pass, and z_obs / y_obs read and written in the update
-    pass when they are not in shared memory; plus the first pass's records
-    and z/y writes."""
+    pass; plus the first pass's records and z/y writes."""
     from intent_mpc_torch.ops import fleet as fl
     S, n = fp.minv.shape[0], pcfg.num_vars
     d = fl.fleet_dims(pcfg, fp.gx.shape[-1], S)
     slots = fl.LIVE * d.W * d.K
     minv = n * ((n + 3) // 4 * 4) * 4
     rec = slots * 32
-    zy = 0 if obs_shared else slots * 4
+    zy = slots * 4
     per_iter = (1 + refine) * (minv + rec) + 4 * zy
     return S * (iters * per_iter + rec + 2 * zy)
 
@@ -357,6 +264,8 @@ def check_fleet_kernel(cfg, S, dev):
     time, bound, the design's streamed bytes and its phase split."""
     import torch
     from intent_mpc_torch.benchmark import fleet_phases
+    from intent_mpc_torch.benchmark.capture import (capture_fused_qps,
+                                                    cuda_time_ms)
     from intent_mpc_torch.ops import fleet as fl
     from intent_mpc_torch.ops import qp as qplib
     pcfg = cfg.planner
@@ -397,18 +306,17 @@ def check_fleet_kernel(cfg, S, dev):
         lambda: fl.fleet_solve_reference(pcfg, fp, 100, refine), reps=3)
     bound_ms, bound_by, nbytes, flops = fleet_bound(pcfg, fp, 100, refine,
                                                     qps.G.shape[-2])
-    smem, obs_shared = fl.kernel_plan(pcfg, fp)
-    stream = fleet_stream(pcfg, fp, 100, refine, obs_shared)
+    stream = fleet_stream(pcfg, fp, 100, refine)
     d = fl._check(pcfg, fp)
     clk = torch.zeros((S, len(fl.PHASES)), dtype=torch.int64, device=dev)
     counted_ms = cuda_time_ms(
         lambda: fl._launch(pcfg, fp, d, 100, refine, clk), reps=5)
-    split = fleet_phases.phase_split(pcfg, fp, 100, refine, ms, counted_ms)
+    split = fleet_phases.phase_split(clk, 100, ms, counted_ms)
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, flops=flops, iters_timed=100,
                streamed_bytes=stream,
                streamed_ms=stream / PEAK_BYTES_PER_S * 1e3,
-               smem_bytes=smem, obs_in_shared=obs_shared,
+               **fl.kernel_resources(),
                phase_split={k: split[k]["share"] for k in fl.PHASES},
                phase_count_overhead=split["count_overhead"])
     return out
@@ -444,6 +352,8 @@ def check_dense_kernel(cfg, S, dev):
     as admm_solve_dense builds them. Returns the phase's fields and the
     plain version's 100-iteration acceptance mask."""
     import torch
+    from intent_mpc_torch.benchmark.capture import (capture_default_qps,
+                                                    cuda_time_ms)
     from intent_mpc_torch.ops import admm as admmlib
     from intent_mpc_torch.ops import dense_loop as dl
     from intent_mpc_torch.ops import qp as qplib
@@ -585,6 +495,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    from intent_mpc_torch.benchmark.capture import cuda_time_ms, fused, run_loop
     from intent_mpc_torch.ops import admm as admmlib
     from intent_mpc_torch.ops import build
     from intent_mpc_torch.ops import dense_loop as dl

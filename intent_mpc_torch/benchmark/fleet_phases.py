@@ -4,7 +4,7 @@
         [--iters 100]
 
 For each scenario count, runs the fused DYNUS loop to its cycle 2 (the
-second with obstacle rows; `chip_smoke.capture_fused_qps`), packs those
+second with obstacle rows; `capture.capture_fused_qps`), packs those
 candidate QPs as the planner does, and launches csrc/fleet_admm.cu with
 its cycle count on: thread 0 of every block adds the clock64() cycles of
 each phase, from the barrier that ends one phase to the barrier that ends
@@ -21,33 +21,24 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import subprocess
-import sys
 
 import torch
 
+from intent_mpc_torch.benchmark.capture import capture_fused_qps, cuda_time_ms
 from intent_mpc_torch.ops import fleet as fl
 
-ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 
-
-def phase_split(pcfg, fp: fl.FleetProblem, iters: int, refine: int,
-                kernel_ms: float, counted_ms: float) -> dict:
-    """One counted launch of the kernel on a CUDA problem; returns each
-    phase kind's share of the blocks' cycles, its cycles per iteration,
-    and its share of `kernel_ms` (the kernel's time with the count off).
-    `counted_ms` is the time with the count on, to show its cost."""
-    d = fl._check(pcfg, fp)
-    S = fp.minv.shape[0]
-    clk = torch.zeros((S, len(fl.PHASES)), dtype=torch.int64,
-                      device=fp.minv.device)
-    fl._launch(pcfg, fp, d, iters, refine, clk)
-    torch.cuda.synchronize()
+def phase_split(clk: torch.Tensor, iters: int, kernel_ms: float,
+                counted_ms: float) -> dict:
+    """The split of a counted launch that has run: `clk` is the (S,
+    len(PHASES)) cycle count it filled. Returns each phase kind's share of
+    the blocks' cycles, its cycles per iteration, and its share of
+    `kernel_ms` (the kernel's time with the count off). `counted_ms` is
+    the time with the count on, to show its cost."""
     per_block = clk.double().mean(0)                  # (phases,)
     total = float(per_block.sum())
-    out = {"iters": iters, "refine": refine, "scenarios": S,
+    out = {"iters": iters, "scenarios": clk.shape[0],
            "kernel_ms": kernel_ms, "counted_ms": counted_ms,
            "count_overhead": counted_ms / kernel_ms - 1.0,
            "block_cycles": total,
@@ -66,8 +57,6 @@ def main():
     ap.add_argument("--scenarios", type=int, nargs="+", default=[128, 32])
     ap.add_argument("--iters", type=int, default=100)
     args = ap.parse_args()
-    sys.path.insert(0, ROOT)
-    import chip_smoke as cs
     from intent_mpc_torch.utils.config import IntentMPCConfig
     from intent_mpc_torch.utils.device import resolve_device
 
@@ -79,15 +68,16 @@ def main():
     pcfg = cfg.planner
     refine = pcfg.solver.shared_refine_iters
     for S in args.scenarios:
-        qps, warm, rho = cs.capture_fused_qps(cfg, S, 2, dev)
+        qps, warm, rho = capture_fused_qps(cfg, S, 2, dev)
         fp, _ = fl.fleet_setup(pcfg, qps, warm, rho_override=rho)
         d = fl._check(pcfg, fp)
         clk = torch.zeros((S, len(fl.PHASES)), dtype=torch.int64, device=dev)
-        ms = cs.cuda_time_ms(
+        ms = cuda_time_ms(
             lambda: fl.fleet_solve(pcfg, fp, args.iters, refine), reps=10)
-        counted = cs.cuda_time_ms(
+        counted = cuda_time_ms(
             lambda: fl._launch(pcfg, fp, d, args.iters, refine, clk), reps=10)
-        split = phase_split(pcfg, fp, args.iters, refine, ms, counted)
+        split = phase_split(clk, args.iters, ms, counted)
+        split["refine"] = refine
         print(json.dumps({"fleet_phases": split, "device":
                           torch.cuda.get_device_name(0), "nvidia_smi": smi}),
               flush=True)

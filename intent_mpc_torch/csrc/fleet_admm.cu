@@ -21,7 +21,7 @@
 // keep a scenario's Minv (n = 385 live rows of 388 columns, 597 KB) or its
 // obstacle records (6 x 29 x 72 slots of 32 B, 401 KB) on an SM, so per
 // iteration at refine 2 it streams Minv three times and the records three
-// times, plus z_obs and y_obs once where they do not fit in shared memory:
+// times, plus z_obs and y_obs read and written once in device memory:
 // ~3.2 MB per scenario and iteration, ~41 GB per 100-iteration solve at
 // 128 scenarios (76 MB of Minv and 51 MB of records, above the 50 MB L2),
 // ~12 ms at 3.35 TB/s. At 32 scenarios the streams fit in L2, and the
@@ -56,10 +56,10 @@
 //  * Fused phases: the d scaling rides the A_ext gather; the A_ext^T
 //    gather carries the rhs or the residual update; the x blend is folded
 //    into the next rhs. Twelve block barriers per iteration at refine 2.
-//  * z_obs and y_obs stay in shared memory when they fit beside the ring,
-//    else in device memory (at the production shapes the ring takes the
-//    room: more Minv bytes in flight are worth more than 200 KB of z/y
-//    traffic per iteration).
+//  * z_obs and y_obs live in device memory (y_obs in the output): at the
+//    production shapes (6 x 29 x 72 slots, 100 KB each) the ring and the
+//    vectors leave no room for them in shared memory, and 49 more
+//    registers per thread do not fit beside the apply's accumulators.
 // A_ext (792 x 512, ~1.3k nonzeros) and its transpose are CSR arrays (built
 // on the host from the same numpy construction, columns ascending).
 //
@@ -118,8 +118,8 @@ struct FleetArgs {
   const float4* rec;    // (S, 6, W, K, 2): {gx gy gz s3}, {s4 ro iro loo}
   float* x_out;         // (S, 8, n_pad)
   float* yl_out;        // (S, 8, lin_pad)
-  float* yo_out;        // (S, 8, W, K), also the y_obs iterate if in memory
-  float* zo;            // (S, 6, W, K), the z_obs iterate if in memory
+  float* yo_out;        // (S, 8, W, K), also the y_obs iterate
+  float* zo;            // (S, 6, W, K), the z_obs iterate
   long long* clk;       // (S, kPhases) phase cycles, or null (see PhaseClock)
   int S, n, n_pad, lin_pad, W, Wp, K, n_ext, iters, refine;
   int nnz;              // nonzeros of A_ext (and of its transpose)
@@ -170,23 +170,20 @@ enum Pass {
 struct Plan {
   int ns;          // vector stride: n rounded up to 4
   int nsets;       // Minv row sets (kSetRows rows each)
-  int obs_shared;  // z_obs and y_obs in shared memory
   size_t ring;     // float4 of all warps' rings
   size_t bytes;
 };
 
-__host__ __device__ inline Plan plan(const FleetArgs& a, int obs_shared) {
+__host__ __device__ inline Plan plan(const FleetArgs& a) {
   Plan p;
   p.ns = (a.n + 3) & ~3;
   p.nsets = (a.n + kSetRows - 1) / kSetRows;
-  p.obs_shared = obs_shared;
   p.ring = (size_t)p.nsets * kSetRows * kCh * kStages;
   // x, x-tilde, rhs, residual, d; A_ext image; linear z, y; both CSRs
   p.bytes = sizeof(float4) * p.ring
             + sizeof(float) * (kLive * (5 * (size_t)p.ns + a.n_ext
                                         + 2 * (size_t)a.lin_pad)
                                + (a.n_ext + 1) + (p.ns + 1) + 4 * (size_t)a.nnz);
-  if (obs_shared) p.bytes += sizeof(float) * 2 * kLive * (size_t)a.W * a.K;
   return p;
 }
 
@@ -408,7 +405,7 @@ struct Scenario {
   const float *el, *rl, *irl, *lol, *hil;  // (8, lin_pad)
   const float4* rec;                       // (6, W, K, 2)
   unsigned long long pol;                  // L2 policy of the record stream
-  float *zo, *yo;                          // (6, W, K), shared or device memory
+  float *zo, *yo;                          // (6, W, K) in device memory
 };
 
 // One a_s pass on v (kLive vectors at stride ns): sE = A_ext (d * v), then
@@ -546,10 +543,10 @@ __device__ void rows_pass(const FleetArgs& a, const Scenario& sc, int ns,
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
-fleet_admm_kernel(const FleetArgs a, const int obs_shared) {
+fleet_admm_kernel(const FleetArgs a) {
   extern __shared__ float4 smem4[];
   __shared__ long long clk_acc[kPhases + 1];
-  const Plan pl = plan(a, obs_shared);
+  const Plan pl = plan(a);
   const int ns = pl.ns, n_pad = a.n_pad, lp = a.lin_pad;
   const int warp = threadIdx.x >> 5;
   float4* ring = smem4;                                  // Minv chunks
@@ -567,7 +564,6 @@ fleet_admm_kernel(const FleetArgs a, const int obs_shared) {
   int* sTptr = reinterpret_cast<int*>(sAval + a.nnz);    // A_ext^T CSR, rows < ns
   int* sTcol = sTptr + ns + 1;
   float* sTval = reinterpret_cast<float*>(sTcol + a.nnz);
-  float* sObs = sTval + a.nnz;                           // z_obs, y_obs if shared
 
   const int s = blockIdx.x;
   const size_t vn = (size_t)s * kLanes * n_pad;
@@ -588,13 +584,8 @@ fleet_admm_kernel(const FleetArgs a, const int obs_shared) {
   sc.rec = a.rec + (size_t)s * kLive * no * 2;
   sc.pol = stream_policy();
   float* yo_out = a.yo_out + (size_t)s * kLanes * no;
-  if (obs_shared) {
-    sc.zo = sObs;
-    sc.yo = sc.zo + kLive * no;
-  } else {
-    sc.zo = a.zo + (size_t)s * kLive * no;
-    sc.yo = yo_out;
-  }
+  sc.zo = a.zo + (size_t)s * kLive * no;
+  sc.yo = yo_out;
 
   MinvStream ms;
   {
@@ -683,26 +674,12 @@ fleet_admm_kernel(const FleetArgs a, const int obs_shared) {
     }
   for (int i = threadIdx.x; i < kLanes * lp; i += kThreads)
     yl_out[i] = i < kLive * lp ? sYl[i] : 0.0f;
-  for (int i = threadIdx.x; i < kLanes * no; i += kThreads) {
-    if (i >= kLive * no)
-      yo_out[i] = 0.0f;
-    else if (obs_shared)
-      yo_out[i] = sc.yo[i];
-  }
+  for (int i = kLive * no + threadIdx.x; i < kLanes * no; i += kThreads)
+    yo_out[i] = 0.0f;
   cp_async_wait<0>();   // the last apply's look-ahead chunks
   __syncthreads();
   pc.lap(kVecUpdate);
   pc.store();
-}
-
-// The plan the launcher takes: z_obs and y_obs in shared memory if they
-// fit beside the ring; 0 bytes if even the plan without them does not.
-Plan launch_plan(const FleetArgs& a) {
-  const Plan with = plan(a, 1);
-  if (with.bytes <= kSmemLimit) return with;
-  Plan without = plan(a, 0);
-  if (without.bytes > kSmemLimit) without.bytes = 0;
-  return without;
 }
 
 }  // namespace
@@ -710,12 +687,15 @@ Plan launch_plan(const FleetArgs& a) {
 extern "C" int fleet_admm_args_size() { return (int)sizeof(FleetArgs); }
 extern "C" int fleet_admm_phases() { return kPhases; }
 
-// The launch's shared-memory bytes (0 if the shapes do not fit), and in
-// *obs_shared whether z_obs and y_obs live in shared memory.
-extern "C" long long fleet_admm_smem(const void* args, int* obs_shared) {
-  const Plan p = launch_plan(*static_cast<const FleetArgs*>(args));
-  *obs_shared = p.obs_shared;
-  return (long long)p.bytes;
+// The kernel's registers per thread and local (spill) bytes per thread,
+// as the compiler built it; returns the cudaError_t of the query.
+extern "C" int fleet_admm_resources(int* regs, int* local_bytes) {
+  cudaFuncAttributes f;
+  const cudaError_t err = cudaFuncGetAttributes(&f, fleet_admm_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = f.numRegs;
+  *local_bytes = (int)f.localSizeBytes;
+  return 0;
 }
 
 // args: host pointer to a FleetArgs; stream: a cudaStream_t. Returns the
@@ -727,14 +707,14 @@ extern "C" int fleet_admm_launch(const void* args, void* stream) {
   if (a.n_pad % 4 != 0 || a.n > a.n_pad
       || a.n > kWarps * kMaxSets * kSetRows || a.K % kGroup != 0)
     return (int)cudaErrorInvalidValue;
-  const Plan p = launch_plan(a);
-  if (p.bytes == 0) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(a);
+  if (p.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fleet_admm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)p.bytes);
   if (err != cudaSuccess) return (int)err;
   if (a.S == 0) return 0;
   fleet_admm_kernel<<<a.S, kThreads, p.bytes,
-                      static_cast<cudaStream_t>(stream)>>>(a, p.obs_shared);
+                      static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -394,8 +394,8 @@ def _library():
         lib.fleet_admm_args_size.restype = ctypes.c_int
         lib.fleet_admm_phases.argtypes = []
         lib.fleet_admm_phases.restype = ctypes.c_int
-        lib.fleet_admm_smem.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.fleet_admm_smem.restype = ctypes.c_longlong
+        lib.fleet_admm_resources.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.fleet_admm_resources.restype = ctypes.c_int
         if lib.fleet_admm_args_size() != ctypes.sizeof(_FleetArgs):
             raise RuntimeError("fleet_admm argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
@@ -472,15 +472,16 @@ def _args(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
     return a
 
 
-def kernel_plan(cfg: PlannerConfig, fp: FleetProblem) -> Tuple[int, bool]:
-    """The kernel's shared-memory bytes for this problem (0 if its shapes
-    do not fit) and whether z_obs and y_obs live in shared memory (else in
-    device memory). Loads the kernel's library."""
-    d = _check(cfg, fp)
-    obs_shared = ctypes.c_int(0)
-    nbytes = _library().fleet_admm_smem(
-        ctypes.addressof(_args(cfg, fp, d, 0, 0)), ctypes.byref(obs_shared))
-    return int(nbytes), bool(obs_shared.value)
+def kernel_resources() -> dict:
+    """The built kernel's registers and local (spill) bytes per thread.
+    Loads the kernel's library; needs a CUDA device."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().fleet_admm_resources(ctypes.byref(regs),
+                                          ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError("fleet_admm attribute query failed: cudaError %d"
+                           % err)
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,

@@ -18,7 +18,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import capture_fused_qps, small_fleet_qps  # noqa: E402
+from chip_smoke import small_fleet_qps  # noqa: E402
+from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
 from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
@@ -181,13 +182,12 @@ def _check_fleet(pcfg, fp, iters, refine, tol):
 @pytest.mark.parametrize("S", [1, 133])
 def test_fleet_kernel_at_scenario_counts(cuda_device, config, S):
     """One scenario, and more scenarios than the H100 has SMs (one block
-    each), at the small config (z_obs and y_obs in shared memory) and at
-    the production shapes (horizon 30, 72 slots: in device memory): after
-    1 iteration within 1e-5 of max|x|, after 60 within 1e-3."""
+    each), at the small config and at the production shapes (horizon 30,
+    72 slots): after 1 iteration within 1e-5 of max|x|, after 60 within
+    1e-3."""
     pcfg = _FLEET_SMALL if config == "small" else _FLEET_PRODUCTION
     refine = pcfg.solver.shared_refine_iters
     fp = _fleet_problem(pcfg, S, cuda_device)
-    assert fl.kernel_plan(pcfg, fp)[1] == (config == "small")
     for iters, tol in ((1, 1e-5), (60, 1e-3)):
         _check_fleet(pcfg, fp, iters, refine, tol)
 

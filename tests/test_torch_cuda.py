@@ -18,7 +18,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import small_fleet_qps  # noqa: E402
+from chip_smoke import accepted, small_fleet_qps  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
@@ -220,6 +220,46 @@ def test_fleet_kernel_is_deterministic(cuda_device):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fleet_kernel_rejects_a_poisoned_candidate(cuda_device):
+    """A NaN in one candidate's scaled q (scenario 1, candidate 2) reaches
+    its rhs, and the dense Minv apply spreads it over the candidate: the
+    planner's acceptance rule rejects that candidate for the kernel as for
+    the plain version, and every other candidate of every scenario gives
+    the same bits as a launch without the poison (each candidate's sums
+    read only its own vectors; csrc/fleet_admm.cu's note on non-finite
+    values)."""
+    pcfg = _FLEET_SMALL
+    refine = pcfg.solver.shared_refine_iters
+    qps = small_fleet_qps(pcfg, 4, cuda_device)
+    warm = torch.zeros((4, 6, pcfg.num_vars), device=cuda_device)
+    fp, fac = fl.fleet_setup(pcfg, qps, warm)
+    q = fp.q.clone()
+    q[1, 2, 5] = float("nan")
+    bad = fp._replace(q=q)
+    clean = fl.fleet_solve(pcfg, fp, 60, refine)
+    got = fl.fleet_solve(pcfg, bad, 60, refine)
+    want = fl.fleet_solve_reference(pcfg, bad, 60, refine)
+    torch.cuda.synchronize()
+    acc_got = accepted(fl.fleet_result(pcfg, qps, fac, *got))
+    acc_want = accepted(fl.fleet_result(pcfg, qps, fac, *want))
+    acc_clean = accepted(fl.fleet_result(pcfg, qps, fac, *clean))
+    assert not bool(acc_got[1, 2]) and not bool(acc_want[1, 2])
+    assert not bool(torch.isfinite(got[0][1, 2]).all())
+    others = torch.ones((4, fl.LANES), dtype=torch.bool, device=cuda_device)
+    others[1, 2] = False
+    for a, b in zip(got, clean):
+        assert _same_bits(a[others], b[others])
+    keep = others[:, :fl.LIVE]
+    assert torch.equal(acc_got[keep], acc_clean[keep])
+    assert torch.equal(acc_got, acc_want)
+
+
 def _dense_problem(pcfg, device, candidates=None):
     """The dense-A problem of small_fleet_qps(pcfg, 1) (6 candidates, or
     the first `candidates`), as admm_solve_dense builds it."""
@@ -242,15 +282,19 @@ def test_dense_kernel_matches_plain_version(cuda_device, refine):
     """csrc/dense_loop.cu against dense_loop_reference on the card at the
     config of tests/test_pallas_admm.py (horizon 10, 4 slots, dense
     factor): one launch per call; after 1 iteration x within 1e-5 of
-    max|x| (5e-5 with a refinement step: the residual rhs - M xt, with
-    cond(M) ~1e5, carries the summation order's rounding, as on the CPU
-    against JAX in test_torch_dense.py), after 150 within 1e-3 of it (the
-    two sum in different orders; cond(M) amplifies that over the
-    iterations); the padded entries stay 0."""
+    max|x|, after 150 within 1e-3 of it (the two sum in different orders;
+    cond(M) amplifies that over the iterations); the padded entries stay
+    0. With a refinement step the limit after 1 iteration is 2e-4, set
+    from readings as on the CPU (test_torch_dense.py::
+    test_dense_loop_readings_over_seeds): the residual rhs - M xt, with
+    cond(M) ~1e5, cancels down to rounding, and Minv carries the
+    summation order's share of it into x. chip_smoke.py's small-config
+    phase reads that spread over 24 candidates on the card (largest
+    5.86e-5, CPU against JAX 7.56e-5); 2e-4 is 2.6x the largest."""
     pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
         max_iter=150, refine_iters=refine, structured_factor=False))
     sp = _dense_problem(pcfg, cuda_device)
-    for iters, tol in ((1, 5e-5 if refine else 1e-5), (150, 1e-3)):
+    for iters, tol in ((1, 2e-4 if refine else 1e-5), (150, 1e-3)):
         before = dl.DENSE_LAUNCHES
         got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
         want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, refine)

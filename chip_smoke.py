@@ -6,10 +6,12 @@
 Phases (each prints one line; any failure raises and exits non-zero):
   1. device    name, power limit (nvidia-smi)
   2. build     nvcc of every intent_mpc_torch/csrc/*.cu, in parallel
-  3. kernel    each kernel against its plain PyTorch version at the
-               production shapes (128 scenarios x 6 candidates, horizon 30,
-               65 obstacle slots), including +-inf bounds, rho = 1e-6 rows,
-               duals of 1e4 and a NaN row; bit-equal, NaN masks equal
+  3. kernel    ew_chain against its plain PyTorch version at the
+               production shapes (128 and 32 scenarios x 6 candidates,
+               horizon 30, 65 obstacle slots, timed; 33 and 1 scenarios,
+               whose x and cb segments end inside a float4), including
+               +-inf bounds, rho = 1e-6 rows, duals of 1e4 and a NaN row;
+               bit-equal, NaN masks equal
   4. loop      the default DYNUS closed loop (IntentMPCConfig defaults:
                200 obstacles, 100 ADMM iterations, factor refresh every 4th
                cycle) for 8 cycles at 128 and at 32 scenarios, through the
@@ -118,7 +120,7 @@ def production_ew_inputs(S, cfg, device):
     z[3][5] = float("nan")                # one broken iterate row
     x = rnd((N, n), 2.0)
     x_t = rnd((N, n), 2.0)
-    x[7] = float("nan")
+    x[min(7, N - 1)] = float("nan")
     return (x, x_t, ConVec(*z), ConVec(*y), ConVec(*zt), ConVec(*rho),
             ConVec(*lo), ConVec(*hi))
 
@@ -536,7 +538,18 @@ def main():
         timed[S] = (max_err, ms, plain_ms, bound_ms, bound_by)
         phase("kernel", kernel="ew_chain", scenarios=S, problems=S * 6,
               bit_equal=True, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+              bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+              **ew.kernel_resources())
+        del args, got, want
+    for S in (33, 1):                     # x and cb end inside a float4
+        args = production_ew_inputs(S, cfg, dev)
+        check(args[0].numel() % 4 and args[2].cb.numel() % 4,
+              ("ragged segment ends", S))
+        got = ew.ew_chain(alpha, *args)
+        want = ew.ew_chain_reference(alpha, *args)
+        torch.cuda.synchronize()
+        phase("kernel", kernel="ew_chain", scenarios=S, problems=S * 6,
+              bit_equal=True, max_abs_err=check_bit_equal(got, want))
         del args, got, want
     max_err, ms, plain_ms, bound_ms, bound_by = timed[128]
 

@@ -19,12 +19,19 @@
 // 21.8 us at 3.35 TB/s on an H100 SXM; at 32 scenarios 5.4 us, where
 // launch latency dominates.
 //
-// Design: one launch covers x and the four groups; blockIdx.y picks the
-// segment (0 = x, 1..4 = groups) and a grid-stride loop walks that
-// segment's contiguous floats. All 39 pointers and the 5 element counts
-// travel in one struct passed by value. The wrapper
-// (intent_mpc_torch/ops/ew_chain.py) allocates the outputs and launches
-// on PyTorch's current stream without synchronizing.
+// Design: the five segments (x, then the groups) share one index space of
+// equal tiles of kTile4 float4 each; the wrapper
+// (intent_mpc_torch/ops/ew_chain.py::work_list) gives each segment's first
+// tile, and the grid has one block per tile, so no block is empty and no
+// segment sets the tail alone. A thread takes kUnroll float4 of its tile
+// (kThreads apart, so each load instruction of the warp is coalesced),
+// issues the loads of all of them for every stream before any arithmetic,
+// then stores 16 bytes per stream. A segment's ragged end (fewer than 4
+// floats) is the last float4 of its last tile: the same thread loads and
+// stores its live floats one by one in the same pass. All 39 pointers
+// travel in one struct passed by value; the wrapper checks that each is
+// 16-byte aligned, allocates the outputs and launches on PyTorch's
+// current stream without synchronizing.
 //
 // Numerics match the plain PyTorch version bit for bit: it is built with
 // -fmad=false (no contraction of a*b + c into an FMA, which would round
@@ -40,6 +47,10 @@
 namespace {
 
 constexpr int kGroups = 4;
+constexpr int kSegs = 1 + kGroups;      // x, then the groups
+constexpr int kThreads = 256;
+constexpr int kUnroll = 2;              // float4 per stream in flight per thread
+constexpr int kTile4 = kThreads * kUnroll;  // float4 per tile (one block)
 
 struct EwArgs {
   const float* x;
@@ -56,6 +67,7 @@ struct EwArgs {
   float* rzy[kGroups];
   int64_t n_x;
   int64_t n[kGroups];
+  int64_t tile0[kSegs + 1];  // first tile of each segment; tile0[kSegs] = grid
   float alpha;
   float beta;  // 1 - alpha, rounded to float once on the host
 };
@@ -65,38 +77,106 @@ __device__ __forceinline__ float clip_keep_nan(float v, float lo, float hi) {
   return t > hi ? hi : t;
 }
 
-__global__ void ew_chain_kernel(const EwArgs a) {
-  const int seg = blockIdx.y;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+// Float4 i4 of a segment of n floats: 16 bytes at once, or its live floats
+// one by one at the segment's ragged end (the rest read as 0).
+__device__ __forceinline__ float4 load4(const float* __restrict__ p,
+                                        int64_t i4, int64_t n) {
+  const int64_t e = 4 * i4;
+  if (e + 4 <= n) return __ldg(reinterpret_cast<const float4*>(p) + i4);
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (e < n) v.x = __ldg(p + e);
+  if (e + 1 < n) v.y = __ldg(p + e + 1);
+  if (e + 2 < n) v.z = __ldg(p + e + 2);
+  return v;
+}
+
+__device__ __forceinline__ void store4(float* __restrict__ p, int64_t i4,
+                                       int64_t n, float4 v) {
+  const int64_t e = 4 * i4;
+  if (e + 4 <= n) {
+    reinterpret_cast<float4*>(p)[i4] = v;
+    return;
+  }
+  if (e < n) p[e] = v.x;
+  if (e + 1 < n) p[e + 1] = v.y;
+  if (e + 2 < n) p[e + 2] = v.z;
+}
+
+struct Row {
+  float zn, yn, rzy;
+};
+
+__device__ __forceinline__ Row chain(float alpha, float beta, float zt,
+                                     float z, float y, float rv, float lo,
+                                     float hi) {
+  const float zr = alpha * zt + beta * z;
+  Row r;
+  r.zn = clip_keep_nan(zr + y / rv, lo, hi);
+  r.yn = y + rv * (zr - r.zn);
+  r.rzy = rv * r.zn - r.yn;
+  return r;
+}
+
+__global__ void __launch_bounds__(kThreads)
+ew_chain_kernel(const EwArgs a) {
+  const int64_t b = blockIdx.x;
+  int seg = 0;
+#pragma unroll
+  for (int s = 1; s < kSegs; ++s) seg = b >= a.tile0[s] ? s : seg;
+  const int64_t first = (b - a.tile0[seg]) * kTile4 + threadIdx.x;
   const float alpha = a.alpha;
   const float beta = a.beta;
   if (seg == 0) {
-    for (; i < a.n_x; i += stride) {
-      a.x_n[i] = alpha * a.x_t[i] + beta * a.x[i];
+    const int64_t n = a.n_x;
+    float4 xt[kUnroll], xv[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int64_t i4 = first + k * kThreads;
+      xt[k] = load4(a.x_t, i4, n);
+      xv[k] = load4(a.x, i4, n);
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      float4 o;
+      o.x = alpha * xt[k].x + beta * xv[k].x;
+      o.y = alpha * xt[k].y + beta * xv[k].y;
+      o.z = alpha * xt[k].z + beta * xv[k].z;
+      o.w = alpha * xt[k].w + beta * xv[k].w;
+      const int64_t i4 = first + k * kThreads;
+      if (4 * i4 < n) store4(a.x_n, i4, n, o);
     }
     return;
   }
   const int g = seg - 1;
-  const float* __restrict__ z = a.z[g];
-  const float* __restrict__ y = a.y[g];
-  const float* __restrict__ zt = a.zt[g];
-  const float* __restrict__ rho = a.rho[g];
-  const float* __restrict__ lo = a.l[g];
-  const float* __restrict__ hi = a.u[g];
-  float* __restrict__ z_n = a.z_n[g];
-  float* __restrict__ y_n = a.y_n[g];
-  float* __restrict__ rzy = a.rzy[g];
   const int64_t n = a.n[g];
-  for (; i < n; i += stride) {
-    const float yv = y[i];
-    const float rv = rho[i];
-    const float zr = alpha * zt[i] + beta * z[i];
-    const float zn = clip_keep_nan(zr + yv / rv, lo[i], hi[i]);
-    const float yn = yv + rv * (zr - zn);
-    z_n[i] = zn;
-    y_n[i] = yn;
-    rzy[i] = rv * zn - yn;
+  float4 zt[kUnroll], z[kUnroll], y[kUnroll], rv[kUnroll], lo[kUnroll],
+      hi[kUnroll];
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const int64_t i4 = first + k * kThreads;
+    zt[k] = load4(a.zt[g], i4, n);
+    z[k] = load4(a.z[g], i4, n);
+    y[k] = load4(a.y[g], i4, n);
+    rv[k] = load4(a.rho[g], i4, n);
+    lo[k] = load4(a.l[g], i4, n);
+    hi[k] = load4(a.u[g], i4, n);
+  }
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const Row r0 = chain(alpha, beta, zt[k].x, z[k].x, y[k].x, rv[k].x,
+                         lo[k].x, hi[k].x);
+    const Row r1 = chain(alpha, beta, zt[k].y, z[k].y, y[k].y, rv[k].y,
+                         lo[k].y, hi[k].y);
+    const Row r2 = chain(alpha, beta, zt[k].z, z[k].z, y[k].z, rv[k].z,
+                         lo[k].z, hi[k].z);
+    const Row r3 = chain(alpha, beta, zt[k].w, z[k].w, y[k].w, rv[k].w,
+                         lo[k].w, hi[k].w);
+    const int64_t i4 = first + k * kThreads;
+    if (4 * i4 < n) {
+      store4(a.z_n[g], i4, n, make_float4(r0.zn, r1.zn, r2.zn, r3.zn));
+      store4(a.y_n[g], i4, n, make_float4(r0.yn, r1.yn, r2.yn, r3.yn));
+      store4(a.rzy[g], i4, n, make_float4(r0.rzy, r1.rzy, r2.rzy, r3.rzy));
+    }
   }
 }
 
@@ -104,17 +184,28 @@ __global__ void ew_chain_kernel(const EwArgs a) {
 
 extern "C" int ew_chain_args_size() { return (int)sizeof(EwArgs); }
 
+// Floats per tile of the work list (the wrapper cuts the segments by it).
+extern "C" int ew_chain_tile_floats() { return 4 * kTile4; }
+
+// The kernel's registers per thread and local (spill) bytes per thread,
+// as the compiler built it; returns the cudaError_t of the query.
+extern "C" int ew_chain_resources(int* regs, int* local_bytes) {
+  cudaFuncAttributes f;
+  const cudaError_t err = cudaFuncGetAttributes(&f, ew_chain_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = f.numRegs;
+  *local_bytes = (int)f.localSizeBytes;
+  return 0;
+}
+
 // args: host pointer to an EwArgs; stream: a cudaStream_t. Returns the
 // cudaError_t of the launch (0 on success).
 extern "C" int ew_chain_launch(const void* args, void* stream) {
   const EwArgs& a = *static_cast<const EwArgs*>(args);
-  int64_t longest = a.n_x;
-  for (int g = 0; g < kGroups; ++g) longest = a.n[g] > longest ? a.n[g] : longest;
-  const int threads = 256;
-  int64_t blocks = (longest + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 4096) blocks = 4096;
-  dim3 grid((unsigned)blocks, 1 + kGroups);
-  ew_chain_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const int64_t tiles = a.tile0[kSegs];
+  if (tiles <= 0) return 0;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  ew_chain_kernel<<<(unsigned)tiles, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

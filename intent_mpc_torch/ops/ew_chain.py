@@ -15,8 +15,9 @@ fallback: a CUDA input either launches the kernel or raises.
 
 The TPU version needed a custom_vmap to collapse the engine's
 (scenario, candidate) vmaps into one launch; here the batch axes are
-already explicit, so the kernel walks each group's contiguous
-(..., rows, width) buffer as one flat segment.
+already explicit, so the kernel walks x and each group's contiguous
+(..., rows, width) buffer as one flat segment. `work_list` cuts the five
+segments into tiles of TILE_FLOATS in one index space: one block each.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ from intent_mpc_torch.ops.qp import ConVec
 EW_LAUNCHES = 0
 
 NUM_GROUPS = 4
+NUM_SEGMENTS = 1 + NUM_GROUPS    # x, then the groups
+# floats per tile of the work list: the kernel's kTile4 float4
+# (checked against the built kernel when it loads)
+TILE_FLOATS = 2048
 _PTR = ctypes.c_void_p
 
 
@@ -45,6 +50,7 @@ class _EwArgs(ctypes.Structure):
            for g in range(NUM_GROUPS)]
         + [("n_x", ctypes.c_int64)]
         + [("n%d" % g, ctypes.c_int64) for g in range(NUM_GROUPS)]
+        + [("tile0", ctypes.c_int64 * (NUM_SEGMENTS + 1))]
         + [("alpha", ctypes.c_float), ("beta", ctypes.c_float)])
 
 
@@ -58,15 +64,53 @@ def _library():
         lib = build.load("ew_chain")
         lib.ew_chain_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         lib.ew_chain_launch.restype = ctypes.c_int
-        lib.ew_chain_args_size.argtypes = []
-        lib.ew_chain_args_size.restype = ctypes.c_int
+        for f in (lib.ew_chain_args_size, lib.ew_chain_tile_floats):
+            f.argtypes = []
+            f.restype = ctypes.c_int
+        lib.ew_chain_resources.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.ew_chain_resources.restype = ctypes.c_int
         if lib.ew_chain_args_size() != ctypes.sizeof(_EwArgs):
             raise RuntimeError("ew_chain argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
                                % (lib.ew_chain_args_size(),
                                   ctypes.sizeof(_EwArgs)))
+        if lib.ew_chain_tile_floats() != TILE_FLOATS:
+            raise RuntimeError("ew_chain tile mismatch: %d (CUDA) vs %d"
+                               % (lib.ew_chain_tile_floats(), TILE_FLOATS))
         _LIB = lib
     return _LIB
+
+
+def work_list(sizes):
+    """The first tile of each segment in the kernel's one index space, and
+    the total (the grid): segment s of sizes[s] floats takes tiles
+    [start[s], start[s + 1]), ceil(sizes[s] / TILE_FLOATS) of them."""
+    start = [0]
+    for n in sizes:
+        start.append(start[-1] + -(-n // TILE_FLOATS))
+    return start
+
+
+def kernel_resources() -> dict:
+    """The built kernel's registers and local (spill) bytes per thread.
+    Loads the kernel's library; needs a CUDA device."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().ew_chain_resources(ctypes.byref(regs),
+                                        ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError("ew_chain attribute query failed: cudaError %d"
+                           % err)
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
+def check_aligned(tensors) -> None:
+    """The kernel moves 16 bytes at a time: every buffer must start on a
+    16-byte boundary (a fresh allocation does; a view may not)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("ew_chain needs 16-byte aligned buffers; got a "
+                             "tensor at offset %d mod 16 (a view? pass a "
+                             "fresh or cloned tensor)" % (t.data_ptr() % 16))
 
 
 def ew_chain_reference(alpha: float, x, x_t, z: ConVec, y: ConVec,
@@ -119,6 +163,7 @@ def ew_chain(alpha: float, x, x_t, z: ConVec, y: ConVec, zt: ConVec,
         raise ValueError("ew_chain runs on CPU or CUDA tensors, got %s"
                          % x.device)
 
+    check_aligned([x, x_t] + [a for grp in groups for a in grp])
     x_n = torch.empty_like(x)
     z_n = ConVec(*(torch.empty_like(a) for a in z))
     y_n = ConVec(*(torch.empty_like(a) for a in z))
@@ -132,6 +177,7 @@ def ew_chain(alpha: float, x, x_t, z: ConVec, y: ConVec, zt: ConVec,
             setattr(args, "%s%d" % (k, g), grp[g].data_ptr())
         setattr(args, "n%d" % g, z[g].numel())
     args.n_x = x.numel()
+    args.tile0[:] = work_list([x.numel()] + [a.numel() for a in z])
     args.alpha = alpha
     args.beta = 1.0 - alpha     # rounded to float once, as torch rounds it
     lib = _library()

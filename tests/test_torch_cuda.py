@@ -96,6 +96,41 @@ def test_kernel_bit_equal_to_plain_version(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 33])
+def test_kernel_bit_equal_at_odd_scenario_counts(cuda_device, S):
+    """At the production shapes (horizon 30, 29 steps, 65 slots, 385
+    variables) and an odd scenario count, x (2310 S floats) and cb (870 S)
+    end inside a float4: their ragged ends go through the same pass, and
+    all 13 outputs stay bit-equal to the plain version, NaN masks too.
+    Two launches give the same bits."""
+    args = _regime_args(cuda_device, batch=(S * 6,), H=30, W=29, K=65,
+                        n=385)
+    assert args[0].numel() % 4 and args[2].cb.numel() % 4
+    got = ew.ew_chain(ALPHA, *args)
+    again = ew.ew_chain(ALPHA, *args)
+    want = ew.ew_chain_reference(ALPHA, *args)
+    torch.cuda.synchronize()
+    for g, a, w in zip(_flat(got), _flat(again), _flat(want)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+        assert _same_bits(g, a)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_misaligned_view(cuda_device):
+    """A view that starts 4 bytes into its buffer cannot be read 16 bytes
+    at a time: the wrapper raises ValueError and launches nothing."""
+    args = _regime_args(cuda_device)
+    base = torch.zeros(args[0].numel() + 1, device=cuda_device)
+    view = base[1:].view(args[0].shape)
+    view.copy_(args[0])
+    before = ew.EW_LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        ew.ew_chain(ALPHA, view, *args[1:])
+    assert ew.EW_LAUNCHES == before
+
+
+@pytest.mark.cuda
 def test_closed_loop_on_card_matches_cpu(cuda_device):
     """The small closed loop on the card and on the CPU, through the entry
     points with their default device: positions agree to 1e-4 m over 4

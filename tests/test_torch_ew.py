@@ -138,3 +138,43 @@ def test_wrapper_rejects_bad_inputs():
     bad[3] = args[3]._replace(cb=args[3].cb[:1])
     with pytest.raises(ValueError):
         ew.ew_chain(ALPHA, *bad)
+
+
+@pytest.mark.parametrize("S", [1, 32, 33, 128])
+def test_work_list_covers_every_element_once(S):
+    """The kernel's flat work list at the production shapes (horizon 30,
+    29 steps, 65 obstacle slots, 385 variables, 6 candidates per
+    scenario): block b takes the last segment whose first tile is <= b and
+    that segment's floats [(b - start) T, (b - start + 1) T), T =
+    TILE_FLOATS, cut at its end, as csrc/ew_chain.cu does. Every float of
+    every segment is covered exactly once, no block is empty, and the
+    grid is the sum of the segments' tiles. At odd S the x and cb
+    segments end inside a float4 (2310 S and 870 S floats)."""
+    N, H, W, K, n = S * 6, 30, 29, 65, 385
+    sizes = [N * n, N * H * 8, N * H * 8, N * W * 5, N * W * K]
+    start = ew.work_list(sizes)
+    T = ew.TILE_FLOATS
+    assert len(start) == ew.NUM_SEGMENTS + 1
+    assert start[-1] == sum(-(-m // T) for m in sizes)
+    counts = [np.zeros(m, np.int64) for m in sizes]
+    for b in range(start[-1]):
+        seg = max(s for s in range(ew.NUM_SEGMENTS) if b >= start[s])
+        lo = (b - start[seg]) * T
+        hi = min(lo + T, sizes[seg])
+        assert hi > lo, (b, seg)
+        counts[seg][lo:hi] += 1
+    for c in counts:
+        assert (c == 1).all()
+    if S % 2:
+        assert sizes[0] % 4 and sizes[3] % 4
+
+
+def test_misaligned_view_is_refused():
+    """The kernel moves 16 bytes at a time: check_aligned refuses a buffer
+    that does not start on a 16-byte boundary (a view one float into a
+    fresh tensor) and takes fresh tensors; the chain's callers pass fresh
+    buffers (ops/admm.py) and its outputs are fresh."""
+    base = torch.zeros(64)
+    ew.check_aligned([base, base[4:], torch.zeros(3)])
+    with pytest.raises(ValueError, match="16-byte"):
+        ew.check_aligned([base, base[1:]])

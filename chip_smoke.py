@@ -38,9 +38,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
                (structured factor, refine 0): after 1 iteration x within
                1e-5 of max|x|, after 10 the unscaled candidate states
                within 1e-3 m, after 100 both finite with the same
-               acceptance mask; on a small config (dense factor, 150
-               iterations, refine 0 and 1) within 1e-3 of max|x|, and
-               admm_solve_dense against admm_solve within 2e-3
+               acceptance mask; its time, bound, A's nonzeros against
+               their structural maximum and the kernel's CSR capacity, and
+               the design's streamed bytes; on a small config (dense
+               factor, 150 iterations, refine 0 and 1) within 1e-3 of
+               max|x|, and admm_solve_dense against admm_solve within 2e-3
      entry     admm_solve_dense on the 128-scenario candidates through its
                public signature: exactly one dense_loop launch; the loop
                phases (4, 7) launched it no time
@@ -325,23 +327,25 @@ def check_fleet_kernel(cfg, S, dev):
 
 
 def dense_bound(sp, iters, refine):
-    """Least time for the dense loop on an H100: each input the solve reads
-    once (M only when refine > 0) and x written once, over HBM bandwidth,
-    against the padded dense float32 operations over the float32 peak:
-    per candidate the prologue's A x0 (2 m n), then per iteration A^T w and
-    A x (4 m n), 1 + refine Minv and refine M products (2 n^2 each), and
-    the elementwise work (12 per row, 6 + 2 refine per variable). The
-    kernel's extra A^T w after the last iteration, which nothing reads, is
-    not counted. Also returns what the kernel's design streams: A once and
-    Minv (and M) 1 + refine (refine) times per iteration."""
+    """Least time for the dense loop on an H100, the larger of two times.
+    Bytes: each input the solve reads once, the dense A included (M only
+    when refine > 0), and x written once, over HBM bandwidth. Operations:
+    the float32 work these inputs need, over the float32 peak, with A's
+    products counted on its nonzeros (sp.amat != 0): per candidate the
+    prologue's A x0 (2 nnz), then per iteration A^T w and A x (4 nnz),
+    1 + refine Minv and refine M products (2 n^2 each), and the
+    elementwise work (12 per row, 6 + 2 refine per variable). The kernel's
+    extra A^T w after the last iteration, which nothing reads, is not
+    counted. Also returns what the kernel's design streams: A once, Minv
+    (and M) once per apply, and lo and hi once per iteration."""
     C, n = sp.q.shape
     m = sp.rho.shape[-1]
-    per_iter = 4 * m * n + (1 + 2 * refine) * 2 * n * n + 12 * m \
-        + (6 + 2 * refine) * n
-    flops = C * (2 * m * n + iters * per_iter)
+    nnz = int((sp.amat != 0).sum())
+    per_iter = (1 + 2 * refine) * 2 * n * n + 12 * m + (6 + 2 * refine) * n
+    flops = 2 * nnz + iters * (4 * nnz + C * per_iter)
     nbytes = sum(t.numel() * 4 for f, t in zip(sp._fields, sp)
                  if f != "mmat" or refine) + C * n * 4
-    stream = C * 4 * (m * n + iters * (m * n + (1 + 2 * refine) * n * n))
+    stream = C * 4 * (m * n + iters * ((1 + 2 * refine) * n * n + 2 * m))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -370,15 +374,27 @@ def check_dense_kernel(cfg, S, dev):
     flat = admmlib._flatten(qps, 2)
     sp, (D, _, _) = admmlib._dense_scaled_problem(
         pcfg, flat, warm.reshape(-1, n), scfg, n_pad, m_pad)
-    # A's nonzeros (for a CSR form: 8 bytes each plus m + 1 row pointers)
-    m = 2 * 8 * pcfg.horizon + (5 + qps.G.shape[-2]) * pcfg.mpc_window
-    nnz = int((sp.amat != 0).sum()) / (S * 6)
+    # A's nonzeros against their structural maximum and the kernel's CSR
+    # (10 bytes per nonzero: value, column, row, place in the A^T lists;
+    # uint16 row and column pointers)
+    K = qps.G.shape[-2]
+    m = 2 * 8 * pcfg.horizon + (5 + K) * pcfg.mpc_window
+    per = (sp.amat != 0).sum(dim=(-2, -1))
+    nnz_max = qplib.dense_a_nnz_max(pcfg, K)
+    cap = dl.csr_capacity(n_pad, m_pad)
+    check(int(per.max()) <= nnz_max <= cap,
+          ("A's nonzeros, structural maximum, CSR capacity",
+           int(per.max()), nnz_max, cap))
+    nnz = float(per.float().mean())
     out = {"scenarios": S, "problems": S * 6, "active_obstacle_rows": rows,
            "n_pad": n_pad, "m_pad": m_pad, "refine": refine,
            "structured_factor": scfg.structured_factor,
            "a_nnz_per_candidate": nnz,
+           "a_nnz_per_candidate_max": int(per.max()),
+           "a_nnz_structural_max": nnz_max,
+           "a_csr_capacity": cap,
            "a_nonzero_share": nnz / (m * n),
-           "a_csr_bytes_per_candidate": nnz * 8 + (m + 1) * 4}
+           "a_csr_bytes_per_candidate": nnz * 10 + (m_pad + n_pad + 2) * 2}
     for iters in (1, 10, 100):
         got = dl.admm_iterations_dense(sp, iters, scfg.sigma, scfg.alpha,
                                        refine)
@@ -415,7 +431,7 @@ def check_dense_kernel(cfg, S, dev):
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, flops=flops, stream_bytes=stream,
                stream_ms_at_peak=stream / PEAK_BYTES_PER_S * 1e3,
-               iters_timed=100, reps=reps)
+               iters_timed=100, reps=reps, **dl.kernel_resources())
     return out, mask, qps, warm
 
 

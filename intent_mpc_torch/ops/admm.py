@@ -39,7 +39,8 @@ import torch
 from intent_mpc_torch.ops import qp as qplib
 from intent_mpc_torch.ops.block_chol import structured_minv
 from intent_mpc_torch.ops.dense_loop import (DenseScaledProblem,
-                                             admm_iterations_dense)
+                                             admm_iterations_dense,
+                                             csr_capacity)
 from intent_mpc_torch.ops.ew_chain import ew_chain
 from intent_mpc_torch.ops.qp import ConVec, QPData
 from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
@@ -473,7 +474,15 @@ def admm_solve_dense(cfg: PlannerConfig, qps: QPData, x0: torch.Tensor,
     scfg = scfg or cfg.solver
     iters = max_iter if max_iter is not None else scfg.max_iter
     n = cfg.num_vars
-    n_pad, m_pad = dense_pads(cfg, qps.G.shape[-2])
+    K = qps.G.shape[-2]
+    n_pad, m_pad = dense_pads(cfg, K)
+    if qps.q.device.type == "cuda" and \
+            qplib.dense_a_nnz_max(cfg, K) > csr_capacity(n_pad, m_pad):
+        raise ValueError(
+            "dense_loop kernel cannot hold A: up to %d nonzeros per "
+            "candidate at %d obstacle slots, its CSR holds %d at n_pad = %d, "
+            "m_pad = %d" % (qplib.dense_a_nnz_max(cfg, K), K,
+                            csr_capacity(n_pad, m_pad), n_pad, m_pad))
     lead = qps.q.shape[:-1]
     flat = _flatten(qps, len(lead))
     sp, (D, _, _) = _dense_scaled_problem(

@@ -23,7 +23,9 @@ csrc/dense_loop.cu once per call when the problem lies on a CUDA device,
 and runs `dense_loop_reference`, the plain PyTorch version with the TPU
 kernel's operation order, when it lies on the CPU. There is no
 fallback: a CUDA problem either launches the kernel or raises, also
-when its shapes exceed what the kernel takes.
+when its shapes exceed what the kernel takes. The kernel holds each
+candidate's A as CSR in shared memory, `csr_capacity(n_pad, m_pad)`
+nonzeros at most; a candidate with more fails a device-side assert.
 """
 
 from __future__ import annotations
@@ -38,6 +40,31 @@ DENSE_LAUNCHES = 0
 
 # what dense_loop_launch returns for shapes the kernel does not take
 _CUDA_ERROR_INVALID_VALUE = 1
+
+# The kernel's shared-memory plan (csrc/dense_loop.cu::plan; checked
+# against the built kernel when it loads): a block's bytes less its static
+# arrays, the Minv ring, and per nonzero of the CSR its value, column, row
+# and place in the A^T lists.
+_SMEM_BYTES = 232448 - 1024
+_RING_BYTES = 16 * 4 * 64 * 16
+_BYTES_PER_NONZERO = 10
+
+
+def _round8(v: int) -> int:
+    return (v + 7) & ~7
+
+
+def csr_capacity(n_pad: int, m_pad: int) -> int:
+    """The nonzeros per candidate the kernel's shared-memory CSR holds at
+    these shapes (a multiple of 8; 0 when its vectors and ring alone do
+    not fit): what is left after the ring, x, x-tilde, rhs, the residual
+    and q (n_pad floats each), z, y and rho (m_pad rounded up to 4 each)
+    and the row and column pointers (uint16, rounded up to 8 each)."""
+    ms = (m_pad + 3) & ~3
+    fixed = (_RING_BYTES + 4 * (5 * n_pad + 3 * ms)
+             + 2 * (_round8(m_pad + 1) + _round8(n_pad + 1)))
+    left = _SMEM_BYTES - fixed
+    return 0 if left < 80 else (left // _BYTES_PER_NONZERO) & ~7
 
 
 class DenseScaledProblem(NamedTuple):
@@ -93,7 +120,7 @@ class _DenseArgs(ctypes.Structure):
     """Mirror of `DenseArgs` in csrc/dense_loop.cu (same field order)."""
     _fields_ = (
         [(k, _PTR) for k in ("minv", "mmat", "amat", "q", "x0", "rho", "lo",
-                             "hi", "x_out")]
+                             "hi", "x_out", "status")]
         + [(k, ctypes.c_int) for k in ("C", "n_pad", "m_pad", "iters",
                                        "refine")]
         + [(k, ctypes.c_float) for k in ("sigma", "alpha", "beta")])
@@ -111,13 +138,35 @@ def _library():
         lib.dense_loop_launch.restype = ctypes.c_int
         lib.dense_loop_args_size.argtypes = []
         lib.dense_loop_args_size.restype = ctypes.c_int
+        lib.dense_loop_csr_capacity.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.dense_loop_csr_capacity.restype = ctypes.c_int
+        lib.dense_loop_resources.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.dense_loop_resources.restype = ctypes.c_int
         if lib.dense_loop_args_size() != ctypes.sizeof(_DenseArgs):
             raise RuntimeError("dense_loop argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
                                % (lib.dense_loop_args_size(),
                                   ctypes.sizeof(_DenseArgs)))
+        for shape in ((512, 2560), (128, 256), (128, 12800)):
+            if lib.dense_loop_csr_capacity(*shape) != csr_capacity(*shape):
+                raise RuntimeError(
+                    "dense_loop CSR capacity at %s: %d (CUDA) vs %d"
+                    % (shape, lib.dense_loop_csr_capacity(*shape),
+                       csr_capacity(*shape)))
         _LIB = lib
     return _LIB
+
+
+def kernel_resources() -> dict:
+    """The built kernel's registers and local (spill) bytes per thread.
+    Loads the kernel's library; needs a CUDA device."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().dense_loop_resources(ctypes.byref(regs),
+                                          ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError("dense_loop attribute query failed: cudaError %d"
+                           % err)
+    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _check(sp: DenseScaledProblem) -> None:
@@ -161,10 +210,11 @@ def admm_iterations_dense(sp: DenseScaledProblem, iters: int, sigma: float,
     if iters < 0 or refine < 0:
         raise ValueError("iters and refine must be >= 0")
     x = torch.empty((C, n_pad), dtype=torch.float32, device=dev)
+    status = torch.empty((C,), dtype=torch.int32, device=dev)
     a = _DenseArgs()
     for k in ("minv", "mmat", "amat", "q", "x0", "rho", "lo", "hi"):
         setattr(a, k, getattr(sp, k).data_ptr())
-    a.x_out = x.data_ptr()
+    a.x_out, a.status = x.data_ptr(), status.data_ptr()
     a.C, a.n_pad, a.m_pad, a.iters, a.refine = C, n_pad, m_pad, iters, refine
     a.sigma, a.alpha = sigma, alpha
     a.beta = 1.0 - alpha      # rounded to float once, as torch rounds it
@@ -173,11 +223,19 @@ def admm_iterations_dense(sp: DenseScaledProblem, iters: int, sigma: float,
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
             "dense_loop kernel does not take n_pad = %d, m_pad = %d: it needs "
-            "n_pad a multiple of 4 up to kMaxN and the block's vectors "
-            "within one block's shared memory (csrc/dense_loop.cu)"
-            % (n_pad, m_pad))
+            "n_pad a multiple of 4 from kMinN to kMaxN and the block's "
+            "vectors and ring within one block's shared memory "
+            "(csrc/dense_loop.cu)" % (n_pad, m_pad))
     if err != 0:
         raise RuntimeError("dense_loop kernel launch failed: cudaError %d"
                            % err)
     DENSE_LAUNCHES += 1
+    # a candidate whose A did not fit the CSR stopped with its count in
+    # status: fail on the device, without a host sync
+    if C:
+        torch._assert_async(
+            torch.all(status == 0),
+            "dense_loop: a candidate's A has more nonzeros than the kernel's "
+            "CSR holds (%d at n_pad = %d, m_pad = %d)"
+            % (csr_capacity(n_pad, m_pad), n_pad, m_pad))
     return x

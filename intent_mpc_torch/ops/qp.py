@@ -426,6 +426,23 @@ def assemble_normal_matrix(cfg: PlannerConfig, qp: QPData, hdiag, sigma: float,
 # Dense A and the flat constraint order [eq | sb | cb | obs]
 # ---------------------------------------------------------------------------
 
+def _linear_rows(cfg: PlannerConfig, dev, dt) -> torch.Tensor:
+    """The eq, sb and cb rows of A (16H + 5W, n): a_matvec's closed form
+    on the identity. They do not depend on the QP."""
+    X, U = split_z(torch.eye(cfg.num_vars, dtype=dt, device=dev), cfg)
+    return torch.cat([_eq_rows(cfg, X, U).flatten(-2), X.flatten(-2),
+                      U.flatten(-2)], dim=-1).t()
+
+
+def dense_a_nnz_max(cfg: PlannerConfig, K: int) -> int:
+    """The most nonzeros dense_a_matrix can have for K obstacle slots: the
+    linear rows' own (fixed by the config) plus 5 per obstacle row (its 3
+    gradient entries on the step's position and its 2 slack columns),
+    whatever the QP's values and activity."""
+    lin = int((_linear_rows(cfg, "cpu", torch.float32) != 0).sum())
+    return lin + 5 * cfg.mpc_window * K
+
+
 def dense_a_matrix(cfg: PlannerConfig, qp: QPData) -> torch.Tensor:
     """Materialize the dense constraint matrix A (..., m, n), rows in
     con_to_flat order.
@@ -441,9 +458,7 @@ def dense_a_matrix(cfg: PlannerConfig, qp: QPData) -> torch.Tensor:
     n = cfg.num_vars
     lead = qp.q.shape[:-1]
     dev, dt = qp.q.device, qp.q.dtype
-    X, U = split_z(torch.eye(n, dtype=dt, device=dev), cfg)
-    top = torch.cat([_eq_rows(cfg, X, U).flatten(-2), X.flatten(-2),
-                     U.flatten(-2)], dim=-1).t()            # (16H + 5W, n)
+    top = _linear_rows(cfg, dev, dt)                        # (16H + 5W, n)
     m_lin = top.shape[0]
     m = m_lin + W * K
     A = torch.zeros(lead + (m, n), dtype=dt, device=dev)

@@ -26,6 +26,7 @@ from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
 from intent_mpc_torch.ops import dense_loop as dl  # noqa: E402
 from intent_mpc_torch.ops import ew_chain as ew  # noqa: E402
 from intent_mpc_torch.ops import fleet as fl  # noqa: E402
+from intent_mpc_torch.ops import qp as qplib  # noqa: E402
 from intent_mpc_torch.ops.qp import ConVec  # noqa: E402
 from intent_mpc_torch.parallel import sharding as sh  # noqa: E402
 from intent_mpc_torch.utils.config import (IntentMPCConfig,  # noqa: E402
@@ -295,20 +296,22 @@ def test_fleet_kernel_rejects_a_poisoned_candidate(cuda_device):
     assert torch.equal(acc_got, acc_want)
 
 
-def _dense_problem(pcfg, device, candidates=None):
-    """The dense-A problem of small_fleet_qps(pcfg, 1) (6 candidates, or
-    the first `candidates`), as admm_solve_dense builds it."""
+def _dense_problem(pcfg, device, candidates=None, scenarios=1,
+                   with_qps=False):
+    """The dense-A problem of small_fleet_qps(pcfg, scenarios) (6
+    candidates each, or the first `candidates`), as admm_solve_dense
+    builds it; with_qps also returns the flat QPs and the column scale."""
     n = pcfg.num_vars
-    qps = admmlib._flatten(small_fleet_qps(pcfg, 1, device), 2)
+    qps = admmlib._flatten(small_fleet_qps(pcfg, scenarios, device), 2)
     if candidates is not None:
         qps = type(qps)(*(type(v)(*(t[:candidates] for t in v))
                           if isinstance(v, ConVec) else v[:candidates]
                           for v in qps))
     warm = torch.zeros((qps.q.shape[0], n), device=device)
     n_pad, m_pad = admmlib.dense_pads(pcfg, qps.G.shape[-2])
-    sp, _ = admmlib._dense_scaled_problem(pcfg, qps, warm, pcfg.solver,
-                                          n_pad, m_pad)
-    return sp
+    sp, (D, _, _) = admmlib._dense_scaled_problem(pcfg, qps, warm,
+                                                  pcfg.solver, n_pad, m_pad)
+    return (sp, qps, D) if with_qps else sp
 
 
 @pytest.mark.cuda
@@ -368,6 +371,113 @@ def test_dense_kernel_is_deterministic(cuda_device):
     b = dl.admm_iterations_dense(sp, 20, 1e-6, ALPHA, 1)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+_DENSE_SMALL = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+    max_iter=150, refine_iters=0, structured_factor=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("refine", [0, 1])
+@pytest.mark.parametrize("candidates", [1, 138])
+def test_dense_kernel_at_candidate_counts(cuda_device, candidates, refine):
+    """One candidate, and more candidates than the H100 has SMs (one block
+    each; 23 scenarios of 6), at the small config: after 1 iteration x
+    within 1e-5 of max|x| (2e-4 with a refinement step, as in
+    test_dense_kernel_matches_plain_version), after 150 within 1e-3; a
+    second launch gives the same bits."""
+    sp = _dense_problem(_DENSE_SMALL, cuda_device, candidates=candidates,
+                        scenarios=23)
+    assert sp.q.shape[0] == candidates
+    for iters, tol in ((1, 2e-4 if refine else 1e-5), (150, 1e-3)):
+        got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
+        again = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
+        want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, refine)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert err <= tol * float(want.abs().max()), (iters, err)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_rejects_a_poisoned_candidate(cuda_device):
+    """A NaN in candidate 2's scaled q reaches its rhs; the CSR products
+    skip A's zeros, but the dense Minv apply spreads it over the
+    candidate: its x ends non-finite and the planner's acceptance rule
+    rejects it, for the kernel as for the plain version, and the other
+    candidates give the same bits as a launch without the poison."""
+    pcfg = _DENSE_SMALL
+    sp, qps, D = _dense_problem(pcfg, cuda_device, with_qps=True)
+    n = pcfg.num_vars
+    q = sp.q.clone()
+    q[2, 7] = float("nan")
+    bad = sp._replace(q=q)
+    clean = dl.admm_iterations_dense(sp, 150, 1e-6, ALPHA, 0)
+    got = dl.admm_iterations_dense(bad, 150, 1e-6, ALPHA, 0)
+    want = dl.dense_loop_reference(bad, 150, 1e-6, ALPHA, 0)
+    torch.cuda.synchronize()
+    acc = [accepted(admmlib.dense_result(pcfg, qps, D * x[:, :n],
+                                         pcfg.solver))
+           for x in (got, want, clean)]
+    assert not bool(acc[0][2]) and not bool(acc[1][2])
+    assert not bool(torch.isfinite(got[2]).any())
+    others = torch.arange(6, device=cuda_device) != 2
+    assert _same_bits(got[others], clean[others])
+    assert torch.equal(acc[0][others], acc[2][others])
+    assert torch.equal(acc[0], acc[1])
+
+
+_OVERFLOW = """
+import sys, torch
+sys.path.insert(0, %r)
+from intent_mpc_torch.ops import dense_loop as dl
+C, n_pad, m_pad = 2, 128, 256
+g = torch.Generator(device="cuda").manual_seed(0)
+def r(*shape):
+    return torch.rand(shape, generator=g, device="cuda") + 0.5
+eye = torch.eye(n_pad, device="cuda").expand(C, -1, -1).contiguous()
+sp = dl.DenseScaledProblem(eye, eye.clone(), r(C, m_pad, n_pad), r(C, n_pad),
+                           r(C, n_pad), r(C, m_pad), -r(C, m_pad), r(C, m_pad))
+assert m_pad * n_pad > dl.csr_capacity(n_pad, m_pad)
+x = dl.admm_iterations_dense(sp, 3, 1e-6, 1.6, 0)
+print("launched", flush=True)
+torch.cuda.synchronize()
+print("no failure", flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_dense_kernel_fails_loudly_past_its_csr(cuda_device):
+    """A candidate whose A has more nonzeros than the kernel's CSR holds
+    (a fully dense 256 x 128 A: 32,768 against 15,944) fails a device-side
+    assert: the launch returns without a host sync, and the next
+    synchronize raises. The assert leaves the CUDA context unusable, so
+    this runs in its own process."""
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _OVERFLOW % root],
+                         capture_output=True, text=True, timeout=600)
+    assert "launched" in out.stdout, out.stderr[-2000:]
+    assert "no failure" not in out.stdout
+    assert out.returncode != 0
+    assert "assert" in out.stderr.lower(), out.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_dense_entry_refuses_an_a_beyond_its_csr(cuda_device):
+    """admm_solve_dense refuses, before building anything, a config whose
+    A may have more nonzeros than the kernel's CSR holds (horizon 30, 100
+    slots: 15,618 at most)."""
+    pcfg = PlannerConfig(horizon=30, max_obstacles=100)
+    qps = small_fleet_qps(pcfg, 1, cuda_device)
+    K = qps.G.shape[-2]
+    n_pad, m_pad = admmlib.dense_pads(pcfg, K)
+    assert qplib.dense_a_nnz_max(pcfg, K) > dl.csr_capacity(n_pad, m_pad)
+    before = dl.DENSE_LAUNCHES
+    warm = torch.zeros((1, 6, pcfg.num_vars), device=cuda_device)
+    with pytest.raises(ValueError, match="cannot hold A"):
+        admmlib.admm_solve_dense(pcfg, qps, warm, 5)
+    assert dl.DENSE_LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -369,3 +369,33 @@ def test_dense_problem_from_numpy_drops_the_column(dense):
             b = b[..., 0]
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
         assert a.is_contiguous()
+
+
+@pytest.mark.parametrize("active", ["all", "seed0", "seed1"])
+@pytest.mark.parametrize("horizon,K", [(10, 4), (30, 65)],
+                         ids=["small", "production"])
+def test_dense_a_nnz_max_bounds_the_matrix_and_fits_the_kernel(horizon, K,
+                                                                active):
+    """qp.dense_a_nnz_max (the linear rows' nonzeros plus 5 per obstacle
+    row) against the nonzeros of dense_a_matrix, the port's and JAX's, on
+    two candidates with every slot active or a seeded number of active
+    slots (seeds 0 and 1): the count found never exceeds the maximum, and
+    the maximum fits the CSR capacity the dense_loop kernel plans for the
+    padded shapes (ops/dense_loop.csr_capacity). Pinned: 10,543 nonzeros
+    at most at the production shapes, against a capacity of 11,872."""
+    jcfg, tcfg = configs(horizon=horizon, max_obstacles=K)
+    if active == "all":
+        num = K
+    else:
+        num = int(np.random.RandomState(int(active[-1])).randint(1, K + 1))
+    jqps, tqps, _ = _problems(jcfg, tcfg, K, num, 2)
+    bound = tqp.dense_a_nnz_max(tcfg, K)
+    got = (tqp.dense_a_matrix(tcfg, tqps) != 0).sum(dim=(-2, -1))
+    want = np.count_nonzero(np.asarray(
+        jax.vmap(lambda q: jqp.dense_a_matrix(jcfg, q))(jqps)), axis=(-2, -1))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got.max()) <= bound
+    n_pad, m_pad = tadmm.dense_pads(tcfg, K)
+    assert bound <= tdl.csr_capacity(n_pad, m_pad)
+    if horizon == 30:
+        assert (bound, tdl.csr_capacity(n_pad, m_pad)) == (10543, 11872)

@@ -270,6 +270,7 @@ def check_fleet_kernel(cfg, S, dev):
     from intent_mpc_torch.benchmark import fleet_phases
     from intent_mpc_torch.benchmark.capture import (capture_fused_qps,
                                                     cuda_time_ms)
+    from intent_mpc_torch.ops import build
     from intent_mpc_torch.ops import fleet as fl
     from intent_mpc_torch.ops import qp as qplib
     pcfg = cfg.planner
@@ -320,7 +321,7 @@ def check_fleet_kernel(cfg, S, dev):
                bytes=nbytes, flops=flops, iters_timed=100,
                streamed_bytes=stream,
                streamed_ms=stream / PEAK_BYTES_PER_S * 1e3,
-               **fl.kernel_resources(),
+               **build.kernel_resources("fleet_admm"),
                phase_split={k: split[k]["share"] for k in fl.PHASES},
                phase_count_overhead=split["count_overhead"])
     return out
@@ -361,6 +362,7 @@ def check_dense_kernel(cfg, S, dev):
     from intent_mpc_torch.benchmark.capture import (capture_default_qps,
                                                     cuda_time_ms)
     from intent_mpc_torch.ops import admm as admmlib
+    from intent_mpc_torch.ops import build
     from intent_mpc_torch.ops import dense_loop as dl
     from intent_mpc_torch.ops import qp as qplib
     pcfg = cfg.planner
@@ -431,7 +433,8 @@ def check_dense_kernel(cfg, S, dev):
     out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                bytes=nbytes, flops=flops, stream_bytes=stream,
                stream_ms_at_peak=stream / PEAK_BYTES_PER_S * 1e3,
-               iters_timed=100, reps=reps, **dl.kernel_resources())
+               iters_timed=100, reps=reps,
+               **build.kernel_resources("dense_loop"))
     return out, mask, qps, warm
 
 
@@ -555,7 +558,7 @@ def main():
         phase("kernel", kernel="ew_chain", scenarios=S, problems=S * 6,
               bit_equal=True, max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
               bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-              **ew.kernel_resources())
+              **build.kernel_resources("ew_chain"))
         del args, got, want
     for S in (33, 1):                     # x and cb end inside a float4
         args = production_ew_inputs(S, cfg, dev)

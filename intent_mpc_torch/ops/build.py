@@ -92,6 +92,21 @@ def build_all() -> Dict[str, float]:
     return dict(BUILD_SECONDS)
 
 
+def kernel_resources(name: str) -> Dict[str, int]:
+    """Registers and local (spill) bytes per thread of csrc/<name>.cu's
+    kernel as the compiler built it, from its `<name>_resources` export.
+    Needs a CUDA device."""
+    fn = getattr(load(name), name + "_resources")
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError("%s attribute query failed: cudaError %d"
+                           % (name, err))
+    return {"registers": regs.value, "local_bytes": local.value}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building it first if needed."""
     lib = _LOADED.get(name)

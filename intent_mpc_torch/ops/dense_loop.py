@@ -140,8 +140,6 @@ def _library():
         lib.dense_loop_args_size.restype = ctypes.c_int
         lib.dense_loop_csr_capacity.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.dense_loop_csr_capacity.restype = ctypes.c_int
-        lib.dense_loop_resources.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.dense_loop_resources.restype = ctypes.c_int
         if lib.dense_loop_args_size() != ctypes.sizeof(_DenseArgs):
             raise RuntimeError("dense_loop argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
@@ -155,18 +153,6 @@ def _library():
                        csr_capacity(*shape)))
         _LIB = lib
     return _LIB
-
-
-def kernel_resources() -> dict:
-    """The built kernel's registers and local (spill) bytes per thread.
-    Loads the kernel's library; needs a CUDA device."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _library().dense_loop_resources(ctypes.byref(regs),
-                                          ctypes.byref(local))
-    if err != 0:
-        raise RuntimeError("dense_loop attribute query failed: cudaError %d"
-                           % err)
-    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _check(sp: DenseScaledProblem) -> None:

@@ -67,8 +67,6 @@ def _library():
         for f in (lib.ew_chain_args_size, lib.ew_chain_tile_floats):
             f.argtypes = []
             f.restype = ctypes.c_int
-        lib.ew_chain_resources.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.ew_chain_resources.restype = ctypes.c_int
         if lib.ew_chain_args_size() != ctypes.sizeof(_EwArgs):
             raise RuntimeError("ew_chain argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
@@ -89,18 +87,6 @@ def work_list(sizes):
     for n in sizes:
         start.append(start[-1] + -(-n // TILE_FLOATS))
     return start
-
-
-def kernel_resources() -> dict:
-    """The built kernel's registers and local (spill) bytes per thread.
-    Loads the kernel's library; needs a CUDA device."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _library().ew_chain_resources(ctypes.byref(regs),
-                                        ctypes.byref(local))
-    if err != 0:
-        raise RuntimeError("ew_chain attribute query failed: cudaError %d"
-                           % err)
-    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def check_aligned(tensors) -> None:

@@ -394,8 +394,6 @@ def _library():
         lib.fleet_admm_args_size.restype = ctypes.c_int
         lib.fleet_admm_phases.argtypes = []
         lib.fleet_admm_phases.restype = ctypes.c_int
-        lib.fleet_admm_resources.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.fleet_admm_resources.restype = ctypes.c_int
         if lib.fleet_admm_args_size() != ctypes.sizeof(_FleetArgs):
             raise RuntimeError("fleet_admm argument struct size mismatch: "
                                "%d (CUDA) vs %d (ctypes)"
@@ -470,18 +468,6 @@ def _args(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
     a.sigma, a.alpha = cfg.solver.sigma, cfg.solver.alpha
     a.beta = 1.0 - cfg.solver.alpha   # rounded to float once, as torch does
     return a
-
-
-def kernel_resources() -> dict:
-    """The built kernel's registers and local (spill) bytes per thread.
-    Loads the kernel's library; needs a CUDA device."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _library().fleet_admm_resources(ctypes.byref(regs),
-                                          ctypes.byref(local))
-    if err != 0:
-        raise RuntimeError("fleet_admm attribute query failed: cudaError %d"
-                           % err)
-    return {"registers": regs.value, "local_bytes": local.value}
 
 
 def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,

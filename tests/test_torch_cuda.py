@@ -80,38 +80,29 @@ def _flat(outs):
 
 
 @pytest.mark.cuda
-def test_kernel_bit_equal_to_plain_version(cuda_device):
+@pytest.mark.parametrize("S", [None, 1, 33])
+def test_kernel_bit_equal_to_plain_version(cuda_device, S):
     """The CUDA kernel against the plain PyTorch version on the card: built
     with -fmad=false, IEEE division and the plain version's operation
     order, the outputs are bit-equal and the NaN masks identical; one
-    launch adds one to the count."""
-    args = _regime_args(cuda_device)
+    launch adds one to the count, and a second gives the same bits. S:
+    the production shapes (horizon 30, 29 steps, 65 slots, 385 variables)
+    at an odd scenario count, where x (2310 S floats) and cb (870 S) end
+    inside a float4 and their ragged ends go through the same pass; None:
+    a (6, 6) batch of a small config."""
+    if S is None:
+        args = _regime_args(cuda_device)
+    else:
+        args = _regime_args(cuda_device, batch=(S * 6,), H=30, W=29, K=65,
+                            n=385)
+        assert args[0].numel() % 4 and args[2].cb.numel() % 4
     before = ew.EW_LAUNCHES
     got = ew.ew_chain(ALPHA, *args)
     want = ew.ew_chain_reference(ALPHA, *args)
-    torch.cuda.synchronize()
-    assert ew.EW_LAUNCHES == before + 1
-    for g, w in zip(_flat(got), _flat(want)):
-        assert torch.equal(torch.isnan(g), torch.isnan(w))
-        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 33])
-def test_kernel_bit_equal_at_odd_scenario_counts(cuda_device, S):
-    """At the production shapes (horizon 30, 29 steps, 65 slots, 385
-    variables) and an odd scenario count, x (2310 S floats) and cb (870 S)
-    end inside a float4: their ragged ends go through the same pass, and
-    all 13 outputs stay bit-equal to the plain version, NaN masks too.
-    Two launches give the same bits."""
-    args = _regime_args(cuda_device, batch=(S * 6,), H=30, W=29, K=65,
-                        n=385)
-    assert args[0].numel() % 4 and args[2].cb.numel() % 4
-    got = ew.ew_chain(ALPHA, *args)
     again = ew.ew_chain(ALPHA, *args)
-    want = ew.ew_chain_reference(ALPHA, *args)
     torch.cuda.synchronize()
-    for g, a, w in zip(_flat(got), _flat(again), _flat(want)):
+    assert ew.EW_LAUNCHES == before + 2
+    for g, w, a in zip(_flat(got), _flat(want), _flat(again)):
         assert torch.equal(torch.isnan(g), torch.isnan(w))
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
         assert _same_bits(g, a)
@@ -316,10 +307,13 @@ def _dense_problem(pcfg, device, candidates=None, scenarios=1,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("refine", [0, 1])
-def test_dense_kernel_matches_plain_version(cuda_device, refine):
+@pytest.mark.parametrize("candidates", [None, 1, 138])
+def test_dense_kernel_matches_plain_version(cuda_device, candidates, refine):
     """csrc/dense_loop.cu against dense_loop_reference on the card at the
     config of tests/test_pallas_admm.py (horizon 10, 4 slots, dense
-    factor): one launch per call; after 1 iteration x within 1e-5 of
+    factor), on 6 candidates (None), one, and more than the H100 has SMs
+    (one block each; 138 of 23 scenarios): one launch per call, a second
+    launch gives the same bits; after 1 iteration x within 1e-5 of
     max|x|, after 150 within 1e-3 of it (the two sum in different orders;
     cond(M) amplifies that over the iterations); the padded entries stay
     0. With a refinement step the limit after 1 iteration is 2e-4, set
@@ -331,16 +325,20 @@ def test_dense_kernel_matches_plain_version(cuda_device, refine):
     5.86e-5, CPU against JAX 7.56e-5); 2e-4 is 2.6x the largest."""
     pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
         max_iter=150, refine_iters=refine, structured_factor=False))
-    sp = _dense_problem(pcfg, cuda_device)
+    sp = _dense_problem(pcfg, cuda_device, candidates=candidates,
+                        scenarios=1 if candidates is None else 23)
+    assert sp.q.shape[0] == (candidates or 6)
     for iters, tol in ((1, 2e-4 if refine else 1e-5), (150, 1e-3)):
         before = dl.DENSE_LAUNCHES
         got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
         want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, refine)
+        again = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
         torch.cuda.synchronize()
-        assert dl.DENSE_LAUNCHES == before + 1
+        assert dl.DENSE_LAUNCHES == before + 2
         err = float((got - want).abs().max())
         assert err <= tol * float(want.abs().max()), (iters, err)
         assert not bool(got[:, pcfg.num_vars:].any())
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -375,28 +373,6 @@ def test_dense_kernel_is_deterministic(cuda_device):
 
 _DENSE_SMALL = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
     max_iter=150, refine_iters=0, structured_factor=False))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("refine", [0, 1])
-@pytest.mark.parametrize("candidates", [1, 138])
-def test_dense_kernel_at_candidate_counts(cuda_device, candidates, refine):
-    """One candidate, and more candidates than the H100 has SMs (one block
-    each; 23 scenarios of 6), at the small config: after 1 iteration x
-    within 1e-5 of max|x| (2e-4 with a refinement step, as in
-    test_dense_kernel_matches_plain_version), after 150 within 1e-3; a
-    second launch gives the same bits."""
-    sp = _dense_problem(_DENSE_SMALL, cuda_device, candidates=candidates,
-                        scenarios=23)
-    assert sp.q.shape[0] == candidates
-    for iters, tol in ((1, 2e-4 if refine else 1e-5), (150, 1e-3)):
-        got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
-        again = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
-        want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, refine)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        assert err <= tol * float(want.abs().max()), (iters, err)
-        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -476,13 +476,13 @@ def admm_solve_dense(cfg: PlannerConfig, qps: QPData, x0: torch.Tensor,
     n = cfg.num_vars
     K = qps.G.shape[-2]
     n_pad, m_pad = dense_pads(cfg, K)
-    if qps.q.device.type == "cuda" and \
-            qplib.dense_a_nnz_max(cfg, K) > csr_capacity(n_pad, m_pad):
-        raise ValueError(
-            "dense_loop kernel cannot hold A: up to %d nonzeros per "
-            "candidate at %d obstacle slots, its CSR holds %d at n_pad = %d, "
-            "m_pad = %d" % (qplib.dense_a_nnz_max(cfg, K), K,
-                            csr_capacity(n_pad, m_pad), n_pad, m_pad))
+    if qps.q.device.type == "cuda":
+        need, cap = qplib.dense_a_nnz_max(cfg, K), csr_capacity(n_pad, m_pad)
+        if need > cap:
+            raise ValueError(
+                "dense_loop kernel cannot hold A: up to %d nonzeros per "
+                "candidate at %d obstacle slots, its CSR holds %d at n_pad "
+                "= %d, m_pad = %d" % (need, K, cap, n_pad, m_pad))
     lead = qps.q.shape[:-1]
     flat = _flatten(qps, len(lead))
     sp, (D, _, _) = _dense_scaled_problem(

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from intent_mpc_torch.ops.qp import ConVec, QPData, NX, NU, dynamics_matrices
@@ -112,8 +111,10 @@ def build_blocks(cfg: PlannerConfig, qp: QPData, hdiag_s: torch.Tensor,
     hu = hdiag_s[..., NX * H:].reshape(hdiag_s.shape[:-1] + (W, NU))
     Dblk[..., ax8, ax8] += hx + sigma
     Dblk[..., :W, NX + ax5, NX + ax5] += hu + sigma
-    # last block's u slots are padding: unit diagonal, no coupling
-    Dblk[..., W, NX + ax5, NX + ax5] = 1.0
+    # last block's u slots are padding: unit diagonal, no coupling (a
+    # device scalar: a Python one would be copied from the host, which
+    # synchronizes the stream)
+    Dblk[..., W, NX + ax5, NX + ax5] = torch.ones((), dtype=dt, device=dev)
     return Dblk, Eblk
 
 
@@ -121,12 +122,12 @@ def flat_to_block_perm(cfg: PlannerConfig, device="cpu") -> torch.Tensor:
     """Index map: flat layout [X (H*8), U (W*5)] -> padded block layout
     [v_0 ... v_{H-1}] with v_i 13-wide (last block x-only + pad)."""
     H, W = cfg.horizon, cfg.mpc_window
-    idx = np.zeros(NX * H + NU * W, np.int64)
-    for i in range(H):
-        idx[NX * i: NX * (i + 1)] = BS * i + np.arange(NX)
-    for i in range(W):
-        idx[NX * H + NU * i: NX * H + NU * (i + 1)] = BS * i + NX + np.arange(NU)
-    return torch.as_tensor(idx, device=device)
+    # built on the device: a copy from the host would synchronize
+    x = BS * torch.arange(H, device=device)[:, None] \
+        + torch.arange(NX, device=device)
+    u = BS * torch.arange(W, device=device)[:, None] + NX \
+        + torch.arange(NU, device=device)
+    return torch.cat([x.reshape(-1), u.reshape(-1)])
 
 
 def structured_minv(cfg: PlannerConfig, qp: QPData, hdiag_s: torch.Tensor,

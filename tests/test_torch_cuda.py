@@ -19,8 +19,11 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import accepted, small_fleet_qps  # noqa: E402
+from intent_mpc_torch.benchmark import bench  # noqa: E402
+from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
+from intent_mpc_torch.models.occupancy import empty_grid  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
 from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
 from intent_mpc_torch.ops import dense_loop as dl  # noqa: E402
@@ -525,3 +528,78 @@ def test_fused_dynus_episodes_end_finite(cuda_device):
     assert bool(torch.isfinite(carry.pos).all())
     assert bool(torch.isfinite(carry.vel).all())
     assert int(m.solve_successes.min()) > 0
+
+
+def _harness_config(fused, timeout=1.5):
+    """tests/test_checkpoint.py's harness config (15 cycles), optionally
+    fused."""
+    cfg = small_config(num_obstacles=6, horizon=10, timeout=timeout,
+                       max_obstacles=6, hist=12).replace(goal=(8.0, 0.0, 2.0))
+    return _fused(cfg) if fused else cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
+def test_checkpointed_rows_equal_plain_rows_on_card(cuda_device, fused,
+                                                    tmp_path):
+    """On the card, run_trials_checkpointed (snapshots every 6 cycles, off
+    the factor-refresh cycles) gives rows identical (==) to run_trials,
+    and a run cut at 6 cycles and resumed from its file gives rows
+    identical to the uninterrupted one: every op of a cycle gives the
+    same bits run to run (the kernels keep fixed orders, and no op of the
+    loop accumulates with atomics)."""
+    cfg = _harness_config(fused)
+    plain = harness.run_trials(cfg, [1, 2], solver_iters=30)
+    ck = harness.run_trials_checkpointed(cfg, [1, 2], str(tmp_path / "a"),
+                                         chunk_cycles=6, solver_iters=30)
+    assert ck == plain
+    cut = str(tmp_path / "b")
+    harness.run_trials_checkpointed(_harness_config(fused, 0.6), [1, 2], cut,
+                                    chunk_cycles=6, solver_iters=30)
+    assert harness.run_trials_checkpointed(cfg, [1, 2], cut, chunk_cycles=6,
+                                           solver_iters=30) == ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
+def test_episode_step_does_not_synchronize(cuda_device, fused):
+    """No op inside a cycle waits for the device: under
+    torch.cuda.set_sync_debug_mode("error") a factor-refresh cycle (4) and
+    a reuse cycle (5) of the production config run without raising, after
+    4 warm-up cycles have built the kernels and the cached constants."""
+    cfg = IntentMPCConfig()
+    cfg = _fused(cfg) if fused else cfg
+    scen = sh.stack_scenarios(cfg, [0, 1])
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
+    occ = empty_grid("cuda")
+    carry = cl.init_carry(cfg, scen)
+    for i in range(4):
+        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in (4, 5):
+            carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                       carry, i)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(carry.pos).all())
+
+
+@pytest.mark.cuda
+def test_pipelined_fetch_returns_each_cycles_command(cuda_device):
+    """The depth-1 pipelined fetch hands back, for every cycle i, exactly
+    the pos and vel that a blocking fetch of cycle i reads, and leaves
+    the same carry."""
+    cfg = _harness_config(False)
+    scen = sh.stack_scenarios(cfg, [1, 2])
+    step = bench.command_step(cfg, scen)
+    b_carry, _, b_cmds = bench.blocking_cycles(
+        step, cl.init_carry(cfg, scen), range(7))
+    p_carry, secs, p_cmds = bench.pipelined_cycles(
+        step, cl.init_carry(cfg, scen), range(7))
+    assert len(secs) == 6 and len(p_cmds) == len(b_cmds) == 7
+    for i, (a, b) in enumerate(zip(p_cmds, b_cmds)):
+        assert a.device.type == "cpu" and torch.equal(a, b), i
+    assert torch.equal(p_carry.pos, b_carry.pos)
+    assert torch.equal(p_carry.vel, b_carry.vel)

@@ -46,7 +46,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
      entry     admm_solve_dense on the 128-scenario candidates through its
                public signature: exactly one dense_loop launch; the loop
                phases (4, 7) launched it no time
- 10. modules   neither jax nor the JAX package was imported
+ 10. harness   benchmark/harness.run_trials at the full DYNUS config on
+               16 seeds for 12 cycles, default and fused path: the JAX
+               harness's 28 row keys in its order, finite floats, the 14
+               aggregate keys, trials.csv read back equal by
+               analyze.load_rows, the path's launches, seconds per cycle
+ 11. checkpoint the same seeds with a 1.2 s timeout (12 cycles), both
+               paths: run_trials_checkpointed (a snapshot every 5 cycles,
+               off the factor-refresh cycles 0, 4, 8) gives rows identical
+               (==) to run_trials, and a run cut at 5 cycles and resumed
+               from its file gives rows identical to the uninterrupted one
+ 12. latency   bench.latency at 32 scenarios, both paths: 50 blocking and
+               50 pipelined depth-1 cycles, p50/p99/max ms against the
+               100 ms budget, with the card's name and power limit
+ 13. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -169,16 +182,114 @@ def ew_bound(args, outs):
 
 def finite_carry(carry):
     import torch
-
-    def leaves(t):
-        if t is None:
-            return []
-        if isinstance(t, tuple):
-            return [x for s in t for x in leaves(s)]
-        return [t]
-    bad = [t.shape for t in leaves(carry)
+    from intent_mpc_torch.engine.checkpoint import flatten
+    bad = [t.shape for t in flatten(carry)
            if t.is_floating_point() and not bool(torch.isfinite(t).all())]
     return not bad
+
+
+# the JAX harness's row keys, in its order (harness.py:254-283)
+HARNESS_KEYS = [
+    "trial_id", "seed", "num_obstacles", "dynamic_ratio", "goal_reached",
+    "timeout_reached", "collision", "collision_count", "flight_travel_time",
+    "path_length", "straight_line_distance", "path_efficiency",
+    "min_distance_to_obstacles", "vel_violation_count", "acc_violation_count",
+    "jerk_violation_count", "vel_total_samples", "acc_total_samples",
+    "jerk_total_samples", "max_velocity", "max_acceleration", "avg_velocity",
+    "jerk_rms", "jerk_integral", "mpc_solve_count", "mpc_solve_successes",
+    "mpc_prim_res_avg", "mpc_prim_res_max"]
+
+
+def launch_counts():
+    from intent_mpc_torch.ops import dense_loop as dl
+    from intent_mpc_torch.ops import ew_chain as ew
+    from intent_mpc_torch.ops import fleet as fl
+    return {"ew_chain": ew.EW_LAUNCHES, "fleet_admm": fl.FLEET_LAUNCHES,
+            "dense_loop": dl.DENSE_LAUNCHES}
+
+
+def reset_launch_counts():
+    from intent_mpc_torch.ops import dense_loop as dl
+    from intent_mpc_torch.ops import ew_chain as ew
+    from intent_mpc_torch.ops import fleet as fl
+    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = dl.DENSE_LAUNCHES = 0
+
+
+def expected_launches(cfg, cycles):
+    """Launches of each kernel in `cycles` cycles of cfg's solve path."""
+    if cfg.planner.solver.fused_solve:
+        return {"ew_chain": 0, "fleet_admm": cycles, "dense_loop": 0}
+    return {"ew_chain": cycles * cfg.planner.solver.max_iter,
+            "fleet_admm": 0, "dense_loop": 0}
+
+
+def with_timeout(cfg, seconds):
+    import dataclasses
+    return cfg.replace(engine=dataclasses.replace(cfg.engine,
+                                                  timeout=seconds))
+
+
+def first_row_diff(a, b):
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        for k in ra:
+            if ra[k] != rb[k]:
+                return (i, k, ra[k], rb[k])
+    return None if len(a) == len(b) else ("rows", len(a), len(b))
+
+
+def check_harness(cfg, seeds, cycles, out_dir, dev):
+    """run_trials on one solve path: JAX's 28 keys in order, finite floats,
+    the 14 aggregate keys, the CSV round trip, and the path's launches."""
+    import math
+    from intent_mpc_torch.benchmark import analyze, harness
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = harness.run_trials(cfg, seeds, num_cycles=cycles, device=dev)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches == expected_launches(cfg, cycles),
+          ("harness launches", launches))
+    check(all(list(r) == HARNESS_KEYS for r in rows), "harness row keys")
+    check(all(math.isfinite(v) for r in rows for v in r.values()
+              if isinstance(v, float)), "non-finite harness value")
+    agg = harness.aggregate(rows)
+    check(len(agg) == 14, ("aggregate keys", sorted(agg)))
+    path = os.path.join(out_dir, "trials.csv")
+    harness.save_csv(rows, path)
+    back = analyze.load_rows(path)
+    check(back == rows, ("CSV round trip", first_row_diff(back, rows)))
+    return dict(trials=len(rows), cycles=cycles, seconds=secs,
+                seconds_per_cycle=secs / cycles, launches=launches,
+                solver_success_rate=agg["solver_success_rate"],
+                collisions=sum(r["collision"] for r in rows))
+
+
+def check_checkpoint(cfg, seeds, chunk, cut, out_dir, dev):
+    """run_trials_checkpointed against run_trials (==), and a run cut after
+    `cut` cycles and resumed from its file against the uninterrupted
+    checkpointed run (==)."""
+    import shutil
+    from intent_mpc_torch.benchmark import harness
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    plain = harness.run_trials(cfg, seeds, device=dev)
+    ck = harness.run_trials_checkpointed(
+        cfg, seeds, os.path.join(out_dir, "whole.npz"), chunk_cycles=chunk,
+        device=dev)
+    check(ck == plain, ("checkpointed rows differ from run_trials",
+                        first_row_diff(ck, plain)))
+    cut_path = os.path.join(out_dir, "cut.npz")
+    harness.run_trials_checkpointed(
+        with_timeout(cfg, cut * cfg.engine.control_dt
+                     * cfg.engine.ticks_per_cycle),
+        seeds, cut_path, chunk_cycles=chunk, device=dev)
+    resumed = harness.run_trials_checkpointed(cfg, seeds, cut_path,
+                                              chunk_cycles=chunk, device=dev)
+    check(resumed == ck, ("resumed rows differ", first_row_diff(resumed, ck)))
+    return dict(trials=len(seeds), cycles=cfg.engine.num_cycles,
+                chunk_cycles=chunk, cut_at=cut, rows_equal=True,
+                resumed_equal=True, seconds=time.perf_counter() - t0)
 
 
 def small_fleet_qps(pcfg, S, device):
@@ -700,7 +811,27 @@ def main():
     del entry_in, qps_d, warm_d, res
     torch.cuda.empty_cache()
 
-    # ---- 10. clean modules ----
+    # ---- 10-12. the multi-trial harness, checkpointed resume, latency ----
+    from intent_mpc_torch.benchmark import bench
+    t_new = time.perf_counter()
+    seeds = list(range(16))
+    work = os.path.join(HERE, "build", "chip_smoke")
+    paths = (("default", cfg), ("fused", fused(cfg)))
+    for name, c in paths:
+        phase("harness", solve=name, **check_harness(
+            c, seeds, 12, os.path.join(work, "harness_" + name), dev))
+    for name, c in paths:
+        phase("checkpoint", solve=name, **check_checkpoint(
+            with_timeout(c, 1.2), seeds, 5, 5,
+            os.path.join(work, "checkpoint_" + name), dev))
+    for name, f in (("default", False), ("fused", True)):
+        reset_launch_counts()
+        lat = bench.latency(32, cycles=50, fused=f, device=dev)
+        phase("latency", solve=name, nvidia_smi=smi, launches=launch_counts(),
+              **lat)
+    phase("new_phases", seconds=time.perf_counter() - t_new)
+
+    # ---- 13. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from intent_mpc_torch.utils.config import WorldConfig
+from intent_mpc_torch.utils.device import resolve_device
 from intent_mpc_torch.utils.rng import MT19937
 
 
@@ -136,3 +137,20 @@ def straight_line_ref_traj(start, goal, spacing: float = 2.5,
     alphas = np.linspace(0.0, 1.0, n)[:, None]
     pts = start[None, :] * (1 - alphas) + goal[None, :] * alphas
     return torch.as_tensor(pts.astype(np.float32), device=device)
+
+
+def load_ref_traj(path: str, device=None) -> torch.Tensor:
+    """Load a `t x y z` whitespace trajectory file (format of
+    mpcNavigation::getRefTraj, mpcNavigation.cpp:190-220) as an (L, 3)
+    float32 tensor on `device` (the GPU by default). Reading stops at the
+    first line with fewer than 4 fields, as the reference's does."""
+    dev = resolve_device(device)
+    rows = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 4:
+                break
+            rows.append([float(parts[1]), float(parts[2]), float(parts[3])])
+    return torch.as_tensor(np.array(rows, np.float64).reshape(-1, 3)
+                           .astype(np.float32), device=dev)

@@ -12,6 +12,7 @@ import torch
 from intent_mpc_tpu.ops import admm as jadmm
 from intent_mpc_tpu.ops import block_chol as jbc
 from intent_mpc_tpu.ops import qp as jqp
+from intent_mpc_tpu.oracle import native
 from intent_mpc_tpu.oracle import numpy_ref as oracle
 from intent_mpc_torch.ops import admm as tadmm
 from intent_mpc_torch.ops import block_chol as tbc
@@ -153,20 +154,22 @@ def test_ew_and_grouped_steps_identical_on_cpu(candidates):
     assert torch.equal(a.x, b.x)
 
 
-@pytest.mark.parametrize("num_active,with_static", [(0, False), (3, True)])
-def test_converged_solve_matches_oracle(num_active, with_static):
-    """A converged float32 solve against the float64 oracle, to the float32
-    floor used by tests/test_qp.py (positions 5e-3, accelerations 5e-2)."""
+def _reference_case(num_active, with_static):
+    """The port's config and QP, and the same QP in the float64 oracle's
+    dense form (P, q, A, l, u)."""
     jcfg, tcfg = configs(max_iter=400, refine_iters=1)
     K = tcfg.max_obstacles
     _, tq = build_both(jcfg, tcfg, K, num_active, with_static=with_static)
     x0, xref, oxyz, osize, yaw, is_dyn, active, lin = _random_problem(
         jcfg, K, num_active, 0, with_static)
     ka = num_active
-    P, q, A, l, u = oracle.build_reference_qp(
+    dense = oracle.build_reference_qp(
         jcfg, x0, xref, oxyz[:, :ka], osize[:, :ka], yaw[:, :ka],
         is_dyn[:, :ka], lin)
-    x_ref, _ = oracle.solve_qp_dense(P, q, A, l, u, max_iter=20000, eps=1e-10)
+    return tcfg, tq, dense
+
+
+def _assert_converged_near(tcfg, tq, x_ref):
     res = tadmm.admm_solve(tcfg, tq, max_iter=1000)
     x = res.x.numpy().astype(np.float64)
     H, W = tcfg.horizon, tcfg.mpc_window
@@ -175,6 +178,30 @@ def test_converged_solve_matches_oracle(num_active, with_static):
                                x_ref[:8 * H].reshape(H, 8)[:, :3], atol=5e-3)
     np.testing.assert_allclose(x[8 * H:].reshape(W, 5)[:, :3],
                                x_ref[8 * H:].reshape(W, 5)[:, :3], atol=5e-2)
+
+
+@pytest.mark.parametrize("num_active,with_static", [(0, False), (3, True)])
+def test_converged_solve_matches_oracle(num_active, with_static):
+    """A converged float32 solve against the float64 oracle, to the float32
+    floor used by tests/test_qp.py (positions 5e-3, accelerations 5e-2)."""
+    tcfg, tq, (P, q, A, l, u) = _reference_case(num_active, with_static)
+    x_ref, _ = oracle.solve_qp_dense(P, q, A, l, u, max_iter=20000, eps=1e-10)
+    _assert_converged_near(tcfg, tq, x_ref)
+
+
+@pytest.mark.parametrize("num_active,with_static", [(0, False), (3, True)])
+def test_converged_solve_matches_native_oracle(num_active, with_static):
+    """The same converged float32 solve against the C++ oracle
+    (intent_mpc_tpu/oracle/native.py, float64 OSQP-style ADMM run to
+    eps 1e-10), with the same tolerances: positions 5e-3, accelerations
+    5e-2. Skipped where the C++ library cannot be built."""
+    if not native.available():
+        pytest.skip("native C++ QP solver unavailable (no g++ build)")
+    tcfg, tq, (P, q, A, l, u) = _reference_case(num_active, with_static)
+    x_ref, _, status, iters = native.solve_qp(np.diag(P), q, A, l, u,
+                                              max_iter=20000, eps=1e-10)
+    assert status == 0, "native solver did not converge in %d iters" % iters
+    _assert_converged_near(tcfg, tq, x_ref)
 
 
 def test_unported_options_raise(problem):

@@ -64,9 +64,11 @@ def test_importing_port_loads_no_jax():
     assert r.returncode == 0, r.stderr[-3000:]
 
 
-def _entry_calls():
-    from intent_mpc_torch.engine import closed_loop as cl
-    from intent_mpc_torch.models.world import straight_line_ref_traj
+def _entry_calls(tmp_path):
+    from intent_mpc_torch.benchmark import harness
+    from intent_mpc_torch.engine import checkpoint, closed_loop as cl
+    from intent_mpc_torch.models.world import (load_ref_traj,
+                                               straight_line_ref_traj)
     from intent_mpc_torch.parallel import sharding as sh
     from intent_mpc_torch.utils.config import small_config
     cfg = small_config(num_obstacles=2, horizon=4)
@@ -79,15 +81,25 @@ def _entry_calls():
         "stack_scenarios": lambda: sh.stack_scenarios(cfg, [0]),
         "batch_rollout": lambda: sh.batch_rollout(cfg, scen, ref,
                                                   ref.shape[0], num_cycles=1),
+        "run_trials": lambda: harness.run_trials(cfg, [0], num_cycles=1),
+        "run_trials_checkpointed": lambda: harness.run_trials_checkpointed(
+            cfg, [0], str(tmp_path / "c.npz")),
+        "load_checkpoint": lambda: checkpoint.load_checkpoint(
+            str(tmp_path / "c.npz"), cfg),
+        "load_ref_traj": lambda: load_ref_traj(str(tmp_path / "ref.txt")),
     }
 
 
 @pytest.mark.parametrize("entry", ["init_carry", "run_episode",
-                                   "stack_scenarios", "batch_rollout"])
-def test_entry_points_default_to_cuda(entry):
+                                   "stack_scenarios", "batch_rollout",
+                                   "run_trials", "run_trials_checkpointed",
+                                   "load_checkpoint", "load_ref_traj"])
+def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a device argument an entry point runs on CUDA; with no CUDA
-    device it raises instead of falling back to the CPU."""
+    device it raises instead of falling back to the CPU (before it reads
+    or writes any file)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _entry_calls()[entry]()
+        _entry_calls(tmp_path)[entry]()
+    assert not os.listdir(tmp_path)

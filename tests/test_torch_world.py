@@ -59,3 +59,21 @@ def test_straight_line_ref_traj_equal():
         j = jworld.straight_line_ref_traj(cfg.start, cfg.goal, spacing)
         t = tworld.straight_line_ref_traj(cfg.start, cfg.goal, spacing)
         np.testing.assert_array_equal(np.asarray(j), t.numpy())
+
+
+@pytest.mark.parametrize("tail", ["", "0.9 1.0\n7.0 8.0 9.0 10.0\n"],
+                         ids=["whole", "short_line"])
+def test_load_ref_traj_matches_jax(tmp_path, tail):
+    """A `t x y z` file from seeded numpy values read by both packages:
+    exactly equal float32 (L, 3) arrays. Reading stops at the first line
+    with fewer than 4 fields, so the rows after it are never read."""
+    rng = np.random.default_rng(7)
+    pts = rng.normal(scale=20.0, size=(9, 4))
+    path = tmp_path / "ref.txt"
+    path.write_text("".join("%r %r %r %r\n" % tuple(map(float, p))
+                            for p in pts) + tail)
+    j = np.asarray(jworld.load_ref_traj(str(path)))
+    t = tworld.load_ref_traj(str(path), device="cpu")
+    assert t.dtype == torch.float32 and t.shape == (9, 3)
+    np.testing.assert_array_equal(t.numpy(), j)
+    np.testing.assert_array_equal(t.numpy(), pts[:, 1:].astype(np.float32))

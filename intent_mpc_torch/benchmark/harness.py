@@ -1,4 +1,4 @@
-"""Benchmark harness: multi-trial driver + aggregation (port of
+"""Benchmark harness: multi-trial runner + aggregation (port of
 intent_mpc_tpu/benchmark/harness.py).
 
     python -m intent_mpc_torch.benchmark.harness [--trials 10] [--fused]

@@ -102,6 +102,7 @@ def test_recheck_collisions_matches_jax(z, pillar):
 
 
 def test_latex_table_matches_jax(metrics):
+    """The LaTeX summary row of the same aggregate is the same string."""
     rows = H.rows_from_metrics(_small(small_config), SEEDS, metrics)
     agg = H.aggregate(rows)
     assert A.latex_table(agg) == JA.latex_table(agg)

@@ -93,6 +93,8 @@ def test_checkpoint_rejects_mismatched_config(tmp_path):
 
 
 def test_unflatten_keeps_none_and_counts_leaves():
+    """flatten then unflatten gives back every leaf's bits exactly, None
+    fields stay None, and a surplus leaf raises."""
     cfg = _config(factor_reuse=1)
     scen = sh.stack_scenarios(cfg, [0], device="cpu")
     carry = cl.init_carry(cfg, scen, device="cpu")
@@ -126,6 +128,8 @@ def test_checkpointed_rows_equal_run_trials(tmp_path, fused):
 
 
 def test_checkpoint_with_other_seeds_raises(tmp_path):
+    """A checkpoint resumes only the seeds it was written for (exact
+    list comparison); others raise ValueError."""
     cfg = _config(timeout=0.2)
     path = str(tmp_path / "c.npz")
     H.run_trials_checkpointed(cfg, SEEDS, path, solver_iters=5, device="cpu")

@@ -59,7 +59,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
  12. latency   bench.latency at 32 scenarios, both paths: 50 blocking and
                50 pipelined depth-1 cycles, p50/p99/max ms against the
                100 ms budget, with the card's name and power limit
- 13. modules   neither jax nor the JAX package was imported
+ 13. df        ops/df.py's error-free transforms exact on the card (in
+               float64, 2^20 pairs) and df_matvec at 128 x 2510 x 385
+               within 1e-12 of the float64 product
+ 14. loop_osqp truncation="osqp" on the default DYNUS loop, 6 cycles at 128
+               and at 32 scenarios: ms per cycle, blocks run, the share of
+               candidates frozen before the cap, ew_chain launches (one
+               per iteration run) and host reads per cycle
+ 15. loop_adaptive a factor per candidate with in-solve adaptive rho and
+               temporal rho, 6 cycles at 32: rho switches per solve, the
+               carried rho's range, peak memory
+ 16. loop_polish polish=True on the default and fused paths, 6 cycles at
+               32: the polish's share of the cycle, accepted share,
+               median KKT residual, peak memory; polish_small: the polish
+               on the card against the CPU on small converged QPs
+ 17. card/cpu  each new option on the small config, held to 1e-4 m
+ 18. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -187,6 +202,16 @@ def finite_carry(carry):
            if t.is_floating_point() and not bool(torch.isfinite(t).all())]
     return not bad
 
+
+# the solver options that card_vs_cpu holds on the small config, beside
+# the default and fused paths
+NEW_OPTIONS = (
+    ("truncation_osqp", dict(truncation="osqp")),
+    ("per_candidate_adaptive_temporal", dict(
+        shared_factor=False, adaptive_rho=True, temporal_rho=True)),
+    ("temporal_rho", dict(temporal_rho=True)),
+    ("polish", dict(polish=True)),
+    ("polish_fused", dict(polish=True, fused_solve=True)))
 
 # the JAX harness's row keys, in its order (harness.py:254-283)
 HARNESS_KEYS = [
@@ -621,6 +646,223 @@ def check_fleet_small(dev):
     return diff
 
 
+def with_solver(cfg, **kw):
+    import dataclasses
+    return cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver, **kw)))
+
+
+def check_df(dev):
+    """The double-float transforms on the card: two_sum, two_prod and split
+    exact (checked in float64) on 2^20 seeded pairs, and df_matvec at the
+    polish's A shape for 128 scenarios (128 x 2510 x 385) against the
+    float64 product, beside plain float32's error and its time."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import cuda_time_ms
+    from intent_mpc_torch.ops import df
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    n = 1 << 20
+    a = torch.randn(n, generator=g, device=dev)
+    b = torch.randn(n, generator=g, device=dev) * 1e-4
+    c = torch.randn(n, generator=g, device=dev)
+    s, e = df.two_sum(a, b)
+    check(torch.equal(s.double() + e.double(), a.double() + b.double()),
+          "df.two_sum is not exact on the card")
+    nz_sum = int((e != 0).sum())
+    p, e = df.two_prod(a, c)
+    check(torch.equal(p.double() + e.double(), a.double() * c.double()),
+          "df.two_prod is not exact on the card")
+    nz_prod = int((e != 0).sum())
+    big = a * 1e6
+    hi, lo = df.split(big)
+    check(torch.equal(hi + lo, big)
+          and all(torch.equal((h * h).float().double(), h * h)
+                  for h in (hi.double(), lo.double())),
+          "df.split is not exact on the card")
+    check(nz_sum > 0 and nz_prod > 0, "error terms all zero: no teeth")
+    M = torch.randn((128, 2510, 385), generator=g, device=dev)
+    x = torch.randn((128, 385), generator=g, device=dev)
+    zeros = torch.zeros_like(x)
+    mh, ml = df.df_matvec(M, x, zeros)
+    ref = torch.matmul(M.double(), x.double()[..., None])[..., 0]
+    den = ref.abs() + 1.0
+    rel = float(((mh.double() + ml.double() - ref).abs() / den).max())
+    plain = float(((torch.matmul(M, x[..., None])[..., 0].double() - ref)
+                   .abs() / den).max())
+    check(rel < 1e-12, ("df_matvec relative error", rel))
+    ms = cuda_time_ms(lambda: df.df_matvec(M, x, zeros), reps=5)
+    plain_ms = cuda_time_ms(lambda: torch.matmul(M, x[..., None]), reps=5)
+    return dict(pairs=n, two_sum_exact=True, two_prod_exact=True,
+                split_exact=True, nonzero_errors=[nz_sum, nz_prod],
+                matvec_shape=[128, 2510, 385], matvec_rel_err=rel,
+                plain_f32_rel_err=plain, matvec_ms=ms, plain_matvec_ms=plain_ms)
+
+
+class SolveRecorder:
+    """Stands in for models/mpc.py's admm_solve and polish during a run:
+    keeps each solve's per-problem iterations and rho switches, and each
+    polish's result with CUDA events around the call."""
+
+    def __enter__(self):
+        from intent_mpc_torch.models import mpc as mpclib
+        self.mpc = mpclib
+        self.solve, self.pol = mpclib.admm_solve, mpclib.polish
+        self.results, self.polishes = [], []
+
+        def solve(*a, **k):
+            res = self.solve(*a, **k)
+            self.results.append(res)
+            return res
+
+        def polish(*a, **k):
+            import torch
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = self.pol(*a, **k)
+            t1.record()
+            self.polishes.append((t0, t1, out))
+            return out
+        mpclib.admm_solve, mpclib.polish = solve, polish
+        return self
+
+    def __exit__(self, *exc):
+        self.mpc.admm_solve, self.mpc.polish = self.solve, self.pol
+
+
+def run_path(cfg, S, cycles, dev):
+    """One warm-up cycle, then `cycles` cycles of cfg's loop from a fresh
+    carry with the launch counts and the truncation host reads set to 0
+    just before and read just after, the peak device memory, and the
+    recorded solves and polishes."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import run_loop
+    from intent_mpc_torch.ops import admm as admmlib
+    run_loop(cfg, S, 1, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    admmlib.HOST_READS = 0
+    with SolveRecorder() as rec:
+        carry, secs, _ = run_loop(cfg, S, cycles, dev)
+    launches = launch_counts()
+    check(finite_carry(carry), "non-finite carry leaf")
+    check(int(carry.metrics.solve_successes.sum()) > 0, "no successful solve")
+    out = dict(scenarios=S, cycles=cycles, launches=launches,
+               cycle_ms=sum(secs) / cycles * 1e3,
+               cycle_ms_each=[round(x * 1e3, 3) for x in secs],
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               min_solve_successes=int(carry.metrics.solve_successes.min()))
+    return out, carry, rec, admmlib.HOST_READS
+
+
+def check_loop_osqp(cfg, S, cycles, dev):
+    """truncation="osqp" on the default path: per cycle the blocks the
+    termination loop ran (its longest problem's iterations over the check
+    interval), the share of candidates frozen before the cap, ew_chain
+    launches (one per iteration the loop ran) and host reads."""
+    c = with_solver(cfg, truncation="osqp")
+    sv = c.planner.solver
+    out, _, rec, reads = run_path(c, S, cycles, dev)
+    iters = [r.iters for r in rec.results]
+    check(len(iters) == cycles, ("solves recorded", len(iters)))
+    ran = [int(t.max()) for t in iters]
+    check(out["launches"]["ew_chain"] == sum(ran),
+          ("ew_chain launches against iterations run", out["launches"], ran))
+    check(out["launches"]["fleet_admm"] == 0
+          and out["launches"]["dense_loop"] == 0, out["launches"])
+    out.update(max_iter=sv.max_iter, check_interval=sv.term_check_interval,
+               blocks_per_cycle=[r / sv.term_check_interval for r in ran],
+               frozen_before_cap=float(sum(
+                   int((t < sv.max_iter).sum()) for t in iters))
+               / sum(t.numel() for t in iters),
+               frozen_per_cycle=[float((t < sv.max_iter).float().mean())
+                                 for t in iters],
+               ew_chain_launches_per_cycle=out["launches"]["ew_chain"]
+               / cycles,
+               host_reads=reads, host_reads_per_cycle=reads / cycles)
+    return out
+
+
+def check_loop_adaptive(cfg, S, cycles, dev):
+    """A factor per candidate with in-solve adaptive rho and temporal rho:
+    the rho switches per solve (each switch refactors; every problem is
+    refactored after each block but the last, and keeps the factor only
+    where its rho moved), and the range of the carried rho."""
+    import torch
+    c = with_solver(cfg, shared_factor=False, adaptive_rho=True,
+                    temporal_rho=True)
+    sv = c.planner.solver
+    out, carry, rec, _ = run_path(c, S, cycles, dev)
+    blocks = max(sv.max_iter // sv.adapt_interval, 1)
+    check(out["launches"]["ew_chain"] == cycles * blocks * sv.adapt_interval,
+          ("ew_chain launches", out["launches"]))
+    sw = [r.rho_switches.float() for r in rec.results]
+    rho = carry.planner.rho
+    check(bool(torch.isfinite(rho).all()), "non-finite carried rho")
+    out.update(blocks_per_solve=blocks,
+               factorizations_per_solve=blocks,
+               rho_switches_per_solve=float(sum(float(s.sum()) for s in sw)
+                                            / sum(s.numel() for s in sw)),
+               rho_switches_per_cycle=[float(s.mean()) for s in sw],
+               carried_rho_min=float(rho.min()),
+               carried_rho_max=float(rho.max()))
+    return out
+
+
+def check_loop_polish(cfg, S, cycles, dev):
+    """polish=True on one path: the polish's CUDA-event span per cycle and
+    its share of the cycle, the share of scenarios whose polish passed the
+    gate, the median final KKT residual, and the path's launches."""
+    import math
+    c = with_solver(cfg, polish=True)
+    out, _, rec, _ = run_path(c, S, cycles, dev)
+    check(len(rec.polishes) == cycles, ("polishes recorded",
+                                        len(rec.polishes)))
+    exp = expected_launches(c, cycles)
+    check(out["launches"] == exp, ("launches", out["launches"], exp))
+    pol_ms = [a.elapsed_time(b) for a, b, _ in rec.polishes]
+    acc = [p.accepted for _, _, p in rec.polishes]
+    kkt = [float(v) for _, _, p in rec.polishes for v in p.kkt_res.cpu()]
+    check(not any(math.isnan(v) for v in kkt), "NaN KKT residual")
+    out.update(polish_ms_each=[round(x, 3) for x in pol_ms],
+               polish_share=sum(pol_ms) / (out["cycle_ms"] * cycles),
+               accepted_share=float(sum(int(a.sum()) for a in acc))
+               / sum(a.numel() for a in acc),
+               median_kkt_res=statistics.median(kkt))
+    return out
+
+
+def check_polish_small(dev):
+    """The polish on the card against its CPU run, on 6 seeded small QPs
+    (horizon 10, 4 slots, 3 active) from an 800-iteration per-candidate
+    ADMM solve on the CPU: every polish accepted on both, x within 1e-5,
+    final KKT residual below 1e-4."""
+    import torch
+    from intent_mpc_torch.ops import admm as admmlib
+    from intent_mpc_torch.ops import polish as pol
+    from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
+    pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+        max_iter=800, refine_iters=1))
+    qps = small_fleet_qps(pcfg, 1, "cpu")
+    res = admmlib.admm_solve(pcfg, qps)
+    cpu = pol.polish(pcfg, qps, res.x, res.y)
+
+    def to(t):
+        return type(t)(*(to(v) for v in t)) if isinstance(t, tuple) \
+            else t.to(dev)
+    card = pol.polish(pcfg, to(qps), res.x.to(dev), to(res.y))
+    diff = float((card.x.cpu() - cpu.x).abs().max())
+    check(bool(card.accepted.all()) and bool(cpu.accepted.all()),
+          ("polish rejected", card.accepted.tolist(), cpu.accepted.tolist()))
+    check(diff <= 1e-5, ("polish card against CPU", diff))
+    kkt = float(card.kkt_res.max())
+    check(kkt < 1e-4, ("polish KKT residual on the card", kkt))
+    return dict(problems=6, accepted=True, max_abs_diff=diff, tol=1e-5,
+                max_kkt_res=kkt)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -831,7 +1073,39 @@ def main():
               **lat)
     phase("new_phases", seconds=time.perf_counter() - t_new)
 
-    # ---- 13. clean modules ----
+    # ---- 13-17. the OSQP-semantics solve: df, truncation, adaptive rho,
+    # the polish, and card against CPU ----
+    t_opt = time.perf_counter()
+    phase("df", **check_df(dev))
+    torch.cuda.empty_cache()
+    osqp = {}
+    for S in (128, 32):
+        osqp[S] = check_loop_osqp(cfg, S, 6, dev)
+        phase("loop_osqp", **osqp[S])
+    adaptive = check_loop_adaptive(cfg, 32, 6, dev)
+    phase("loop_adaptive", **adaptive)
+    polished = {}
+    for name, c in (("default", cfg), ("fused", fused(cfg))):
+        polished[name] = check_loop_polish(c, 32, 6, dev)
+        phase("loop_polish", solve=name, **polished[name])
+    phase("polish_small", **check_polish_small(dev))
+    for name, kw in NEW_OPTIONS:
+        c = with_solver(tiny, **kw)
+        cc, _, pg = run_loop(c, 2, 4, dev)
+        cc_cpu, _, pc = run_loop(c, 2, 4, "cpu")
+        diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
+        check(max(diffs) <= 1e-4, (name, diffs))
+        check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
+        check(torch.equal(cc.metrics.solve_successes.cpu(),
+                          cc_cpu.metrics.solve_successes),
+              ("solve counts differ", name))
+        phase("card_vs_cpu", config="small", solve=name, scenarios=2,
+              cycles=4, max_pos_diff_per_cycle=diffs, held_cycles=4, tol=1e-4,
+              carried_rho_card=cc.planner.rho.cpu().tolist(),
+              carried_rho_cpu=cc_cpu.planner.rho.tolist())
+    phase("option_phases", seconds=time.perf_counter() - t_opt)
+
+    # ---- 18. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -844,6 +1118,11 @@ def main():
         "source": "intent_mpc_torch/csrc/ew_chain.cu",
         "replaces": "intent_mpc_tpu/ops/pallas_ew.py:51 (_ew_kernel)",
         "launches": loop[128]["launches"],
+        "launches_of_other_paths": {
+            "truncation_osqp_128": osqp[128]["launches"]["ew_chain"],
+            "truncation_osqp_32": osqp[32]["launches"]["ew_chain"],
+            "per_candidate_adaptive_32": adaptive["launches"]["ew_chain"],
+            "polish_32": polished["default"]["launches"]["ew_chain"]},
         "max_abs_err": max_err,
         "max_abs_diff": max_err,
         "ms": ms,
@@ -857,6 +1136,8 @@ def main():
         "source": "intent_mpc_torch/csrc/fleet_admm.cu",
         "replaces": "intent_mpc_tpu/ops/pallas_fused.py:300 (_fleet_kernel)",
         "launches": loop_f[128]["launches"],
+        "launches_of_other_paths": {
+            "polish_fused_32": polished["fused"]["launches"]["fleet_admm"]},
         "max_abs_err": fleet[128]["max_abs_err"],
         "max_abs_diff": fleet[128]["max_abs_err"],
         "max_abs_err_of": "unscaled candidate states after 10 iterations",

@@ -25,8 +25,9 @@ Not carried over from the JAX harness, on purpose:
   * the multi-device `mesh` branch (multi-GPU is not ported yet).
 Flags that name options the port does not run yet (--goal-relax,
 --predictor-stale, --plant quadrotor, --drift-refresh, --flat-iter,
---refine-mode stationary, --per-candidate-factor, --truncation osqp)
-parse, and then raise NotImplementedError before any scenario is built.
+--refine-mode stationary) parse, and then raise NotImplementedError
+before any scenario is built. --truncation osqp and
+--per-candidate-factor run.
 """
 
 from __future__ import annotations
@@ -247,12 +248,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="shared-factor refinement (stationary is not "
                          "ported: raises)")
     ap.add_argument("--per-candidate-factor", action="store_true",
-                    help="factor every intent candidate separately (not "
-                         "ported: raises)")
+                    help="factor every intent candidate separately")
     ap.add_argument("--truncation", type=str, default=None,
                     choices=["fixed", "osqp"],
-                    help="SolverConfig.truncation (osqp is not ported: "
-                         "raises)")
+                    help="SolverConfig.truncation: 'osqp' emulates OSQP "
+                         "0.6.2's termination (checked every 25 iterations, "
+                         "capped at --iters)")
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="fleet checkpoint .npz: snapshot every "
                          "--chunk-cycles MPC cycles; an existing file "

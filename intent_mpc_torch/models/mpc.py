@@ -27,6 +27,7 @@ from intent_mpc_torch.ops import qp as qplib
 from intent_mpc_torch.ops.admm import (Factor, admm_factor, admm_solve,
                                        candidate_mean)
 from intent_mpc_torch.ops.fleet import fleet_admm
+from intent_mpc_torch.ops.polish import polish
 from intent_mpc_torch.utils.config import PlannerConfig
 from intent_mpc_torch.utils.device import constant
 
@@ -255,6 +256,13 @@ def evaluate_candidates(cfg: PlannerConfig, consistency, detour, safety,
     return torch.argmax(weighted, dim=-1)
 
 
+def _pick(qps: qplib.QPData, idx: torch.Tensor) -> qplib.QPData:
+    """The QP of candidate idx[s] of each scenario from an (S, 6) batch."""
+    return qplib.QPData(*(v.map(lambda g: _rows(g, idx))
+                          if isinstance(v, qplib.ConVec) else _rows(v, idx)
+                          for v in qps))
+
+
 def _where_s(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     """torch.where with a (S,) condition against (S, ...) tensors."""
     return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
@@ -340,7 +348,7 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
         # of every scenario; it factors each cycle and carries no factor,
         # so the carried fac_* fields pass through unchanged
         res = fleet_admm(cfg, qps, warm6, max_iter, rho_override=state.rho)
-    else:
+    elif cfg.solver.shared_factor:
         # one factorization per scenario: the candidate-mean QP with union
         # obstacle activity; each candidate refines against its own M
         qp_mean = candidate_mean(qps)
@@ -364,6 +372,10 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
             fac_carry = (fac.D, fac.E._replace(obs=e_pad), fac.c, fac.Minv)
         res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
                          factor=fac)
+    else:
+        # a factor per candidate, OSQP's own per-problem factorization (and
+        # with adaptive_rho its in-solve rho rule)
+        res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho)
     states6, _ = qplib.split_z(res.x, cfg)                        # (S,6,H,8)
 
     # Acceptance mirrors the reference: OSQP's status is never checked
@@ -380,6 +392,12 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
 
     valid = torch.any(accepted, dim=-1)
     x_best = _rows(res.x, best)
+    if cfg.solver.polish:
+        # OSQP's polish on the chosen candidate only (the reference executes
+        # only the winner): the exact active-set KKT point with compensated
+        # residuals (ops/polish.py); a rejected polish returns the iterate
+        x_best = polish(cfg, _pick(qps, best), x_best,
+                        res.y.map(lambda g: _rows(g, best))).x
     Xb, Ub = qplib.split_z(x_best, cfg)
 
     def keep(new, old):
@@ -392,7 +410,10 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
         has_solution=state.has_solution | valid,
         last_ref_start=new_start,
         xref=keep(xref, state.xref),
-        rho=state.rho,
+        # temporal rho: the chosen candidate's OSQP rho suggestion becomes
+        # the next cycle's base penalty (scfg.rho on the fused path)
+        rho=(_rows(res.rho_suggest, best) if cfg.solver.temporal_rho
+             else state.rho),
         fac_d=fac_carry[0] if fac_carry is not None else state.fac_d,
         fac_e=fac_carry[1] if fac_carry is not None else state.fac_e,
         fac_c=fac_carry[2] if fac_carry is not None else state.fac_c,

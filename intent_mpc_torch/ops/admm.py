@@ -17,8 +17,12 @@ has an explicit inverse from the block-tridiagonal Cholesky
 Cholesky of the assembled matrix. With a shared Factor (one per scenario), each
 candidate refines against its own normal matrix with preconditioned
 CG-2, warm-started from the previous iteration's x-tilde. Iterations are
-a fixed-count Python loop. The elementwise tail of each iteration is one
-launch of the CUDA kernel ops/ew_chain.py when `ew_kernel` is on.
+a fixed-count Python loop, or with `truncation="osqp"` blocks that stop
+each problem at OSQP 0.6.2's termination test; without a factor,
+`adaptive_rho` runs OSQP's in-solve rho rule with refactorization
+(`_solve_adaptive`). The elementwise tail of each iteration is one
+launch of the CUDA kernel ops/ew_chain.py when `ew_kernel` is on, on
+every one of these loops.
 
 Batching: the QP carries leading axes (..., C). A Factor either has the
 same leading axes (one factor per problem) or one axis fewer (one factor
@@ -53,6 +57,11 @@ class ADMMResult(NamedTuple):
     dual_res: torch.Tensor   # (...) ||Px + q + A^T y||_inf (unscaled)
     solved: torch.Tensor     # (...) bool: primal residual within tolerance
     rho_suggest: torch.Tensor  # OSQP adaptive-rho suggestion for the next solve
+    # (...) int32 iterations each problem ran (truncation="osqp" only)
+    iters: Optional[torch.Tensor] = None
+    # (...) int32 blocks after which the problem's rho moved and its
+    # factor was replaced (in-solve adaptive rho only)
+    rho_switches: Optional[torch.Tensor] = None
 
 
 class Scaling(NamedTuple):
@@ -70,6 +79,10 @@ class Factor(NamedTuple):
     Minv: torch.Tensor       # (..., n, n)
 
 
+# host reads of the all-done flag by truncation="osqp" solves since the
+# last reset (one per full block but the last, as _iterate_truncated says)
+HOST_READS = 0
+
 # options that only admm_solve reads: the fleet-fused solve (ops/fleet.py)
 # ignores them, as the JAX planner's fused branch does (mpc.py:419-453)
 _SOLVE_ONLY = ("truncation", "adaptive_rho", "woodbury_candidates",
@@ -85,20 +98,18 @@ def check_supported(scfg: SolverConfig, fused: Optional[bool] = None) -> None:
     `fused` is the config's own fused_solve, and admm_solve passes
     False."""
     fused = scfg.fused_solve if fused is None else fused
+    if scfg.truncation not in ("fixed", "osqp"):
+        raise ValueError("truncation must be 'fixed' or 'osqp', got %r"
+                         % (scfg.truncation,))
     unported = {
-        "truncation": scfg.truncation != "fixed",
-        "adaptive_rho": scfg.adaptive_rho,
         "woodbury_candidates": scfg.woodbury_candidates,
         "block_refine": scfg.block_refine,
         "folded_refine": scfg.folded_refine,
         "flat_iter": scfg.flat_iter,
         "minv_dtype": scfg.minv_dtype != "f32",
         "shared_refine_warm_frac": scfg.shared_refine_warm_frac != 0.0,
-        "shared_factor": not scfg.shared_factor,
         "shared_refine_mode": scfg.shared_refine_mode != "cg",
         "factor_drift_refresh": scfg.factor_drift_refresh > 0,
-        "temporal_rho": scfg.temporal_rho,
-        "polish": scfg.polish,
     }
     bad = [k for k, v in unported.items()
            if v and not (fused and k in _SOLVE_ONLY)]
@@ -219,6 +230,11 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     factorization; the factor's Minv preconditions `shared_refine_iters`
     steps of refinement against THIS QP's normal matrix, applied in
     closed form.
+
+    Without a factor and with `adaptive_rho`, the solve is
+    `_solve_adaptive` (OSQP's in-solve rho rule). Otherwise
+    `truncation="osqp"` stops each problem at OSQP's termination test
+    (`_iterate_truncated`) and "fixed" runs exactly max_iter iterations.
     """
     scfg = scfg or cfg.solver
     check_supported(scfg, fused=False)
@@ -256,6 +272,19 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
         # THIS QP's scaled normal matrix in closed form
         return h_s * v + sigma * v + at_s(a_s(v).map(
             lambda a, ri: a * ri, rho))
+
+    if x0 is None:
+        x0 = torch.zeros(qp.q.shape[:-1] + (n,), dtype=qp.q.dtype, device=dev)
+    xs = x0 / D                  # to scaled space
+    zs = a_s(xs)
+    ys = ConVec(*(torch.zeros_like(a) for a in zs))
+    iters = max_iter if max_iter is not None else scfg.max_iter
+    unscale = _Unscale(cfg, qp, hdiag, D, E, c)
+
+    if scfg.adaptive_rho and factor is None:
+        return _solve_adaptive(cfg, qp, scfg, h_s, q_s, l_s, u_s, a_s, at_s,
+                               xs, zs, ys, iters, rho_base, D, E, unscale,
+                               feas_tol)
 
     if factor is None:
         rho_inner = rho.map(lambda r, e: r * e * e, E)
@@ -302,49 +331,40 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
                 p = z + b[..., None] * p
         return x
 
-    if x0 is None:
-        x0 = torch.zeros(qp.q.shape[:-1] + (n,), dtype=qp.q.dtype, device=dev)
-    xs = x0 / D                  # to scaled space
-    zs = a_s(xs)
-    ys = ConVec(*(torch.zeros_like(a) for a in zs))
-    xt_prev = xs
-    iters = max_iter if max_iter is not None else scfg.max_iter
+    def x_update(xs, rzy, xt_prev):
+        rhs = sigma * xs - q_s + at_s(rzy)
+        return msolve(rhs, xt_prev if warm_x0 else None)
 
+    # the carry: (x, z, y, previous x-tilde[, rho z - y])
     if scfg.ew_kernel:
         # the chain's tail (rho z - y) feeds the next iteration's A^T
-        rzy = zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys)
-        for _ in range(iters):
-            rhs = sigma * xs - q_s + at_s(rzy)
-            x_t = msolve(rhs, xt_prev if warm_x0 else None)
-            z_t = a_s(x_t)
-            xs, zs, ys, rzy = ew_chain(alpha, xs, x_t, zs, ys, z_t, rho,
+        def step(carry):
+            xs, zs, ys, xt_prev, rzy = carry
+            x_t = x_update(xs, rzy, xt_prev)
+            xs, zs, ys, rzy = ew_chain(alpha, xs, x_t, zs, ys, a_s(x_t), rho,
                                        l_s, u_s)
-            xt_prev = x_t
+            return xs, zs, ys, x_t, rzy
+        carry = (xs, zs, ys, xs,
+                 zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys))
+    else:
+        def step(carry):
+            xs, zs, ys, xt_prev = carry
+            x_t = x_update(xs, zs.map(lambda zi, ri, yi: ri * zi - yi, rho,
+                                      ys), xt_prev)
+            return _grouped_tail(alpha, xs, x_t, zs, ys, a_s(x_t), rho,
+                                 l_s, u_s) + (x_t,)
+        carry = (xs, zs, ys, xs)
+
+    ran = None
+    if scfg.truncation == "osqp":
+        carry, ran = _iterate_truncated(step, carry, iters, scfg, unscale)
     else:
         for _ in range(iters):
-            rz_y = zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys)
-            rhs = sigma * xs - q_s + at_s(rz_y)
-            x_t = msolve(rhs, xt_prev if warm_x0 else None)
-            z_t = a_s(x_t)
-            x_n = alpha * x_t + (1.0 - alpha) * xs
-            z_relax = z_t.map(lambda zt, zi: alpha * zt + (1.0 - alpha) * zi,
-                              zs)
-            z_n = z_relax.map(
-                lambda zr, yi, ri, li, ui: torch.clamp(zr + yi / ri, li, ui),
-                ys, rho, l_s, u_s)
-            ys = ys.map(lambda yi, zr, zn, ri: yi + ri * (zr - zn),
-                        z_relax, z_n, rho)
-            xs, zs, xt_prev = x_n, z_n, x_t
+            carry = step(carry)
+    xs, zs, ys = carry[:3]
 
-    # unscale
-    cg = c[..., None, None]
-    x = D * xs
-    y = ys.scale(E).map(lambda v: v / cg)
-    z = zs.map(lambda zi, ei: zi / ei, E)
-
-    ax = qplib.a_matvec(cfg, qp, x)
+    x, y, z, ax, aty = unscale(xs, zs, ys)
     prim = (ax - z).inf_norm()
-    aty = qplib.at_matvec(cfg, qp, y)
     dual = torch.amax(torch.abs(hdiag * x + qp.q + aty), dim=-1)
 
     # OSQP adaptive-rho suggestion from relative residuals
@@ -361,7 +381,197 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     rho_next = torch.where(do_adapt, torch.clamp(rho_b * ratio, 1e-4, 1e3),
                            rho_b)
     return ADMMResult(x=x, y=y, prim_res=prim, dual_res=dual,
-                      solved=prim < feas_tol, rho_suggest=rho_next)
+                      solved=prim < feas_tol, rho_suggest=rho_next,
+                      iters=ran)
+
+
+def _grouped_tail(alpha, xs, x_t, zs, ys, z_t, rho, l_s, u_s):
+    """The elementwise tail of one iteration as grouped torch ops (the
+    path with `ew_kernel` off; ew_chain computes the same bits)."""
+    x_n = alpha * x_t + (1.0 - alpha) * xs
+    z_relax = z_t.map(lambda zt, zi: alpha * zt + (1.0 - alpha) * zi, zs)
+    z_n = z_relax.map(
+        lambda zr, yi, ri, li, ui: torch.clamp(zr + yi / ri, li, ui),
+        ys, rho, l_s, u_s)
+    y_n = ys.map(lambda yi, zr, zn, ri: yi + ri * (zr - zn),
+                 z_relax, z_n, rho)
+    return x_n, z_n, y_n
+
+
+class _Unscale:
+    """Scaled iterates back to the QP's units, with the products the
+    residuals need: (x, y, z, A x, A^T y)."""
+
+    def __init__(self, cfg, qp, hdiag, D, E, c):
+        self.cfg, self.qp, self.hdiag, self.D, self.E = cfg, qp, hdiag, D, E
+        self.cg = c[..., None, None]
+
+    def __call__(self, xs, zs, ys):
+        x = self.D * xs
+        y = ys.scale(self.E).map(lambda v: v / self.cg)
+        z = zs.map(lambda zi, ei: zi / ei, self.E)
+        return (x, y, z, qplib.a_matvec(self.cfg, self.qp, x),
+                qplib.at_matvec(self.cfg, self.qp, y))
+
+    def converged(self, scfg: SolverConfig, xs, zs, ys) -> torch.Tensor:
+        """OSQP 0.6.2's termination test on the unscaled residuals, per
+        problem: ||A x - z|| < eps_abs + eps_rel max(||A x||, ||z||) and
+        ||P x + q + A^T y|| < eps_abs + eps_rel max(||P x||, ||A^T y||,
+        ||q||), all inf-norms."""
+        x, _, z, ax, aty = self(xs, zs, ys)
+        q = self.qp.q
+        prim_r = (ax - z).inf_norm()
+        dual_r = torch.amax(torch.abs(self.hdiag * x + q + aty), dim=-1)
+        eps_p = scfg.eps_abs + scfg.eps_rel * torch.maximum(
+            ax.inf_norm(), z.inf_norm())
+        eps_d = scfg.eps_abs + scfg.eps_rel * torch.maximum(
+            torch.amax(torch.abs(self.hdiag * x), dim=-1),
+            torch.maximum(torch.amax(torch.abs(aty), dim=-1),
+                          torch.amax(torch.abs(q), dim=-1)))
+        return (prim_r < eps_p) & (dual_r < eps_d)
+
+
+def _keep(done: torch.Tensor, new, old):
+    """Per problem: `old` where done, else `new` (a tensor (..., n) or a
+    ConVec of (..., rows, width) groups)."""
+    if isinstance(new, ConVec):
+        d = done[..., None, None]
+        return ConVec(*(torch.where(d, o, v) for v, o in zip(new, old)))
+    return torch.where(done[..., None], old, new)
+
+
+def _iterate_truncated(step, carry, iters: int, scfg: SolverConfig,
+                       unscale: _Unscale):
+    """OSQP-termination emulation (JAX admm.py:677-729): iterate in blocks
+    of `term_check_interval`; a problem that meets OSQP's unscaled
+    eps_abs/eps_rel test at a block end freezes at that iterate (what
+    OSQP would have returned), the others go on to the max_iter cap.
+    Full blocks run while any problem is live, then a remainder block of
+    iters % blk runs once for the problems still live, so the cap is
+    exact. As JAX's while_loop stops once every lane is done, the loop
+    reads one boolean per block on the host (not after the last full
+    block): the only synchronization of this path. Frozen problems are
+    computed with the rest and then kept, as under vmap.
+
+    Returns (carry, iterations each problem ran)."""
+    global HOST_READS
+    blk = scfg.term_check_interval
+    nfull = (iters // blk) * blk
+    xs = carry[0]
+    done = torch.zeros(xs.shape[:-1], dtype=torch.bool, device=xs.device)
+    ran = torch.zeros(xs.shape[:-1], dtype=torch.int32, device=xs.device)
+    k = 0
+    all_done = False
+    while k < nfull:
+        new = carry
+        for _ in range(blk):
+            new = step(new)
+        carry = tuple(_keep(done, a, b) for a, b in zip(new, carry))
+        ran = torch.where(done, ran, ran + blk)
+        done = done | unscale.converged(scfg, *carry[:3])
+        k += blk
+        if k < nfull:
+            HOST_READS += 1
+            if bool(done.all()):
+                all_done = True
+                break
+    rem = iters - nfull
+    if rem > 0 and not all_done:
+        new = carry
+        for _ in range(rem):
+            new = step(new)
+        carry = tuple(_keep(done, a, b) for a, b in zip(new, carry))
+        ran = torch.where(done, ran, ran + rem)
+    return carry, ran
+
+
+def _solve_adaptive(cfg, qp, scfg, h_s, q_s, l_s, u_s, a_s, at_s, xs, zs,
+                    ys, iters, rho_base, D, E, unscale, feas_tol):
+    """OSQP's in-solve adaptive rho with refactorization (JAX
+    admm.py:779-868): blocks of `adapt_interval` iterations, max(iters //
+    interval, 1) of them; after each, compare the scaled relative primal
+    and dual residuals, rescale rho by sqrt(prim_rel / dual_rel) when the
+    ratio leaves [0.2, 5] (clipped to [1e-6, 1e6]) and refactorize. Each
+    x-update is Minv rhs plus `refine_iters` stationary steps x += Minv r
+    against the problem's own normal matrix (not CG).
+
+    JAX's lax.cond under vmap is a per-lane select: here every problem is
+    refactored after a block (no host read decides whether any needs it;
+    not after the last block, whose factor nothing reads) and keeps the
+    new Minv only where its rho moved. With `ew_kernel` the elementwise
+    tail is one ew_chain launch per iteration; its rho z - y carry is
+    recomputed with the block's rho at the start of each block, since the
+    chain wrote it with the previous rho. The returned prim_res is
+    measured against clip(A x, l, u); rho_suggest is each problem's final
+    rho; rho_switches counts the blocks at whose end it moved."""
+    sigma, alpha = scfg.sigma, scfg.alpha
+    interval = scfg.adapt_interval
+    n_blocks = max(iters // interval, 1)
+    lead = qp.q.shape[:-1]
+    dev, dt = qp.q.device, qp.q.dtype
+
+    def rho_rows(rho_b):
+        return qplib.rho_vec(cfg, qp, rho_b, scfg.rho_eq_scale)
+
+    def factor_for(rho):
+        rho_inner = rho.map(lambda r, e: r * e * e, E)
+        return _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
+
+    rho_b = torch.as_tensor(rho_base, dtype=dt, device=dev).expand(lead)
+    rho_b = rho_b.contiguous()
+    Minv = factor_for(rho_rows(rho_b))
+    switches = torch.zeros(lead, dtype=torch.int32, device=dev)
+
+    def minv_mv(v):
+        return torch.matmul(Minv, v[..., None])[..., 0]
+
+    for b in range(n_blocks):
+        rho = rho_rows(rho_b)
+        rzy = zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys)
+        for _ in range(interval):
+            rhs = sigma * xs - q_s + at_s(rzy)
+            x_t = minv_mv(rhs)
+            for _ in range(scfg.refine_iters):
+                r = rhs - (h_s * x_t + sigma * x_t + at_s(a_s(x_t).map(
+                    lambda a, ri: a * ri, rho)))
+                x_t = x_t + minv_mv(r)
+            z_t = a_s(x_t)
+            if scfg.ew_kernel:
+                xs, zs, ys, rzy = ew_chain(alpha, xs, x_t, zs, ys, z_t, rho,
+                                           l_s, u_s)
+            else:
+                xs, zs, ys = _grouped_tail(alpha, xs, x_t, zs, ys, z_t, rho,
+                                           l_s, u_s)
+                rzy = zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys)
+
+        # scaled relative residuals (OSQP adapt rule)
+        ax = a_s(xs)
+        prim = (ax - zs).inf_norm()
+        aty = at_s(ys)
+        dual = torch.amax(torch.abs(h_s * xs + q_s + aty), dim=-1)
+        prim_rel = prim / torch.clamp(
+            torch.maximum(ax.inf_norm(), zs.inf_norm()), min=1e-10)
+        dual_rel = dual / torch.clamp(
+            torch.maximum(torch.amax(torch.abs(h_s * xs), dim=-1),
+                          torch.maximum(torch.amax(torch.abs(aty), dim=-1),
+                                        torch.amax(torch.abs(q_s), dim=-1))),
+            min=1e-10)
+        ratio = torch.sqrt(prim_rel / torch.clamp(dual_rel, min=1e-12))
+        do_adapt = (ratio > 5.0) | (ratio < 0.2)
+        rho_b = torch.where(do_adapt, torch.clamp(rho_b * ratio, 1e-6, 1e6),
+                            rho_b)
+        switches = switches + do_adapt.to(torch.int32)
+        if b < n_blocks - 1:
+            Minv = torch.where(do_adapt[..., None, None],
+                               factor_for(rho_rows(rho_b)), Minv)
+
+    x, y, _, ax, aty = unscale(xs, zs, ys)
+    z_clip = ax.map(lambda a, li, ui: torch.clamp(a, li, ui), qp.l, qp.u)
+    prim = (ax - z_clip).inf_norm()
+    dual = torch.amax(torch.abs(unscale.hdiag * x + qp.q + aty), dim=-1)
+    return ADMMResult(x=x, y=y, prim_res=prim, dual_res=dual,
+                      solved=prim < feas_tol, rho_suggest=rho_b,
+                      rho_switches=switches)
 
 
 # ---------------------------------------------------------------------------

@@ -188,22 +188,27 @@ class SolverConfig:
     scaling_iters: int = 3            # Ruiz equilibration sweeps (ported)
     refine_iters: int = 0             # refinement steps per x-update of a
                                       # per-candidate factor (ported)
-    eps_abs: float = 1e-3             # residual reporting / "osqp" truncation
+    eps_abs: float = 1e-3             # "osqp" truncation tolerances (ported)
     eps_rel: float = 1e-3
-    truncation: str = "fixed"         # "fixed" (ported): exactly max_iter
+    truncation: str = "fixed"         # "fixed": exactly max_iter
                                       # iterations; "osqp": OSQP 0.6.2's
-                                      # runtime termination (not ported)
+                                      # runtime termination, checked every
+                                      # term_check_interval iterations and
+                                      # capped at max_iter (both ported)
     term_check_interval: int = 25     # iterations between termination checks
     factor_drift_refresh: float = 0.0  # drift-aware factor refresh (not
                                       # ported; 0 keeps the counter rule)
-    adaptive_rho: bool = False        # in-solve rho adaptation (not ported)
+    adaptive_rho: bool = False        # in-solve rho adaptation with
+                                      # refactorization, with a factor per
+                                      # candidate (ported)
     adapt_interval: int = 25
     structured_factor: bool = True    # block-tridiagonal factorization of
                                       # the x-update normal matrix
                                       # (ops/block_chol.py) (ported)
     shared_factor: bool = True        # one factor per scenario (candidate-
                                       # mean QP), candidates refine against
-                                      # their own normal matrix (True ported)
+                                      # their own normal matrix; False: a
+                                      # factor per candidate (both ported)
     fused_solve: bool = False         # solve every candidate QP of a cycle
                                       # with the fleet kernel: one launch of
                                       # csrc/fleet_admm.cu (ops/fleet.py),
@@ -238,8 +243,8 @@ class SolverConfig:
                                       # k-th replan cycle and reuse the
                                       # carried one in between (ported)
     temporal_rho: bool = False        # carry OSQP's rho suggestion across
-                                      # cycles (False ported)
-    # --- OSQP-style active-set polish (not ported) ---
+                                      # cycles (ported)
+    # --- OSQP-style active-set polish of the chosen candidate (ported) ---
     polish: bool = False
     polish_reg: float = 3e-6
     polish_iters: int = 12

@@ -206,7 +206,183 @@ def test_converged_solve_matches_native_oracle(num_active, with_static):
 
 def test_unported_options_raise(problem):
     _, tcfg, _, tq = problem
-    for kw in ({"truncation": "osqp"}, {"woodbury_candidates": True},
+    for kw in ({"block_refine": True}, {"woodbury_candidates": True},
                {"flat_iter": True}, {"minv_dtype": "bf16"}):
         with pytest.raises(NotImplementedError):
             tadmm.admm_solve(_with(tcfg, **kw), tq, max_iter=1)
+
+
+# ---------------------------------------------------------------------------
+# truncation="osqp" and the in-solve adaptive rho
+# ---------------------------------------------------------------------------
+
+# per-lane base penalties that stop the four lanes of _truncation_batch at
+# different blocks (200, 325 and 350 iterations) or not before the cap
+TRUNC_RHO = np.array([0.03, 0.01, 0.1, 0.3], np.float32)
+
+
+@pytest.fixture(scope="module")
+def truncation_batch():
+    """Four copies of one QP (2 of 4 slots active), as both packages hold
+    it; their lanes differ only in rho_override (TRUNC_RHO)."""
+    jcfg, tcfg = configs(max_iter=400, refine_iters=1)
+    jq, _ = build_both(jcfg, tcfg, 4, 0, seed=3)
+    jqs = stack_jax([jq] * 4)
+    return jcfg, tcfg, jqs, to_torch(jqs, tqp.QPData)
+
+
+@pytest.mark.parametrize("ew_kernel", [False, True])
+def test_osqp_truncation_matches_jax(truncation_batch, ew_kernel):
+    """truncation="osqp" at max_iter 410, check interval 25 (port of
+    tests/test_qp.py::test_osqp_truncation_emulation): each lane freezes
+    at the first block end where OSQP's unscaled eps_abs/eps_rel test
+    holds, and the lanes that never meet it run the 400 iterations of the
+    full blocks plus the remainder block of 10. The lanes ran 200, 325,
+    350 and 410 iterations. Per lane the port's iterate is bit-equal to
+    its own fixed-schedule solve of that many iterations, the JAX
+    package's iterate equals JAX's fixed schedule of the same count
+    (atol 1e-6, JAX's own limit), and port and JAX agree to atol 1e-4
+    on x (~2.7e-5 read after 400 iterations) and rtol 1e-3 on prim_res.
+    A frozen iterate meets the termination test it stopped on."""
+    jcfg, tcfg, jqs, tqs = truncation_batch
+    jc = _with(jcfg, truncation="osqp", max_iter=410)
+    tc = _with(tcfg, truncation="osqp", max_iter=410, ew_kernel=ew_kernel)
+    jr = jax.vmap(lambda q, r: jadmm.admm_solve(jc, q, rho_override=r))(
+        jqs, jnp.asarray(TRUNC_RHO))
+    tadmm.HOST_READS = 0
+    tr = tadmm.admm_solve(tc, tqs, rho_override=torch.as_tensor(TRUNC_RHO))
+    assert tr.iters.tolist() == [200, 325, 350, 410]
+    assert tadmm.HOST_READS == 15          # 16 full blocks, no read after
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=1e-4,
+                               rtol=0)
+    np.testing.assert_allclose(tr.prim_res.numpy(), np.asarray(jr.prim_res),
+                               rtol=1e-3)
+    for i, k in enumerate(tr.iters.tolist()):
+        tf = tadmm.admm_solve(_with(tcfg, ew_kernel=ew_kernel), tqs,
+                              max_iter=k,
+                              rho_override=torch.as_tensor(TRUNC_RHO))
+        assert torch.equal(tf.x[i], tr.x[i]), (i, k)
+        jf = jax.vmap(lambda q, r: jadmm.admm_solve(
+            jcfg, q, max_iter=k, rho_override=r))(jqs, jnp.asarray(TRUNC_RHO))
+        np.testing.assert_allclose(np.asarray(jr.x[i]), np.asarray(jf.x[i]),
+                                   atol=1e-6)
+    sc = tc.solver
+    hdiag = tqp.hessian_diag(tcfg)
+    for i in range(3):                     # the lanes that froze
+        q = tadmm._flatten(tqs, 1)
+        qi = tqp.QPData(*(tqp.ConVec(*(g[i] for g in v))
+                          if isinstance(v, tqp.ConVec) else v[i] for v in q))
+        ax = tqp.a_matvec(tcfg, qi, tr.x[i])
+        aty = tqp.at_matvec(tcfg, qi, tr.y.map(lambda g: g[i]))
+        z = ax.map(lambda a, l, u: torch.clamp(a, l, u), qi.l, qi.u)
+        eps_p = sc.eps_abs + sc.eps_rel * max(float(ax.inf_norm()),
+                                              float(z.inf_norm()))
+        eps_d = sc.eps_abs + sc.eps_rel * max(
+            float(torch.abs(hdiag * tr.x[i]).max()),
+            float(torch.abs(aty).max()), float(torch.abs(qi.q).max()))
+        assert float(tr.prim_res[i]) < eps_p
+        assert float(torch.abs(hdiag * tr.x[i] + qi.q + aty).max()) < eps_d
+
+
+@pytest.mark.parametrize("ew_kernel", [False, True])
+def test_osqp_truncation_stops_exactly_at_max_iter(truncation_batch,
+                                                   ew_kernel):
+    """The cap is exact, as OSQP's (port of tests/test_qp.py::
+    test_osqp_truncation_stops_exactly_at_max_iter): with a tolerance no
+    iterate meets, truncation="osqp" at max_iter 60 and check interval 25
+    runs two full blocks and a remainder of 10 on every lane and returns
+    the fixed schedule's 60-iteration iterate, bit for bit in the port,
+    and agrees with the JAX package's truncated solve to the per-candidate
+    limits of test_admm_iterates_match_jax (atol 2e-5, rtol 1e-4)."""
+    jcfg, tcfg, jqs, tqs = truncation_batch
+    kw = dict(truncation="osqp", max_iter=60, eps_abs=1e-20, eps_rel=1e-20,
+              term_check_interval=25)
+    rho = torch.as_tensor(TRUNC_RHO)
+    tr = tadmm.admm_solve(_with(tcfg, ew_kernel=ew_kernel, **kw), tqs,
+                          rho_override=rho)
+    assert tr.iters.tolist() == [60] * 4
+    tf = tadmm.admm_solve(_with(tcfg, ew_kernel=ew_kernel, max_iter=60),
+                          tqs, rho_override=rho)
+    assert torch.equal(tr.x, tf.x)
+    jr = jax.vmap(lambda q, r: jadmm.admm_solve(_with(jcfg, **kw), q,
+                                                rho_override=r))(
+        jqs, jnp.asarray(TRUNC_RHO))
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=2e-5,
+                               rtol=1e-4)
+
+
+def test_osqp_truncation_with_shared_factor_matches_jax(candidates):
+    """The default config's shared factor with CG-2 under truncation="osqp"
+    (60 iterations, check interval 25, a tolerance no iterate meets):
+    against JAX with the shared-path limits of
+    test_admm_iterates_match_jax (x atol 1e-4)."""
+    jcfg, tcfg, jqs, tqs, jmean, tmean = candidates
+    kw = dict(truncation="osqp", eps_abs=1e-20, eps_rel=1e-20)
+    jcfg, tcfg = _with(jcfg, **kw), _with(tcfg, **kw)
+    jf = jadmm.admm_factor(jcfg, jmean)
+    jr = jax.vmap(lambda q: jadmm.admm_solve(jcfg, q, factor=jf))(jqs)
+    tr = tadmm.admm_solve(tcfg, tqs, factor=tadmm.admm_factor(tcfg, tmean))
+    assert tr.iters.tolist() == [60] * 3
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("ew_kernel", [False, True])
+def test_solve_adaptive_matches_jax(ew_kernel):
+    """adaptive_rho with no factor (JAX _solve_adaptive): 200 iterations
+    in 8 blocks of 25 from per-lane base penalties 1e-3, 0.1, 10 and 0.3
+    on four seeded QPs. The lanes switch rho 2, 0, 1 and 0 times; the
+    final rho matches JAX's to rtol 1e-3 (the ratio is read from float32
+    residuals), x to 1e-4 of max|x| (~20; the lane started at 1e-3 is
+    factored at cond ~1e7 and reads 1.3e-3) and prim_res (measured
+    against clip(A x, l, u)) to rtol 1e-3."""
+    jcfg, tcfg = configs(max_iter=200, refine_iters=1)
+    pairs = [build_both(jcfg, tcfg, 4, 3, seed=s) for s in range(4)]
+    jqs = stack_jax([p[0] for p in pairs])
+    tqs = to_torch(jqs, tqp.QPData)
+    rho = np.array([1e-3, 0.1, 10.0, 0.3], np.float32)
+    jc = _with(jcfg, adaptive_rho=True)
+    tc = _with(tcfg, adaptive_rho=True, ew_kernel=ew_kernel)
+    jr = jax.vmap(lambda q, r: jadmm.admm_solve(jc, q, rho_override=r))(
+        jqs, jnp.asarray(rho))
+    tr = tadmm.admm_solve(tc, tqs, rho_override=torch.as_tensor(rho))
+    assert tr.rho_switches.tolist() == [2, 0, 1, 0]
+    np.testing.assert_allclose(tr.rho_suggest.numpy(),
+                               np.asarray(jr.rho_suggest), rtol=1e-3)
+    xmax = float(np.abs(np.asarray(jr.x)).max())
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), rtol=0,
+                               atol=1e-4 * xmax)
+    np.testing.assert_allclose(tr.prim_res.numpy(), np.asarray(jr.prim_res),
+                               rtol=1e-3)
+
+
+def test_adaptive_rho_recovers_bad_initialization():
+    """Port of tests/test_qp.py::test_adaptive_rho_recovers_bad_
+    initialization on the port: from a bad initial rho (1e-3 or 10) the
+    adaptive solve (500 iterations) lands over 3x closer to the float64
+    oracle's polished optimum than the fixed-rho solve at the same
+    budget, and the adapted rho moves into (1e-3, 1)."""
+    jcfg, tcfg = configs(horizon=30, max_obstacles=8, max_iter=500,
+                         refine_iters=1)
+    _, tq = build_both(jcfg, tcfg, 8, 4, with_static=True)
+    x0, xref, oxyz, osize, yaw, is_dyn, active, lin = _random_problem(
+        jcfg, 8, 4, 0, True)
+    P, q, A, l, u = oracle.build_reference_qp(
+        jcfg, x0, xref, oxyz[:, :4], osize[:, :4], yaw[:, :4],
+        is_dyn[:, :4], lin)
+    x_c, _ = oracle.solve_qp_dense(P, q, A, l, u, max_iter=20000, eps=1e-9,
+                                   polish=True)
+    H = tcfg.horizon
+
+    def pos_err(res):
+        x = res.x.numpy().astype(np.float64)
+        return np.abs(x[:8 * H].reshape(H, 8)[:, :3]
+                      - x_c[:8 * H].reshape(H, 8)[:, :3]).max()
+
+    for rho0 in (1e-3, 10.0):
+        fixed = tadmm.admm_solve(tcfg, tq, rho_override=rho0)
+        adap = tadmm.admm_solve(_with(tcfg, adaptive_rho=True), tq,
+                                rho_override=rho0)
+        assert pos_err(adap) < pos_err(fixed) / 3.0, (rho0, pos_err(adap),
+                                                      pos_err(fixed))
+        assert 1e-3 < float(adap.rho_suggest) < 1.0

@@ -21,14 +21,15 @@ torch.set_num_threads(1)
 SEEDS = [1, 2]
 
 
-def _config(timeout=1.5, fused=False, factor_reuse=None, horizon=10):
+def _config(timeout=1.5, fused=False, factor_reuse=None, horizon=10,
+            **solver):
     cfg = small_config(num_obstacles=6, horizon=horizon, timeout=timeout,
                        max_obstacles=6, hist=12).replace(goal=(8.0, 0.0, 2.0))
     sv = cfg.planner.solver
     sv = dataclasses.replace(
         sv, fused_solve=fused,
         factor_reuse_cycles=(sv.factor_reuse_cycles if factor_reuse is None
-                             else factor_reuse))
+                             else factor_reuse), **solver)
     return cfg.replace(planner=dataclasses.replace(cfg.planner, solver=sv))
 
 
@@ -77,6 +78,33 @@ def test_checkpoint_resume_bit_exact(tmp_path, factor_reuse):
     assert carry_r.metrics.samples.dtype == torch.int32
     resumed = _run_cycles(cfg, scen_r, carry_r, cyc, 3)
     _assert_same_bits(resumed, full)
+
+
+@pytest.mark.parametrize("solver", [
+    dict(temporal_rho=True),
+    dict(temporal_rho=True, shared_factor=False, adaptive_rho=True,
+         adapt_interval=10)],
+    ids=["temporal_rho", "per_candidate_adaptive"])
+def test_checkpoint_resume_bit_exact_temporal_rho(tmp_path, solver):
+    """Under temporal_rho the carried rho is the previous cycle's
+    suggestion, and it is an ordinary leaf of the carry: 8 cycles
+    uninterrupted equal 5 cycles, a save/load and 3 more, on every leaf's
+    bits. With a factor per candidate and in-solve adaptive rho (blocks
+    of 10 of the 30 iterations) the carried rho moves off
+    SolverConfig.rho within these cycles, so the resumed cycles start
+    from a rho the file holds."""
+    cfg = _config(**solver)
+    scen = sh.stack_scenarios(cfg, SEEDS, device="cpu")
+    carry0 = cl.init_carry(cfg, scen, device="cpu")
+    full = _run_cycles(cfg, scen, carry0, 0, 8)
+    half = _run_cycles(cfg, scen, carry0, 0, 5)
+    path = str(tmp_path / "fleet")
+    ckpt.save_checkpoint(path, half, 5, SEEDS)
+    carry_r, cyc, _, scen_r = ckpt.load_checkpoint(path, cfg, device="cpu")
+    _assert_same_bits(carry_r, half)
+    if "adaptive_rho" in solver:
+        assert not torch.all(half.planner.rho == cfg.planner.solver.rho)
+    _assert_same_bits(_run_cycles(cfg, scen_r, carry_r, cyc, 3), full)
 
 
 def test_checkpoint_rejects_mismatched_config(tmp_path):

@@ -560,15 +560,30 @@ def test_checkpointed_rows_equal_plain_rows_on_card(cuda_device, fused,
                                            solver_iters=30) == ck
 
 
+# solver options of the sync test's cases (the truncation="osqp" loop reads
+# one flag per block on the host by design and is not among them)
+_NO_SYNC = {"default": {}, "fused": dict(fused_solve=True),
+            "default_polish_temporal_rho": dict(polish=True,
+                                                temporal_rho=True),
+            "fused_polish_temporal_rho": dict(fused_solve=True, polish=True,
+                                              temporal_rho=True),
+            "per_candidate_adaptive": dict(shared_factor=False,
+                                           adaptive_rho=True)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("fused", [False, True], ids=["default", "fused"])
-def test_episode_step_does_not_synchronize(cuda_device, fused):
+@pytest.mark.parametrize("solve", list(_NO_SYNC), ids=list(_NO_SYNC))
+def test_episode_step_does_not_synchronize(cuda_device, solve):
     """No op inside a cycle waits for the device: under
     torch.cuda.set_sync_debug_mode("error") a factor-refresh cycle (4) and
     a reuse cycle (5) of the production config run without raising, after
-    4 warm-up cycles have built the kernels and the cached constants."""
+    4 warm-up cycles have built the kernels and the cached constants. The
+    default and fused paths, and with them the polish, temporal rho, and
+    a factor per candidate with in-solve adaptive rho."""
     cfg = IntentMPCConfig()
-    cfg = _fused(cfg) if fused else cfg
+    cfg = cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                **_NO_SYNC[solve])))
     scen = sh.stack_scenarios(cfg, [0, 1])
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
     occ = empty_grid("cuda")
@@ -603,3 +618,94 @@ def test_pipelined_fetch_returns_each_cycles_command(cuda_device):
         assert a.device.type == "cpu" and torch.equal(a, b), i
     assert torch.equal(p_carry.pos, b_carry.pos)
     assert torch.equal(p_carry.vel, b_carry.vel)
+
+
+@pytest.mark.cuda
+def test_df_identities_exact_on_card(cuda_device):
+    """The error-free transforms of ops/df.py hold exactly on the card
+    (each eager op rounds on its own; -fmad does not reach PyTorch's
+    elementwise kernels): s + e == a + b and p + e == a b in float64 on
+    2^16 seeded pairs, the split's halves sum back and square exactly,
+    and df_matvec at the polish's A shape (2510 x 385) is within 1e-12
+    of the float64 product, relative to |ref| + 1."""
+    from intent_mpc_torch.ops import df
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n = 1 << 16
+    a = torch.randn(n, generator=g, device="cuda")
+    b = torch.randn(n, generator=g, device="cuda") * 1e-4
+    s_, e = df.two_sum(a, b)
+    assert torch.equal(s_.double() + e.double(), a.double() + b.double())
+    assert bool((e != 0).any())
+    c = torch.randn(n, generator=g, device="cuda")
+    p, e = df.two_prod(a, c)
+    assert torch.equal(p.double() + e.double(), a.double() * c.double())
+    assert bool((e != 0).any())
+    big = a * 1e6
+    hi, lo = df.split(big)
+    assert torch.equal(hi + lo, big)
+    for h in (hi.double(), lo.double()):
+        assert torch.equal((h * h).float().double(), h * h)
+    M = torch.randn((4, 2510, 385), generator=g, device="cuda")
+    x = torch.randn((4, 385), generator=g, device="cuda")
+    mh, ml = df.df_matvec(M, x, torch.zeros_like(x))
+    ref = torch.matmul(M.double(), x.double()[..., None])[..., 0]
+    err = ((mh.double() + ml.double() - ref).abs() / (ref.abs() + 1)).max()
+    assert float(err) < 1e-12, float(err)
+
+
+@pytest.mark.cuda
+def test_truncation_loop_ew_chain_bit_equal_to_grouped_step(cuda_device):
+    """truncation="osqp" on the card: the termination loop with its
+    elementwise tail through ew_chain gives the same bits (x, duals,
+    iterations per problem) as with the grouped torch step, on 2 x 6
+    seeded small QPs whose per-lane penalties stop them at different
+    blocks; the chain launched once per iteration the loop ran."""
+    pcfg = PlannerConfig(horizon=10, max_obstacles=4, solver=SolverConfig(
+        max_iter=410, refine_iters=1, truncation="osqp"))
+    qps = small_fleet_qps(pcfg, 2, "cuda")
+    rho = torch.tensor([0.03, 0.01, 0.1, 0.3, 0.05, 1.0] * 2,
+                       device="cuda").reshape(2, 6)
+    out = {}
+    for ew_kernel in (True, False):
+        scfg = dataclasses.replace(pcfg.solver, ew_kernel=ew_kernel)
+        ew.EW_LAUNCHES = 0
+        out[ew_kernel] = admmlib.admm_solve(pcfg, qps, scfg=scfg,
+                                            rho_override=rho)
+        torch.cuda.synchronize()
+        if ew_kernel:
+            assert ew.EW_LAUNCHES == int(out[True].iters.max())
+    a, b = out[True], out[False]
+    assert torch.equal(a.iters, b.iters)
+    assert len(set(a.iters.flatten().tolist())) > 1, a.iters
+    assert torch.equal(a.x, b.x)
+    for ga, gb in zip(a.y, b.y):
+        assert torch.equal(ga, gb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", [
+    dict(temporal_rho=True),
+    dict(temporal_rho=True, shared_factor=False, adaptive_rho=True,
+         adapt_interval=10)],
+    ids=["temporal_rho", "per_candidate_adaptive"])
+def test_checkpointed_rows_equal_plain_rows_on_card_temporal_rho(
+        cuda_device, solver, tmp_path):
+    """Under temporal_rho (and with a factor per candidate and in-solve
+    adaptive rho) on the card: run_trials_checkpointed gives rows
+    identical (==) to run_trials, and a run cut at 6 cycles and resumed
+    from its file gives rows identical to the uninterrupted one."""
+    def config(timeout):
+        cfg = _harness_config(False, timeout)
+        return cfg.replace(planner=dataclasses.replace(
+            cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                    **solver)))
+    cfg = config(1.5)
+    plain = harness.run_trials(cfg, [1, 2], solver_iters=30)
+    ck = harness.run_trials_checkpointed(cfg, [1, 2], str(tmp_path / "a"),
+                                         chunk_cycles=6, solver_iters=30)
+    assert ck == plain
+    cut = str(tmp_path / "b")
+    harness.run_trials_checkpointed(config(0.6), [1, 2], cut,
+                                    chunk_cycles=6, solver_iters=30)
+    assert harness.run_trials_checkpointed(cfg, [1, 2], cut, chunk_cycles=6,
+                                           solver_iters=30) == ck

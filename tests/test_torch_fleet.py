@@ -215,16 +215,20 @@ def _fused(cfg, **solver):
 def test_fused_solve_options_accepted():
     """With fused_solve the options only admm_solve reads are not checked
     (the JAX planner's fused branch never reads them); admm_solve itself
-    still refuses what it does not run."""
+    still refuses what it does not run. polish and temporal_rho run on
+    the fused path; an unported option the fused solve shares
+    (minv_dtype) is refused there too."""
     cfg = small_config()
     fused = _fused(cfg, fused_solve=True, shared_refine_mode="stationary",
                    shared_refine_x0="minv", factor_reuse_cycles=1)
     tcl.check_supported(fused)
     tcl.check_supported(_fused(cfg, fused_solve=True))
+    tcl.check_supported(_fused(cfg, fused_solve=True, polish=True,
+                               temporal_rho=True))
     with pytest.raises(NotImplementedError, match="shared_refine_mode"):
         tadmm.check_supported(fused.planner.solver, fused=False)
-    with pytest.raises(NotImplementedError, match="polish"):
-        tcl.check_supported(_fused(cfg, fused_solve=True, polish=True))
+    with pytest.raises(NotImplementedError, match="minv_dtype"):
+        tcl.check_supported(_fused(cfg, fused_solve=True, minv_dtype="bf16"))
 
 
 # the small closed-loop config of tests/test_pallas_fused.py:72-84

@@ -13,6 +13,7 @@ import torch
 
 from intent_mpc_tpu.benchmark import harness as JH
 from intent_mpc_tpu.utils.config import small_config as jsmall_config
+from intent_mpc_torch.benchmark import analyze as A
 from intent_mpc_torch.benchmark import bench
 from intent_mpc_torch.benchmark import harness as H
 from intent_mpc_torch.engine import closed_loop as cl
@@ -76,8 +77,7 @@ def test_aggregate_matches_jax(both_rows):
 
 UNPORTED = [["--goal-relax"], ["--predictor-stale"], ["--plant", "quadrotor"],
             ["--drift-refresh", "0.1"], ["--flat-iter"],
-            ["--refine-mode", "stationary"], ["--per-candidate-factor"],
-            ["--truncation", "osqp"], ["--fused", "--flat-iter"]]
+            ["--refine-mode", "stationary"], ["--fused", "--flat-iter"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=lambda f: " ".join(f))
@@ -93,6 +93,26 @@ def test_cli_refuses_unported_flags_before_any_work(flags, monkeypatch,
         H.main(["--device", "cpu", "--trials", "1", "--out",
                 str(tmp_path)] + flags)
     assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("flags", [["--per-candidate-factor"],
+                                   ["--truncation", "osqp"]],
+                         ids=lambda f: " ".join(f))
+def test_cli_runs_ported_solver_flags(flags, tmp_path):
+    """--per-candidate-factor and --truncation osqp set the solver options
+    the JAX CLI sets and run: one trial of 3 cycles on the CPU at a small
+    map writes its row, with 3 solves."""
+    args = H.parse_args(["--trials", "1", "--out", str(tmp_path)] + flags)
+    sv = H.config_from_args(args).planner.solver
+    assert (sv.shared_factor, sv.truncation) == (
+        ("--per-candidate-factor" not in flags),
+        ("osqp" if "osqp" in flags else "fixed"))
+    agg = H.main(["--device", "cpu", "--trials", "1", "--timeout", "0.3",
+                  "--obstacles", "6", "--max-obstacles", "6", "--iters",
+                  "30", "--out", str(tmp_path)] + flags)
+    assert agg["num_trials"] == 1
+    rows = A.load_rows(str(tmp_path / "trials.csv"))
+    assert rows[0]["mpc_solve_count"] == 3
 
 
 def test_cli_writes_trials_and_summary(tmp_path, capsys):

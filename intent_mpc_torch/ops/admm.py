@@ -364,18 +364,8 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     xs, zs, ys = carry[:3]
 
     x, y, z, ax, aty = unscale(xs, zs, ys)
-    prim = (ax - z).inf_norm()
-    dual = torch.amax(torch.abs(hdiag * x + qp.q + aty), dim=-1)
-
     # OSQP adaptive-rho suggestion from relative residuals
-    prim_rel = prim / torch.clamp(torch.maximum(ax.inf_norm(), z.inf_norm()),
-                                  min=1e-10)
-    dual_rel = dual / torch.clamp(
-        torch.maximum(torch.amax(torch.abs(hdiag * x), dim=-1),
-                      torch.maximum(torch.amax(torch.abs(aty), dim=-1),
-                                    torch.amax(torch.abs(qp.q), dim=-1))),
-        min=1e-10)
-    ratio = torch.sqrt(prim_rel / torch.clamp(dual_rel, min=1e-12))
+    prim, dual, ratio = _residual_ratio(ax, z, hdiag * x, aty, qp.q)
     do_adapt = (ratio > 5.0) | (ratio < 0.2)
     rho_b = torch.as_tensor(rho_base, dtype=ratio.dtype, device=dev)
     rho_next = torch.where(do_adapt, torch.clamp(rho_b * ratio, 1e-4, 1e3),
@@ -383,6 +373,23 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     return ADMMResult(x=x, y=y, prim_res=prim, dual_res=dual,
                       solved=prim < feas_tol, rho_suggest=rho_next,
                       iters=ran)
+
+
+def _residual_ratio(ax: ConVec, z: ConVec, px, aty, q):
+    """OSQP's adapt-rho measure from A x, z, P x, A^T y and q (all scaled
+    or all unscaled): (||A x - z||, ||P x + q + A^T y||, sqrt(prim_rel /
+    dual_rel)), inf-norms per problem, each relative residual over the
+    largest of its terms' norms."""
+    prim = (ax - z).inf_norm()
+    dual = torch.amax(torch.abs(px + q + aty), dim=-1)
+    prim_rel = prim / torch.clamp(torch.maximum(ax.inf_norm(), z.inf_norm()),
+                                  min=1e-10)
+    dual_rel = dual / torch.clamp(
+        torch.maximum(torch.amax(torch.abs(px), dim=-1),
+                      torch.maximum(torch.amax(torch.abs(aty), dim=-1),
+                                    torch.amax(torch.abs(q), dim=-1))),
+        min=1e-10)
+    return prim, dual, torch.sqrt(prim_rel / torch.clamp(dual_rel, min=1e-12))
 
 
 def _grouped_tail(alpha, xs, x_t, zs, ys, z_t, rho, l_s, u_s):
@@ -545,18 +552,7 @@ def _solve_adaptive(cfg, qp, scfg, h_s, q_s, l_s, u_s, a_s, at_s, xs, zs,
                 rzy = zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys)
 
         # scaled relative residuals (OSQP adapt rule)
-        ax = a_s(xs)
-        prim = (ax - zs).inf_norm()
-        aty = at_s(ys)
-        dual = torch.amax(torch.abs(h_s * xs + q_s + aty), dim=-1)
-        prim_rel = prim / torch.clamp(
-            torch.maximum(ax.inf_norm(), zs.inf_norm()), min=1e-10)
-        dual_rel = dual / torch.clamp(
-            torch.maximum(torch.amax(torch.abs(h_s * xs), dim=-1),
-                          torch.maximum(torch.amax(torch.abs(aty), dim=-1),
-                                        torch.amax(torch.abs(q_s), dim=-1))),
-            min=1e-10)
-        ratio = torch.sqrt(prim_rel / torch.clamp(dual_rel, min=1e-12))
+        _, _, ratio = _residual_ratio(a_s(xs), zs, h_s * xs, at_s(ys), q_s)
         do_adapt = (ratio > 5.0) | (ratio < 0.2)
         rho_b = torch.where(do_adapt, torch.clamp(rho_b * ratio, 1e-6, 1e6),
                             rho_b)

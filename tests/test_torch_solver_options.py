@@ -158,6 +158,30 @@ def test_option_episode_steps_match_jax(case, tmp_path):
         assert any(r != pytest.approx(0.1) for c in rhos for r in c), rhos
 
 
+def test_episode_with_polish():
+    """Port of tests/test_closed_loop.py::test_episode_with_polish on the
+    port: with polish=True the clear-path episode (its setup: 6 obstacles
+    parked 30 m off the corridor, 3 s, 60 ADMM iterations) still reaches
+    the goal with no collision, and its path length stays within 0.2 m
+    of the unpolished run's (the polish refines the same optimum)."""
+    cfg = small_config(num_obstacles=6, horizon=10, timeout=3.0,
+                       max_obstacles=6, hist=12).replace(goal=(8.0, 0.0, 2.0))
+    sc = jworld.generate_scenario(seed=1, cfg=dataclasses.replace(
+        JConfig().world, num_obstacles=6))
+    sc = sc._replace(origin=sc.origin + jnp.array([0.0, 30.0, 0.0]))
+    scen = convert.scenario_from_numpy(_np(sc), add_batch_axis=True)
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 0.5)
+    out = {}
+    for polish in (True, False):
+        c = with_solver(cfg, polish=polish)
+        carry, _ = tcl.run_episode(c, scen, ref, ref.shape[0],
+                                   solver_iters=60, device="cpu")
+        out[polish] = tcl.summarize(c, carry)[0]
+    s, s0 = out[True], out[False]
+    assert s["goal_reached"] and not s["collision"], s
+    assert abs(s["path_length"] - s0["path_length"]) < 0.2, (s, s0)
+
+
 @pytest.mark.slow
 def test_osqp_truncation_dynus_seeds_match_jax():
     """Whole DYNUS episodes on seeds 0-3 at the production config with

@@ -158,7 +158,7 @@ def test_option_episode_steps_match_jax(case, tmp_path):
         assert any(r != pytest.approx(0.1) for c in rhos for r in c), rhos
 
 
-def test_episode_with_polish():
+def test_polished_episode_reaches_goal():
     """Port of tests/test_closed_loop.py::test_episode_with_polish on the
     port: with polish=True the clear-path episode (its setup: 6 obstacles
     parked 30 m off the corridor, 3 s, 60 ADMM iterations) still reaches

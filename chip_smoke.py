@@ -74,7 +74,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
                median KKT residual, peak memory; polish_small: the polish
                on the card against the CPU on small converged QPs
  17. card/cpu  each new option on the small config, held to 1e-4 m
- 18. modules   neither jax nor the JAX package was imported
+ 18. loop_options the default DYNUS loop at 32 scenarios for 6 cycles,
+               then each loop option of benchmark/capture.LOOP_OPTIONS on
+               it (the rigid-body quadrotor plant, goal relax with its
+               stall counter started past the grace, the FOV rows, the
+               constant-obstacle MPC, the flat iteration, stationary
+               refinement, the drift-aware factor refresh, the stale
+               predictor history) and the quadrotor plant and the FOV rows
+               on the fused path: ms per cycle, exact kernel launches per
+               cycle (ew_chain 100 on the default path, 0 under flat_iter;
+               fleet_admm 1 on the fused path), factor refreshes per
+               cycle; fleet_admm against its plain version on the FOV
+               candidate QPs at 32 scenarios, to phase 6's limits; and
+               each option on the small config, card against CPU, held to
+               1e-4 m
+ 19. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -245,10 +259,15 @@ def reset_launch_counts():
 
 
 def expected_launches(cfg, cycles):
-    """Launches of each kernel in `cycles` cycles of cfg's solve path."""
-    if cfg.planner.solver.fused_solve:
+    """Launches of each kernel in `cycles` cycles of cfg's solve path (the
+    flat iteration, which runs on the shared factor of the predictor
+    path, launches no ew_chain)."""
+    sv = cfg.planner.solver
+    if sv.fused_solve:
         return {"ew_chain": 0, "fleet_admm": cycles, "dense_loop": 0}
-    return {"ew_chain": cycles * cfg.planner.solver.max_iter,
+    flat = (sv.flat_iter and sv.shared_factor and cfg.engine.use_predictor
+            and sv.truncation != "osqp")
+    return {"ew_chain": 0 if flat else cycles * sv.max_iter,
             "fleet_admm": 0, "dense_loop": 0}
 
 
@@ -704,15 +723,22 @@ def check_df(dev):
 
 
 class SolveRecorder:
-    """Stands in for models/mpc.py's admm_solve and polish during a run:
-    keeps each solve's per-problem iterations and rho switches, and each
-    polish's result with CUDA events around the call."""
+    """Stands in for models/mpc.py's admm_solve, polish and
+    make_plan_with_pred during a run: keeps each solve's per-problem
+    iterations and rho switches, each polish's result with CUDA events
+    around the call, and each plan (its factor refreshes)."""
 
     def __enter__(self):
         from intent_mpc_torch.models import mpc as mpclib
         self.mpc = mpclib
         self.solve, self.pol = mpclib.admm_solve, mpclib.polish
-        self.results, self.polishes = [], []
+        self.plan = mpclib.make_plan_with_pred
+        self.results, self.polishes, self.plans = [], [], []
+
+        def plan(*a, **k):
+            out = self.plan(*a, **k)
+            self.plans.append(out)
+            return out
 
         def solve(*a, **k):
             res = self.solve(*a, **k)
@@ -730,35 +756,45 @@ class SolveRecorder:
             self.last_polish_args = (cfg, qp, x, y)
             return out
         mpclib.admm_solve, mpclib.polish = solve, polish
+        mpclib.make_plan_with_pred = plan
         return self
 
     def __exit__(self, *exc):
         self.mpc.admm_solve, self.mpc.polish = self.solve, self.pol
+        self.mpc.make_plan_with_pred = self.plan
 
 
-def run_path(cfg, S, cycles, dev):
+def run_path(cfg, S, cycles, dev, start=None):
     """One warm-up cycle, then `cycles` cycles of cfg's loop from a fresh
-    carry with the launch counts and the truncation host reads set to 0
-    just before and read just after, the peak device memory, and the
-    recorded solves and polishes."""
+    carry (changed by `start(carry, cfg)` where given) with the launch
+    counts and the truncation host reads set to 0 just before and read
+    just after, the peak device memory, and the recorded solves,
+    polishes and plans. Every float leaf of the carry but the metrics
+    must be finite; the metrics' non-finite fields are returned as
+    `non_finite_metrics` (a cycle whose every candidate is rejected adds
+    the chosen candidate's non-finite residual to prim_res_sum, in JAX
+    too), and the default paths hold them finite."""
     import torch
     from intent_mpc_torch.benchmark.capture import run_loop
     from intent_mpc_torch.ops import admm as admmlib
-    run_loop(cfg, S, 1, dev)
+    run_loop(cfg, S, 1, dev, start)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     admmlib.HOST_READS = 0
     with SolveRecorder() as rec:
-        carry, secs, _ = run_loop(cfg, S, cycles, dev)
+        carry, secs, _ = run_loop(cfg, S, cycles, dev, start)
     launches = launch_counts()
-    check(finite_carry(carry), "non-finite carry leaf")
+    check(finite_carry(carry._replace(metrics=None)), "non-finite carry leaf")
     check(int(carry.metrics.solve_successes.sum()) > 0, "no successful solve")
+    bad = [f for f, t in zip(carry.metrics._fields, carry.metrics)
+           if t.is_floating_point() and not bool(torch.isfinite(t).all())]
     out = dict(scenarios=S, cycles=cycles, launches=launches,
                cycle_ms=sum(secs) / cycles * 1e3,
                cycle_ms_each=[round(x * 1e3, 3) for x in secs],
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               min_solve_successes=int(carry.metrics.solve_successes.min()))
+               min_solve_successes=int(carry.metrics.solve_successes.min()),
+               non_finite_metrics=bad)
     return out, carry, rec, admmlib.HOST_READS
 
 
@@ -770,6 +806,7 @@ def check_loop_osqp(cfg, S, cycles, dev):
     c = with_solver(cfg, truncation="osqp")
     sv = c.planner.solver
     out, _, rec, reads = run_path(c, S, cycles, dev)
+    check(not out["non_finite_metrics"], out["non_finite_metrics"])
     iters = [r.iters for r in rec.results]
     check(len(iters) == cycles, ("solves recorded", len(iters)))
     ran = [int(t.max()) for t in iters]
@@ -800,6 +837,7 @@ def check_loop_adaptive(cfg, S, cycles, dev):
                     temporal_rho=True)
     sv = c.planner.solver
     out, carry, rec, _ = run_path(c, S, cycles, dev)
+    check(not out["non_finite_metrics"], out["non_finite_metrics"])
     blocks = max(sv.max_iter // sv.adapt_interval, 1)
     check(out["launches"]["ew_chain"] == cycles * blocks * sv.adapt_interval,
           ("ew_chain launches", out["launches"]))
@@ -832,6 +870,7 @@ def check_loop_polish(cfg, S, cycles, dev, held=4):
     from intent_mpc_torch.ops import polish as pol
     c = with_solver(cfg, polish=True)
     out, _, rec, _ = run_path(c, S, cycles, dev)
+    check(not out["non_finite_metrics"], out["non_finite_metrics"])
     check(len(rec.polishes) == cycles, ("polishes recorded",
                                         len(rec.polishes)))
     exp = expected_launches(c, cycles)
@@ -902,6 +941,96 @@ def check_polish_small(dev):
     check(kkt < 1e-4, ("polish KKT residual on the card", kkt))
     return dict(problems=6, accepted=True, max_abs_diff=diff, tol=1e-5,
                 max_kkt_res=kkt)
+
+
+def check_loop_options(cfg, S, cycles, dev):
+    """The default loop, then each loop option on the default path and the
+    quadrotor plant and the FOV rows on the fused path, from fresh
+    carries: each run's exact kernel launches (expected_launches), ms per
+    cycle, the shared factor's refreshes per cycle (scenarios refreshed
+    over scenarios, per cycle; None where the path keeps no shared
+    factor), and what the option moved. Returns the phase lines."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import (LOOP_OPTIONS, fused,
+                                                    option_start,
+                                                    with_option)
+    runs = [("default", None)] + [("default", n) for n in LOOP_OPTIONS] \
+        + [("fused", "quadrotor"), ("fused", "use_fov")]
+    lines = []
+    for solve, name in runs:
+        c = cfg if name is None else with_option(cfg, name)
+        c = fused(c) if solve == "fused" else c
+        start = None if name is None else option_start(name)
+        out, carry, rec, _ = run_path(c, S, cycles, dev, start)
+        # stationary refinement diverges on some production cycles: every
+        # candidate rejected, the chosen one's residual non-finite, as in
+        # JAX (ROADMAP queue 3); the other paths keep every metric finite
+        check(name == "stationary" or not out["non_finite_metrics"],
+              (name, solve, out["non_finite_metrics"]))
+        out["rejected_solves"] = int((carry.metrics.solve_attempts
+                                      - carry.metrics.solve_successes).sum())
+        exp = expected_launches(c, cycles)
+        check(out["launches"] == exp, (name, solve, "launches",
+                                       out["launches"], exp))
+        refreshed = [p.refreshed for p in rec.plans]
+        shared = all(r is not None for r in refreshed) and refreshed
+        out.update(
+            option=name or "none", solve=solve,
+            launches_per_cycle={k: v / cycles
+                                for k, v in out["launches"].items()},
+            refreshes_per_cycle=([float(r.float().mean()) for r in refreshed]
+                                 if shared else None))
+        if name == "goal_relax":
+            out["stall_cycles_end"] = [int(carry.stall_cycles.min()),
+                                       int(carry.stall_cycles.max())]
+        if name == "quadrotor":
+            tilt = 2.0 * torch.acos(torch.clamp(
+                torch.sqrt(carry.quad.quat[:, 0] ** 2
+                           + carry.quad.quat[:, 3] ** 2), max=1.0))
+            out["max_tilt_rad"] = float(tilt.max())
+            check(float(tilt.max()) > 0.0, "the rigid body never tilted")
+        lines.append(out)
+    return lines
+
+
+# the loop options of the card_vs_cpu entries: the loop_options runs on the
+# small config (LOOP_OPTIONS names; "fused" ones on the fleet path). The
+# constant-obstacle entry refines once per x-update, as the CPU parity test
+# holds it: at refine_iters 0 the x-update is Minv rhs alone and carries
+# each device's float32 factor rounding into x
+SMALL_OPTIONS = (("default", "quadrotor", {}), ("default", "goal_relax", {}),
+                 ("default", "use_fov", {}),
+                 ("default", "no_predictor", dict(refine_iters=1)),
+                 ("default", "flat_iter", {}), ("default", "stationary", {}),
+                 ("default", "drift_refresh", {}),
+                 ("default", "predictor_stale", {}),
+                 ("fused", "quadrotor", {}), ("fused", "use_fov", {}))
+
+
+def check_small_options(tiny, dev):
+    """Each SMALL_OPTIONS entry on the small config for 4 cycles, card
+    against CPU: positions within 1e-4 m, equal solve counts."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import (fused, option_start,
+                                                    run_loop, with_option)
+    lines = []
+    for solve, name, solver in SMALL_OPTIONS:
+        c = with_solver(with_option(tiny, name), **solver)
+        c = fused(c) if solve == "fused" else c
+        start = option_start(name)
+        cc, _, pg = run_loop(c, 2, 4, dev, start)
+        cc_cpu, _, pc = run_loop(c, 2, 4, "cpu", start)
+        diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
+        check(max(diffs) <= 1e-4, (name, solve, diffs))
+        check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
+        check(torch.equal(cc.metrics.solve_successes.cpu(),
+                          cc_cpu.metrics.solve_successes),
+              ("solve counts differ", name, solve))
+        lines.append(dict(config="small", option=name, solve=solve,
+                          scenarios=2, cycles=4,
+                          max_pos_diff_per_cycle=diffs, held_cycles=4,
+                          tol=1e-4))
+    return lines
 
 
 def main():
@@ -1146,7 +1275,20 @@ def main():
               carried_rho_cpu=cc_cpu.planner.rho.tolist())
     phase("option_phases", seconds=time.perf_counter() - t_opt)
 
-    # ---- 18. clean modules ----
+    # ---- 18. the loop options: launches, times, refreshes; fleet_admm on
+    # the FOV rows; card against CPU ----
+    from intent_mpc_torch.benchmark.capture import with_option
+    t_loop = time.perf_counter()
+    options = check_loop_options(cfg, 32, 6, dev)
+    for line in options:
+        phase("loop_options", **line)
+    fleet_fov = check_fleet_kernel(with_option(cfg, "use_fov"), 32, dev)
+    phase("kernel", kernel="fleet_admm", config="use_fov", **fleet_fov)
+    for line in check_small_options(tiny, dev):
+        phase("card_vs_cpu", **line)
+    phase("loop_option_phases", seconds=time.perf_counter() - t_loop)
+
+    # ---- 19. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -1163,7 +1305,9 @@ def main():
             "truncation_osqp_128": osqp[128]["launches"]["ew_chain"],
             "truncation_osqp_32": osqp[32]["launches"]["ew_chain"],
             "per_candidate_adaptive_32": adaptive["launches"]["ew_chain"],
-            "polish_32": polished["default"]["launches"]["ew_chain"]},
+            "polish_32": polished["default"]["launches"]["ew_chain"],
+            **{"%s_32" % o["option"]: o["launches"]["ew_chain"]
+               for o in options if o["solve"] == "default"}},
         "max_abs_err": max_err,
         "max_abs_diff": max_err,
         "ms": ms,
@@ -1178,7 +1322,9 @@ def main():
         "replaces": "intent_mpc_tpu/ops/pallas_fused.py:300 (_fleet_kernel)",
         "launches": loop_f[128]["launches"],
         "launches_of_other_paths": {
-            "polish_fused_32": polished["fused"]["launches"]["fleet_admm"]},
+            "polish_fused_32": polished["fused"]["launches"]["fleet_admm"],
+            **{"%s_fused_32" % o["option"]: o["launches"]["fleet_admm"]
+               for o in options if o["solve"] == "fused"}},
         "max_abs_err": fleet[128]["max_abs_err"],
         "max_abs_diff": fleet[128]["max_abs_err"],
         "max_abs_err_of": "unscaled candidate states after 10 iterations",

@@ -32,11 +32,14 @@ power limit. `--load N` runs N busy-looping CPU processes (a co-located
 load) for the whole command; they start before the first CUDA call and
 are stopped when it ends.
 
-Not ported from bench.py: the XLA-only options (--platform, the
-compilation cache, cliff padding of the batch and --no-pad, the XLA
-cost-analysis --roofline, the jax --profile trace; for a profile see
-benchmark/profile_cycle.py) and the solver-variant flags the port does
-not run.
+The solver-variant flags of bench.py run as there (--refine,
+--refine-mode, --refine-x0, --factor-reuse, --drift-refresh, --flat-iter,
+--per-candidate-factor). Not ported from bench.py: the XLA-only options
+(--platform, the compilation cache, cliff padding of the batch and
+--no-pad, the XLA cost-analysis --roofline, the jax --profile trace; for
+a profile see benchmark/profile_cycle.py), --ew-kernel (on by default
+here) and the solver variants the port does not run (--folded-refine,
+--minv-bf16).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import multiprocessing
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,15 +64,34 @@ from intent_mpc_torch.utils.config import IntentMPCConfig
 from intent_mpc_torch.utils.device import resolve_device
 
 
-def bench_config(obstacles: int = 200, fused: bool = False) -> IntentMPCConfig:
+def bench_config(obstacles: int = 200, fused: bool = False,
+                 solver: Optional[dict] = None) -> IntentMPCConfig:
+    """The default DYNUS config at `obstacles`, with the fleet-fused solve
+    if `fused`, and the SolverConfig fields of `solver` set."""
     cfg = IntentMPCConfig()
     cfg = cfg.replace(world=dataclasses.replace(cfg.world,
                                                 num_obstacles=obstacles))
-    if fused:
-        cfg = cfg.replace(planner=dataclasses.replace(
-            cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
-                                                    fused_solve=True)))
-    return cfg
+    return cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(
+            cfg.planner.solver, **dict(solver or {}),
+            fused_solve=fused or cfg.planner.solver.fused_solve)))
+
+
+def solver_fields(args) -> dict:
+    """The SolverConfig fields bench.py's solver-variant flags set."""
+    out = {}
+    if args.per_candidate_factor:
+        out["shared_factor"] = False
+    for flag, field in (("refine", "shared_refine_iters"),
+                        ("refine_mode", "shared_refine_mode"),
+                        ("refine_x0", "shared_refine_x0"),
+                        ("factor_reuse", "factor_reuse_cycles"),
+                        ("drift_refresh", "factor_drift_refresh")):
+        if getattr(args, flag) is not None:
+            out[field] = getattr(args, flag)
+    if args.flat_iter:
+        out["flat_iter"] = True
+    return out
 
 
 def _burn():
@@ -165,7 +188,8 @@ def command_step(cfg, scen, iters=None):
 
 
 def latency(batch: int, cycles: int = 50, obstacles: int = 200, iters=None,
-            fused: bool = False, device=None) -> dict:
+            fused: bool = False, device=None,
+            solver: Optional[dict] = None) -> dict:
     """Per-cycle latency of the closed loop at `batch` scenarios, blocking
     and pipelined depth-1, `cycles` timed cycles each (bench.py's cycle
     indices: 2 warm-up cycles, blocking 2.., pipelined from 60 on)."""
@@ -173,7 +197,7 @@ def latency(batch: int, cycles: int = 50, obstacles: int = 200, iters=None,
     if dev.type != "cuda":
         raise RuntimeError("latency is measured on a CUDA device, got %s"
                            % dev)
-    cfg = bench_config(obstacles, fused)
+    cfg = bench_config(obstacles, fused, solver)
     scen = sh.stack_scenarios(cfg, range(batch), device=dev)
     step = command_step(cfg, scen, iters)
     carry = cl.init_carry(cfg, scen, device=dev)
@@ -196,10 +220,11 @@ def card_power() -> str:
 
 
 def run(batch: int, cycles: int, obstacles: int = 200, iters=None,
-        fused: bool = False, device=None) -> dict:
+        fused: bool = False, device=None,
+        solver: Optional[dict] = None) -> dict:
     """Warm up for 2 x cycles cycles, then time `cycles` cycles."""
     dev = resolve_device(device)
-    cfg = bench_config(obstacles, fused)
+    cfg = bench_config(obstacles, fused, solver)
     scen = sh.stack_scenarios(cfg, range(batch), device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5, device=dev)
     occ = empty_grid(dev)
@@ -228,7 +253,7 @@ def run(batch: int, cycles: int, obstacles: int = 200, iters=None,
                         else str(dev)))
 
 
-def main():
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=128,
                     help="scenarios (6 candidate QPs each per cycle)")
@@ -243,7 +268,29 @@ def main():
                          "pipelined depth-1 (100 ms replan budget)")
     ap.add_argument("--load", type=int, default=0,
                     help="co-located CPU burner processes for the run")
-    args = ap.parse_args()
+    ap.add_argument("--refine", type=int, default=None,
+                    help="shared-factor refinement steps per x-update")
+    ap.add_argument("--refine-mode", type=str, default=None,
+                    choices=["stationary", "cg"])
+    ap.add_argument("--refine-x0", type=str, default=None,
+                    choices=["minv", "prev"],
+                    help="CG x-update initial guess (see SolverConfig)")
+    ap.add_argument("--factor-reuse", type=int, default=None,
+                    help="refresh the shared factor every k-th cycle "
+                         "(SolverConfig.factor_reuse_cycles)")
+    ap.add_argument("--drift-refresh", type=float, default=None,
+                    help="drift-aware early factor refresh threshold "
+                         "(SolverConfig.factor_drift_refresh)")
+    ap.add_argument("--flat-iter", action="store_true",
+                    help="flat-constraint-space iteration "
+                         "(SolverConfig.flat_iter)")
+    ap.add_argument("--per-candidate-factor", action="store_true",
+                    help="factor every intent candidate separately")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     burners = start_burners(args.load)     # before the first CUDA call
     try:
         report(args)
@@ -252,7 +299,9 @@ def main():
 
 
 def report(args):
-    r = run(args.batch, args.cycles, args.obstacles, args.iters, args.fused)
+    solver = solver_fields(args)
+    r = run(args.batch, args.cycles, args.obstacles, args.iters, args.fused,
+            solver=solver)
     sps = r["solves"] / r["elapsed"]
     print(json.dumps({
         "metric": "mpc_solves_per_sec_per_chip",
@@ -267,7 +316,7 @@ def report(args):
           f"warmup={r['warmup']:.1f}s device={r['device']}", file=sys.stderr)
     if args.latency:
         lat = latency(args.batch, obstacles=args.obstacles, iters=args.iters,
-                      fused=args.fused)
+                      fused=args.fused, solver=solver)
         tag = f" (load={args.load})" if args.load else ""
         card = card_power()
         for mode, name in (("blocking", "blocking"),

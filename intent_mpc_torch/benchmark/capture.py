@@ -47,15 +47,55 @@ def fused(cfg):
                                                 fused_solve=True)))
 
 
-def run_loop(cfg, S, cycles, device):
+def _stalled(carry, cfg):
+    """The goal-relax stall counter started 30 cycles past its grace, so
+    the dynamic-safety anneal is live from the first cycle (away from the
+    goal the counter decays by 2 per cycle)."""
+    n = cfg.engine.goal_relax_grace + 30
+    return carry._replace(stall_cycles=torch.full_like(carry.stall_cycles, n))
+
+
+# the closed-loop options that the option phases and profiles run by name:
+# (engine fields, solver fields, starting-carry change or None)
+LOOP_OPTIONS = {
+    "quadrotor": (dict(plant="quadrotor"), {}, None),
+    "goal_relax": (dict(goal_relax=True), {}, _stalled),
+    "use_fov": (dict(use_fov=True), {}, None),
+    "no_predictor": (dict(use_predictor=False), {}, None),
+    "flat_iter": ({}, dict(flat_iter=True), None),
+    "stationary": ({}, dict(shared_refine_mode="stationary"), None),
+    "drift_refresh": ({}, dict(factor_drift_refresh=0.05), None),
+    "predictor_stale": (dict(predictor_stale_hist=True), {}, None),
+}
+
+
+def with_option(cfg, name):
+    """cfg with the LOOP_OPTIONS entry `name` set."""
+    engine, solver, _ = LOOP_OPTIONS[name]
+    cfg = cfg.replace(engine=dataclasses.replace(cfg.engine, **engine))
+    return cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                **solver)))
+
+
+def option_start(name):
+    """The starting-carry change of LOOP_OPTIONS entry `name` (a function
+    of (carry, cfg)), or None."""
+    return LOOP_OPTIONS[name][2]
+
+
+def run_loop(cfg, S, cycles, device, start=None):
     """Drive the closed loop through the public entry points; returns
     (carry, per-cycle seconds with a synchronize after each cycle,
-    per-cycle positions on the CPU)."""
+    per-cycle positions on the CPU). `start(carry, cfg)` changes the
+    fresh carry before the first cycle."""
     scen = sh.stack_scenarios(cfg, range(S), device=device)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5,
                                  device=device)
     occ = empty_grid(device)
     carry = cl.init_carry(cfg, scen, device=device)
+    if start is not None:
+        carry = start(carry, cfg)
     secs, positions = [], []
     for i in range(cycles):
         t0 = time.perf_counter()

@@ -3,7 +3,7 @@ intent_mpc_tpu/benchmark/harness.py).
 
     python -m intent_mpc_torch.benchmark.harness [--trials 10] [--fused]
         [--checkpoint fleet.npz [--chunk-cycles 50]] [--out DIR]
-        [--device cuda]
+        [--device cuda] [--plant quadrotor] [--goal-relax] [--seeds ...]
 
 Every seeded trial is a scenario of one batch that steps together on one
 device (the GPU by default), so "run 50 trials" is one batched closed
@@ -23,11 +23,13 @@ Not carried over from the JAX harness, on purpose:
   * XLA tiling-cliff padding of the batch (GOOD_BATCH_SIZES,
     padded_batch_size);
   * the multi-device `mesh` branch (multi-GPU is not ported yet).
-Flags that name options the port does not run yet (--goal-relax,
---predictor-stale, --plant quadrotor, --drift-refresh, --flat-iter,
---refine-mode stationary) parse, and then raise NotImplementedError
-before any scenario is built. --truncation osqp and
---per-candidate-factor run.
+Every flag of the JAX CLI that the port keeps runs: the rigid-body
+plant (--plant quadrotor), the goal-approach relaxation (--goal-relax),
+the stale predictor history (--predictor-stale), the drift-aware factor
+refresh (--drift-refresh), the flat iteration (--flat-iter), stationary
+refinement (--refine-mode stationary), --truncation osqp and
+--per-candidate-factor. A config that names an option the port does not
+run yet raises NotImplementedError before any scenario is built.
 """
 
 from __future__ import annotations
@@ -225,28 +227,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="dynamic obstacle safety distance (m), "
                          "planner_param.yaml dynamic_safety_dist")
     ap.add_argument("--goal-relax", action="store_true",
-                    help="EngineConfig.goal_relax (not ported: raises)")
+                    help="opt-in goal-approach dynamic-safety relaxation "
+                         "(EngineConfig.goal_relax): anneal the QP dynamic "
+                         "safety distance after a sustained near-goal "
+                         "stall")
     ap.add_argument("--predictor-stale", action="store_true",
-                    help="EngineConfig.predictor_stale_hist (not ported: "
-                         "raises)")
+                    help="predictor reads the previous cycle's last 30 Hz "
+                         "history tick instead of the fresh push "
+                         "(EngineConfig.predictor_stale_hist)")
     ap.add_argument("--plant", type=str, default=None,
                     choices=["double_integrator", "quadrotor"],
-                    help="closed-loop plant (quadrotor is not ported: "
-                         "raises)")
+                    help="closed-loop plant (EngineConfig.plant; quadrotor "
+                         "is the rigid-body quadcopterPlugin model)")
     ap.add_argument("--refine", type=int, default=None,
                     help="shared-factor refinement steps per x-update")
     ap.add_argument("--refine-x0", type=str, default=None,
                     choices=["minv", "prev"])
     ap.add_argument("--factor-reuse", type=int, default=None)
     ap.add_argument("--drift-refresh", type=float, default=None,
-                    help="SolverConfig.factor_drift_refresh (not ported: "
-                         "raises)")
+                    help="drift-aware early factor refresh threshold "
+                         "(SolverConfig.factor_drift_refresh)")
     ap.add_argument("--flat-iter", action="store_true",
-                    help="SolverConfig.flat_iter (not ported: raises)")
+                    help="ADMM iteration in flat constraint space "
+                         "(SolverConfig.flat_iter; launches no ew_chain)")
     ap.add_argument("--refine-mode", type=str, default=None,
                     choices=["stationary", "cg"],
-                    help="shared-factor refinement (stationary is not "
-                         "ported: raises)")
+                    help="shared-factor refinement: preconditioned CG or "
+                         "the stationary recurrence")
     ap.add_argument("--per-candidate-factor", action="store_true",
                     help="factor every intent candidate separately")
     ap.add_argument("--truncation", type=str, default=None,

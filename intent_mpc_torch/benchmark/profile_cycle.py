@@ -1,10 +1,11 @@
 """Where a closed-loop cycle's time goes on the GPU.
 
     python -m intent_mpc_torch.benchmark.profile_cycle [--scenarios 128]
-        [--cycles 4] [--fused] [--trace cycle_trace.json]
+        [--cycles 4] [--fused] [--option quadrotor] [--trace cycle_trace.json]
 
 Runs the default DYNUS closed loop (with `--fused`, the fleet-fused
-solve of bench.py --fused), warms up on cycles 0-3, then
+solve of bench.py --fused; with `--option NAME`, one of the loop options
+of benchmark/capture.LOOP_OPTIONS), warms up on cycles 0-3, then
 profiles `--cycles` further cycles (4.. , so one factor refresh and
 three reuse cycles at the default k = 4) with torch.profiler, and prints
 one JSON line: wall time per cycle, device-busy time per cycle (the
@@ -23,6 +24,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from intent_mpc_torch.benchmark.bench import bench_config
+from intent_mpc_torch.benchmark.capture import (LOOP_OPTIONS, option_start,
+                                                with_option)
 from intent_mpc_torch.engine import closed_loop as cl
 from intent_mpc_torch.models.occupancy import empty_grid
 from intent_mpc_torch.models.world import straight_line_ref_traj
@@ -37,15 +40,21 @@ def main():
     ap.add_argument("--scenarios", type=int, default=128)
     ap.add_argument("--cycles", type=int, default=4)
     ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--option", default=None, choices=sorted(LOOP_OPTIONS))
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
     dev = resolve_device(None)
     cfg = bench_config(fused=args.fused)
+    if args.option:
+        cfg = with_option(cfg, args.option)
     scen = sh.stack_scenarios(cfg, range(args.scenarios), device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device=dev)
     occ = empty_grid(dev)
     carry = cl.init_carry(cfg, scen, device=dev)
+    start = option_start(args.option) if args.option else None
+    if start is not None:
+        carry = start(carry, cfg)
     for i in range(4):
         carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
     torch.cuda.synchronize()
@@ -78,6 +87,7 @@ def main():
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "scenarios": args.scenarios, "cycles": c, "fused": args.fused,
+        "option": args.option,
         "wall_ms_per_cycle": wall / c * 1e3,
         "device_busy_ms_per_cycle": busy_us / c / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,

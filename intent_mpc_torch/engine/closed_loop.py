@@ -1,19 +1,23 @@
 """Closed-loop simulation engine: world -> detector -> predictor -> MPC ->
 controller -> dynamics (port of intent_mpc_tpu/engine/closed_loop.py,
-the default branches).
+the ground-truth-detector loop in predefined-goal mode).
 
 A batch of S scenarios steps together:
 
   outer loop: 10 Hz MPC cycles (mpcCB, mpcNavigation.cpp:222-370)
   inner 10 ticks: 100 Hz trajectory execution (trajExeCB :499-567), PID
-    tracking control (acceleration mode), double-integrator dynamics,
-    ~30 Hz detector history pushes (ticks 0/3/6), and the benchmark
-    monitor's per-sample metric updates (run_mpc_benchmark.py:224-385).
+    tracking control (acceleration mode), the plant (double integrator,
+    or the rigid-body quadrotor of models/quad_plant.py), ~30 Hz detector
+    history pushes (ticks 0/3/6), and the benchmark monitor's per-sample
+    metric updates (run_mpc_benchmark.py:224-385).
 
-The port runs the default branches: the ground-truth fake detector, the
-predictor, the double-integrator plant, the committed-trajectory monitor,
-predefined-goal mode with one path pass, look-ahead yaw.
-`check_supported` raises for every other engine option.
+The port runs the ground-truth fake detector with its engine options:
+the predictor or the constant-obstacle MPC, either plant or perfect
+tracking, the camera-FOV rows, the stale predictor history, the
+committed-trajectory monitor on or off, path repetition, look-ahead or
+velocity-heading yaw, and the goal-approach relaxation.
+`check_supported` raises for goal mode, static clustering and real
+perception.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from intent_mpc_torch.models.controller import (ControllerState, acc_command,
                                                 init_controller)
 from intent_mpc_torch.models.occupancy import (OccupancyGrid, empty_grid,
                                                is_occupied)
+from intent_mpc_torch.models.quad_plant import (QuadPlantConfig, QuadState,
+                                                quad_init, quad_step)
 from intent_mpc_torch.models.world import Scenario, obstacle_state
 from intent_mpc_torch.ops.admm import check_supported as check_solver
 from intent_mpc_torch.utils.config import IntentMPCConfig
@@ -93,27 +99,28 @@ class EngineCarry(NamedTuple):
     stop_pos: torch.Tensor
     repeats_left: torch.Tensor    # int32 path repetitions remaining
     tracking_start: torch.Tensor  # time the current tracking round began
-    yaw: torch.Tensor             # heading (look-ahead yaw, trajExeCB :536-553)
+    yaw: torch.Tensor             # heading (look-ahead yaw, trajExeCB
+                                  # :536-553); feeds the FOV rows
     ref_anchor: torch.Tensor      # (S, 3) goal-mode reference start (unused here)
+    quad: QuadState               # rigid-body plant state (used with
+                                  # plant="quadrotor"; pos/vel mirror it)
     done: torch.Tensor            # monitor goal criterion met
     metrics: Metrics
+    # goal-approach relaxation (EngineConfig.goal_relax): (S,) int32
+    # consecutive stalled-near-goal cycles driving the dynamic-safety
+    # anneal; None when the option is off
+    stall_cycles: Optional[torch.Tensor] = None
 
 
 def check_supported(cfg: IntentMPCConfig) -> None:
     """Raise for the engine and solver options this port does not run."""
     e, p = cfg.engine, cfg.planner
+    if e.plant not in ("double_integrator", "quadrotor"):
+        raise ValueError("plant must be 'double_integrator' or "
+                         "'quadrotor', got %r" % (e.plant,))
     unported = {
-        "plant": e.plant != "double_integrator",
-        "perfect_tracking": e.perfect_tracking,
-        "use_predictor": not e.use_predictor,
         "use_fake_detector": not e.use_fake_detector,
-        "use_fov": e.use_fov,
-        "repeat_path": e.repeat_path != 1,
-        "replan_check": not e.replan_check,
         "goal_mode": e.goal_mode,
-        "predictor_stale_hist": e.predictor_stale_hist,
-        "yaw_lookahead": e.yaw_lookahead <= 0.0,
-        "goal_relax": e.goal_relax,
         "static_clustering": p.static_clustering,
     }
     bad = [k for k, v in unported.items() if v]
@@ -161,8 +168,11 @@ def init_carry(cfg: IntentMPCConfig, scenario: Scenario,
         tracking_start=torch.zeros((S,), **kw),
         yaw=torch.zeros((S,), **kw),
         ref_anchor=start.clone(),
+        quad=quad_init(start.clone()),
         done=torch.zeros((S,), dtype=torch.bool, device=dev),
-        metrics=init_metrics(S, dev))
+        metrics=init_metrics(S, dev),
+        stall_cycles=(torch.zeros((S,), dtype=torch.int32, device=dev)
+                      if cfg.engine.goal_relax else None))
 
 
 def _aabb_distance(p: torch.Tensor, centers: torch.Tensor,
@@ -224,6 +234,40 @@ def _lookahead_yaw(cfg: IntentMPCConfig, planner: mpclib.PlannerState,
     return torch.where(update_ok & torch.any(far, dim=-1), yaw_new, cur_yaw)
 
 
+def _velocity_yaw(tv: torch.Tensor, cur_yaw: torch.Tensor,
+                  update_ok: torch.Tensor) -> torch.Tensor:
+    """The velocity-heading yaw (yaw_lookahead <= 0, the JAX package's
+    round-2 behavior): the target velocity's heading where it moves faster
+    than 0.1 m/s in the plane, else hold."""
+    speed_xy = torch.linalg.vector_norm(tv[:, 0:2], dim=-1)
+    return torch.where(update_ok & (speed_xy > 0.1),
+                       torch.atan2(tv[:, 1], tv[:, 0]), cur_yaw)
+
+
+def _goal_relax(cfg: IntentMPCConfig, carry: EngineCarry,
+                goal: torch.Tensor, active: torch.Tensor):
+    """Goal-approach safety relaxation (EngineConfig.goal_relax, the JAX
+    package's opt-in beyond-reference option): count consecutive cycles
+    stalled near the goal (within goal_relax_radius, outside the goal
+    criterion, slower than goal_relax_speed), decaying by 2 instead of
+    resetting when the stall clears, and anneal each scenario's QP
+    dynamic safety distance by goal_relax_rate per cycle past the grace,
+    down to goal_relax_floor. Returns (stall counts (S,), safety (S,))."""
+    ecfg = cfg.engine
+    dist_goal = torch.linalg.vector_norm(carry.pos - goal, dim=-1)
+    speed = torch.linalg.vector_norm(carry.vel, dim=-1)
+    stalled = active & (dist_goal < ecfg.goal_relax_radius) \
+        & (dist_goal > ecfg.goal_dist_threshold) \
+        & (speed < ecfg.goal_relax_speed)
+    stall = torch.where(stalled, carry.stall_cycles + 1,
+                        torch.clamp(carry.stall_cycles - 2, min=0))
+    dsd = cfg.planner.dynamic_safety_dist
+    relax = torch.clamp(
+        (stall - ecfg.goal_relax_grace).to(torch.float32)
+        * ecfg.goal_relax_rate, 0.0, dsd - ecfg.goal_relax_floor)
+    return stall, dsd - relax
+
+
 def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
                  ref_traj: torch.Tensor, traj_len: int,
                  occ: OccupancyGrid, carry: EngineCarry, cycle_idx: int,
@@ -235,6 +279,7 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     length; cycle_idx the Python cycle counter. Returns (carry, pos (S, 3))."""
     ecfg = cfg.engine
     dev = carry.pos.device
+    S = carry.pos.shape[0]
     cycle_dt = ecfg.control_dt * ecfg.ticks_per_cycle
     dt = ecfg.control_dt
     t0 = torch.full((), float(cycle_idx), dtype=torch.float32,
@@ -246,23 +291,45 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     obs_pos0, _ = obstacle_state(scenario, t0)
     d = det.fd_update(cfg.detector, carry.detector, obs_pos0, t0)
     d = det.hist_push(d, obs_pos0)
+    # predictor_stale_hist: the predictor and the MPC read the history as
+    # of the previous cycle's last 30 Hz tick (the reference's 30 Hz
+    # predictor-timer staleness bound); by default the fresh push
+    d_query = carry.detector if ecfg.predictor_stale_hist else d
     pos_h, vel_h, acc_h, size_h, hist_len, visible = det.query_history(
-        cfg.detector, d, scenario.bbox, carry.pos)
+        cfg.detector, d_query, scenario.bbox, carry.pos)
 
     # ---- replan-check collision monitor (replanCheckCB :414-422); in
     # predefined-goal mode it only counts: the engine replans every cycle
-    elapsed = (carry.traj_age.to(torch.float32) + 1.0) * cycle_dt
-    traj_hit = carry.traj_ready & active & committed_collision(
-        cfg, carry.planner, occ, elapsed, pos_h[:, :, 0], size_h[:, :, 0],
-        visible)
+    if ecfg.replan_check:
+        elapsed = (carry.traj_age.to(torch.float32) + 1.0) * cycle_dt
+        traj_hit = carry.traj_ready & active & committed_collision(
+            cfg, carry.planner, occ, elapsed, pos_h[:, :, 0],
+            size_h[:, :, 0], visible)
+    else:
+        traj_hit = torch.zeros((S,), dtype=torch.bool, device=dev)
     planner_in = carry.planner
 
+    dyn_safety, stall_new = None, carry.stall_cycles
+    if ecfg.goal_relax:
+        stall_new, dyn_safety = _goal_relax(cfg, carry, goal, active)
+
     # ---- predictor + MPC (mpcCB :290-365) ----
-    prediction = predlib.predict(cfg.predictor, pos_h, vel_h, acc_h, size_h,
-                                 hist_len, occ)
-    plan_out = mpclib.make_plan_with_pred(
-        cfg.planner, planner_in, carry.pos, carry.vel, ref_traj, traj_len,
-        prediction, visible, solver_iters, cycle_idx=cycle_idx)
+    if ecfg.use_predictor:
+        prediction = predlib.predict(cfg.predictor, pos_h, vel_h, acc_h,
+                                     size_h, hist_len, occ)
+        plan_out = mpclib.make_plan_with_pred(
+            cfg.planner, planner_in, carry.pos, carry.vel, ref_traj, traj_len,
+            prediction, visible, solver_iters, cycle_idx=cycle_idx,
+            curr_yaw=carry.yaw if ecfg.use_fov else None,
+            dyn_safety=dyn_safety)
+    else:
+        # use_predictor=false: obstacles held constant over the horizon
+        # (mpcNavigation.cpp:301-311 + updateDynamicObstacles); as in JAX
+        # this path takes no FOV rows
+        plan_out = mpclib.make_plan(
+            cfg.planner, planner_in, carry.pos, carry.vel, ref_traj,
+            traj_len, pos_h[:, :, 0], vel_h[:, :, 0], size_h[:, :, 0],
+            visible, solver_iters, dyn_safety=dyn_safety)
 
     run_mpc = active & ~carry.stopping
     planner = tree_where(run_mpc, plan_out.state, planner_in)
@@ -283,14 +350,30 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         traj_collision_cycles=m.traj_collision_cycles
         + traj_hit.to(torch.int32))
 
-    # ---- goal stop (replanCheckCB :414-456), after 3 s of tracking ----
+    # ---- goal stop / path repeat (replanCheckCB :414-456), after 3 s of
+    # tracking ----
     near_goal = torch.linalg.vector_norm(carry.pos - goal, dim=-1) \
         <= ecfg.goal_stop_threshold
     near_goal = near_goal & (t0 - carry.tracking_start >= 3.0)
-    stopping = carry.stopping | (near_goal & active)
     stop_pos = tree_where(carry.stopping, carry.stop_pos, carry.pos)
+    repeats_left, tracking_start = carry.repeats_left, carry.tracking_start
+    if ecfg.repeat_path > 1:
+        # re-track the same path (updatePath resets the planner state)
+        # until the last round's goal stop
+        do_repeat = near_goal & active & (carry.repeats_left > 1)
+        stopping = carry.stopping \
+            | (near_goal & active & (carry.repeats_left <= 1))
+        repeats_left = torch.where(do_repeat, carry.repeats_left - 1,
+                                   carry.repeats_left)
+        tracking_start = torch.where(do_repeat, t0, carry.tracking_start)
+        planner = tree_where(do_repeat, mpclib.init_planner_state(
+            cfg.planner, S, dev), planner)
+        traj_ready = traj_ready & ~do_repeat
+    else:
+        stopping = carry.stopping | (near_goal & active)
 
     pos, vel = carry.pos, carry.vel
+    quad = carry.quad
     ctrl = carry.controller
     prev_acc = carry.prev_target_acc
     has_prev = carry.has_prev_target
@@ -323,8 +406,18 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         acc_cmd, ctrl_new = acc_command(cfg.control, ctrl, pos, vel, tp, tv,
                                         ta, dt)
         ctrl = tree_where(active, ctrl_new, ctrl)
-        new_vel = vel + acc_cmd * dt
-        new_pos = pos + vel * dt + 0.5 * acc_cmd * dt ** 2
+        if ecfg.perfect_tracking:
+            new_pos, new_vel = tp, tv
+        elif ecfg.plant == "quadrotor":
+            # rigid-body plant (quadcopterPlugin acc-control mode): the
+            # controller's world-acc command and the trajectory heading
+            # drive the PID -> force/torque cascade
+            quad = tree_where(active, quad_step(QuadPlantConfig(), quad,
+                                                acc_cmd, yaw, dt), quad)
+            new_pos, new_vel = quad.pos, quad.vel
+        else:
+            new_vel = vel + acc_cmd * dt
+            new_pos = pos + vel * dt + 0.5 * acc_cmd * dt ** 2
         step_len = torch.linalg.vector_norm(new_pos - pos, dim=-1)
         pos = tree_where(active, new_pos, pos)
         vel = tree_where(active, new_vel, vel)
@@ -381,14 +474,20 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         )
         prev_acc = tree_where(active, ta, prev_acc)
         has_prev = has_prev | active
-        yaw = _lookahead_yaw(cfg, planner, t_traj, yaw,
-                             active & traj_ready & ~hold & ~past_end)
+        if ecfg.yaw_lookahead > 0.0:
+            yaw = _lookahead_yaw(cfg, planner, t_traj, yaw,
+                                 active & traj_ready & ~hold & ~past_end)
+        else:
+            yaw = _velocity_yaw(tv, yaw, active)
 
-        # goal criterion (run_mpc_benchmark.py:268-276)
+        # goal criterion (run_mpc_benchmark.py:268-276); with repeat_path
+        # the trial completes only once the last round's goal stop fired
         reached = (torch.linalg.vector_norm(pos - goal, dim=-1)
                    < ecfg.goal_dist_threshold) \
             & (torch.linalg.vector_norm(vel, dim=-1) < ecfg.goal_vel_threshold) \
             & active
+        if ecfg.repeat_path > 1:
+            reached = reached & stopping
         metrics = metrics._replace(
             goal_reached=metrics.goal_reached | reached,
             travel_time=torch.where(reached & ~done, tk + dt,
@@ -400,9 +499,10 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         pos=pos, vel=vel, detector=d, planner=planner, controller=ctrl,
         traj_age=traj_age, traj_ready=traj_ready,
         prev_target_acc=prev_acc, has_prev_target=has_prev,
-        stopping=stopping, stop_pos=stop_pos, repeats_left=carry.repeats_left,
-        tracking_start=carry.tracking_start, yaw=yaw,
-        ref_anchor=carry.ref_anchor, done=done, metrics=metrics)
+        stopping=stopping, stop_pos=stop_pos, repeats_left=repeats_left,
+        tracking_start=tracking_start, yaw=yaw,
+        ref_anchor=carry.ref_anchor, quad=quad, done=done, metrics=metrics,
+        stall_cycles=stall_new)
     return new_carry, pos
 
 

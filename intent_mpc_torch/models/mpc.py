@@ -1,5 +1,7 @@
 """MPC planner: intent-weighted multi-hypothesis candidate solve and
-selection (port of intent_mpc_tpu/models/mpc.py, the predictor path).
+selection (port of intent_mpc_tpu/models/mpc.py): the predictor path
+`make_plan_with_pred`, with the camera-FOV rows and the goal-relax
+safety distance, and the constant-obstacle `make_plan`.
 
 Rebuild of trajPlanner::mpcPlanner (trajectory_planner/mpcPlanner.cpp).
 The reference solves <=6 candidate QPs sequentially under a 0.15 s
@@ -17,6 +19,7 @@ Every function takes a leading scenario axis S.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -48,6 +51,9 @@ class PlannerState(NamedTuple):
     fac_e: Optional[qplib.ConVec] = None       # constraint-space scaling
     fac_c: Optional[torch.Tensor] = None       # (S,)
     fac_minv: Optional[torch.Tensor] = None    # (S, n, n)
+    # active obstacle gradients at the last factor refresh (S, W, K+1, 3)
+    # (SolverConfig.factor_drift_refresh > 0 only)
+    fac_gref: Optional[torch.Tensor] = None
 
 
 class PlanOutput(NamedTuple):
@@ -57,6 +63,9 @@ class PlanOutput(NamedTuple):
     candidate_states: torch.Tensor  # (S, 6, H, 8)
     solved: torch.Tensor         # (S, 6) bool
     prim_res: torch.Tensor       # (S, 6)
+    # (S,) bool: the scenario's shared factor was refreshed this cycle
+    # (the shared-factor path only; None elsewhere)
+    refreshed: Optional[torch.Tensor] = None
 
 
 def init_planner_state(cfg: PlannerConfig, batch: int,
@@ -78,6 +87,10 @@ def init_planner_state(cfg: PlannerConfig, batch: int,
                                obs=torch.ones((S, W, K + 1), **kw)),
             fac_c=torch.ones((S,), **kw),
             fac_minv=torch.eye(n, **kw).expand(S, n, n).clone())
+        if cfg.solver.factor_drift_refresh > 0:
+            # zeros force a refresh on the first drift check (the relative
+            # drift against an empty snapshot is large)
+            fac["fac_gref"] = torch.zeros((S, W, K + 1, 3), **kw)
     return PlannerState(
         states_sol=torch.zeros((S, H, 8), **kw),
         controls_sol=torch.zeros((S, W, 5), **kw),
@@ -268,18 +281,51 @@ def _where_s(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
 
 
+def fov_halfspaces(curr_pos: torch.Tensor, curr_yaw: torch.Tensor,
+                   fov_deg: float = 87.0):
+    """updateFovParam (mpcPlanner.cpp:274-295): the two half-planes that
+    bound the camera wedge. curr_pos (S, 3), curr_yaw (S,); returns
+    (half_max, half_min), each (S, 3) as (a, b, c)."""
+    half = fov_deg / 2.0 * math.pi / 180.0
+    max_a = curr_yaw - half
+    min_a = curr_yaw + half
+    a1, b1 = torch.sin(max_a), -torch.cos(max_a)
+    c1 = a1 * curr_pos[:, 0] + b1 * curr_pos[:, 1]
+    a2, b2 = torch.sin(min_a), -torch.cos(min_a)
+    c2 = a2 * curr_pos[:, 0] + b2 * curr_pos[:, 1]
+    return (torch.stack([a1, b1, c1], dim=-1),
+            torch.stack([a2, b2, c2], dim=-1))
+
+
+def _pad_slots(a: torch.Tensor, fill: float, dim: int) -> torch.Tensor:
+    """Two more obstacle slots of `fill` on axis `dim` (the FOV rows')."""
+    shape = list(a.shape)
+    shape[dim] = 2
+    return torch.cat([a, torch.full(shape, fill, dtype=a.dtype,
+                                    device=a.device)], dim=dim)
+
+
 def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
                         curr_pos: torch.Tensor, curr_vel: torch.Tensor,
                         input_traj: torch.Tensor, traj_len: int,
                         pred: Prediction, visible: torch.Tensor,
                         max_iter: Optional[int] = None,
-                        cycle_idx: Optional[int] = None) -> PlanOutput:
+                        cycle_idx: Optional[int] = None,
+                        curr_yaw: Optional[torch.Tensor] = None,
+                        dyn_safety: Optional[torch.Tensor] = None
+                        ) -> PlanOutput:
     """One replanning cycle (mpcCB body + makePlanWithPred) for a batch
     of S scenarios; the 6 intent-combination QPs of each are one batch.
 
     curr_pos/curr_vel (S, 3); input_traj (L, 3); pred over (S, O);
     visible (S, O) bool; cycle_idx is the Python cycle counter that
-    drives the shared-factor refresh."""
+    drives the shared-factor refresh.
+    curr_yaw (S,): adds the two FOV half-space rows in two more slots
+    (the reference's 3-argument updateCurrStates; the DYNUS benchmark
+    uses the 2-argument form) and refreshes the shared factor every cycle.
+    dyn_safety (S,): the per-scenario dynamic safety distance of the QP's
+    obstacle rows (the engine's goal-approach relaxation); scoring keeps
+    cfg.dynamic_safety_dist."""
     W = cfg.mpc_window
     S, O = pred.pos.shape[0], pred.pos.shape[1]
     dev = curr_pos.device
@@ -322,18 +368,29 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
 
     # obstacle param conversion (updateObstacleParam :1148-1197):
     # semi-axes = size/2 + dynamic safety; yaw 0; all dynamic.
-    qsize = cand_size[:, :, :W] / 2.0 + cfg.dynamic_safety_dist
+    ds = (cfg.dynamic_safety_dist if dyn_safety is None
+          else dyn_safety[:, None, None, None, None])
+    qsize = cand_size[:, :, :W] / 2.0 + ds
     qpos = cand_pos[:, :, :W]
+    qact = cand_active
+    fov = None
+    if curr_yaw is not None:
+        # two spare slots for the FOV rows (the QP only; scoring uses the
+        # unpadded obstacle set)
+        qpos, qsize = _pad_slots(qpos, 0.0, 3), _pad_slots(qsize, 1.0, 3)
+        qact = _pad_slots(qact, 0.0, 2)
+        half_max, half_min = fov_halfspaces(curr_pos, curr_yaw)
+        fov = (half_max[:, None], half_min[:, None])
     qyaw = torch.zeros(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
     qdyn = torch.ones(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
-    qact = cand_active[:, :, None, :].expand(qpos.shape[:-1])
+    qact = qact[:, :, None, :].expand(qpos.shape[:-1])
 
     # linearization points: previous solution states or current position
     lin = _where_s(state.has_solution, state.states_sol[:, :W, 0:3],
                    curr_pos[:, None, :].expand(S, W, 3))
     x0 = torch.cat([curr_pos, curr_vel], dim=-1)
     qps = qplib.build_qp(cfg, x0[:, None], xref[:, None], qpos, qsize, qyaw,
-                         qdyn, qact, lin[:, None])              # batch (S, 6)
+                         qdyn, qact, lin[:, None], fov_rows=fov)  # (S, 6)
 
     warm = _where_s(state.has_solution,
                     qplib.merge_z(state.states_sol, state.controls_sol),
@@ -343,6 +400,7 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
     rho = state.rho[:, None]          # broadcasts over the candidate axis
 
     fac_carry = None
+    refreshed = None
     if cfg.solver.fused_solve:
         # the fleet kernel (ops/fleet.py): one launch solves every candidate
         # of every scenario; it factors each cycle and carries no factor,
@@ -352,24 +410,8 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
         # one factorization per scenario: the candidate-mean QP with union
         # obstacle activity; each candidate refines against its own M
         qp_mean = candidate_mean(qps)
-        # temporal factor reuse: refresh only every k-th cycle (a
-        # batch-uniform predicate, so the skipped factorization is not
-        # computed); CG against each candidate's own operator absorbs the
-        # drift. Without a carried factor (k = 1) or a cycle counter, every
-        # call refreshes.
-        k_reuse = cfg.solver.factor_reuse_cycles
-        reuse = (k_reuse > 1 and state.fac_minv is not None
-                 and cycle_idx is not None)
-        Kq = qps.G.shape[-2]  # the carried obs scaling is sized for the maximum
-        if reuse and cycle_idx % k_reuse != 0:
-            fac = Factor(D=state.fac_d,
-                         E=state.fac_e._replace(obs=state.fac_e.obs[..., :Kq]),
-                         c=state.fac_c, Minv=state.fac_minv)
-        else:
-            fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
-        if reuse:
-            e_pad = torch.cat([fac.E.obs, state.fac_e.obs[..., Kq:]], dim=-1)
-            fac_carry = (fac.D, fac.E._replace(obs=e_pad), fac.c, fac.Minv)
+        fac, fac_carry, refreshed = _shared_factor(cfg, state, qp_mean,
+                                                   cycle_idx, curr_yaw)
         res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
                          factor=fac)
     else:
@@ -418,10 +460,157 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
         fac_e=fac_carry[1] if fac_carry is not None else state.fac_e,
         fac_c=fac_carry[2] if fac_carry is not None else state.fac_c,
         fac_minv=fac_carry[3] if fac_carry is not None else state.fac_minv,
+        fac_gref=(fac_carry[4] if fac_carry is not None
+                  and len(fac_carry) > 4 else state.fac_gref),
     )
     return PlanOutput(state=new_state, valid=valid, best_idx=best,
                       candidate_states=states6, solved=res.solved,
-                      prim_res=res.prim_res)
+                      prim_res=res.prim_res, refreshed=refreshed)
+
+
+def _shared_factor(cfg: PlannerConfig, state: PlannerState,
+                   qp_mean: qplib.QPData, cycle_idx: Optional[int],
+                   curr_yaw: Optional[torch.Tensor]):
+    """The shared factor of each scenario's candidate-mean QP, and what the
+    planner carries of it: (Factor, the carried fields or None, (S,) bool
+    refreshed).
+
+    Temporal reuse: the factor is refreshed every k-th cycle (a
+    batch-uniform predicate, so a skipped factorization is not computed)
+    and reused in between; CG against each candidate's own operator
+    absorbs the drift. Without a carried factor (k = 1), a cycle counter,
+    or with the FOV rows on, every call refreshes. With
+    `factor_drift_refresh` > 0 a scenario also refreshes early when the
+    relative Frobenius drift of its active obstacle gradients since its
+    last refresh passes the threshold: JAX decides that per scenario under
+    the scenario vmap, so here the fresh factor is computed for all and
+    selected per scenario on the device (no host read)."""
+    S, dev = qp_mean.q.shape[0], qp_mean.q.device
+    k_reuse = cfg.solver.factor_reuse_cycles
+    reuse = (k_reuse > 1 and state.fac_minv is not None
+             and cycle_idx is not None and curr_yaw is None)
+    if not reuse:
+        fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
+        return fac, None, torch.ones((S,), dtype=torch.bool, device=dev)
+    Kq = qp_mean.G.shape[-2]  # the carried obs scaling is sized for the maximum
+    on_cycle = cycle_idx % k_reuse == 0
+    drift_t = cfg.solver.factor_drift_refresh
+    drift = drift_t > 0 and state.fac_gref is not None
+    carried = Factor(D=state.fac_d,
+                     E=state.fac_e._replace(obs=state.fac_e.obs[..., :Kq]),
+                     c=state.fac_c, Minv=state.fac_minv)
+    if drift:
+        g_now = qp_mean.G * qp_mean.obs_active[..., None]
+        gref = state.fac_gref[:, :, :Kq]
+        dims = (-3, -2, -1)
+        rel = torch.linalg.vector_norm(g_now - gref, dim=dims) \
+            / (torch.linalg.vector_norm(gref, dim=dims) + 1e-6)
+        refreshed = rel > drift_t
+        if on_cycle:
+            refreshed = torch.ones_like(refreshed)
+    else:
+        refreshed = torch.full((S,), on_cycle, dtype=torch.bool, device=dev)
+    if on_cycle:
+        fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
+    elif drift:
+        fresh = admm_factor(cfg, qp_mean, rho_override=state.rho)
+        fac = Factor(D=_where_s(refreshed, fresh.D, carried.D),
+                     E=fresh.E.map(lambda a, b: _where_s(refreshed, a, b),
+                                   carried.E),
+                     c=_where_s(refreshed, fresh.c, carried.c),
+                     Minv=_where_s(refreshed, fresh.Minv, carried.Minv))
+    else:
+        fac = carried
+    e_pad = torch.cat([fac.E.obs, state.fac_e.obs[..., Kq:]], dim=-1)
+    fac_carry = (fac.D, fac.E._replace(obs=e_pad), fac.c, fac.Minv)
+    if drift:
+        g_pad = torch.cat([g_now, state.fac_gref[:, :, Kq:]], dim=2)
+        fac_carry += (_where_s(refreshed, g_pad, state.fac_gref),)
+    return fac, fac_carry, refreshed
+
+
+def make_plan(cfg: PlannerConfig, state: PlannerState,
+              curr_pos: torch.Tensor, curr_vel: torch.Tensor,
+              input_traj: torch.Tensor, traj_len: int,
+              obs_pos: torch.Tensor, obs_vel: torch.Tensor,
+              obs_size: torch.Tensor, visible: torch.Tensor,
+              max_iter: Optional[int] = None,
+              curr_yaw: Optional[torch.Tensor] = None,
+              static_obs=None,
+              dyn_safety: Optional[torch.Tensor] = None) -> PlanOutput:
+    """Non-predictor replanning cycle (mpcPlanner::makePlan :543-569 fed
+    by updateDynamicObstacles :316-341): each obstacle held at its current
+    position and size over the horizon, one QP per scenario, solved by
+    admm_solve with its own factor.
+
+    obs_pos/vel/size (S, O, 3); the velocity is carried for parity with
+    updateDynamicObstacles' stored fields (the QP uses pos and size).
+    Every obstacle gets a slot (no max_obstacles cap, as in JAX).
+    curr_yaw and dyn_safety as make_plan_with_pred takes them. The
+    returned PlanOutput broadcasts the one QP's states over the 6
+    candidate slots, candidate 0 carries its acceptance and best_idx is 0.
+    static_obs (static clustering) is not ported and raises."""
+    if static_obs is not None:
+        raise NotImplementedError("make_plan: static_obs (static "
+                                  "clustering) is not ported")
+    H, W = cfg.horizon, cfg.mpc_window
+    S, O = obs_pos.shape[0], obs_pos.shape[1]
+    dev, dt = obs_pos.device, obs_pos.dtype
+    xref, new_start = reference_window(
+        cfg, input_traj, traj_len, curr_pos, state.last_ref_start)
+
+    K = O + (2 if curr_yaw is not None else 0)
+    ds = (cfg.dynamic_safety_dist if dyn_safety is None
+          else dyn_safety[:, None, None])
+    qpos = torch.zeros((S, W, K, 3), dtype=dt, device=dev)
+    qpos[:, :, :O] = obs_pos[:, None]
+    qsize = torch.ones((S, W, K, 3), dtype=dt, device=dev)
+    qsize[:, :, :O] = (obs_size / 2.0 + ds)[:, None]
+    qyaw = torch.zeros((S, W, K), dtype=dt, device=dev)
+    qdyn = torch.ones((S, W, K), dtype=dt, device=dev)
+    active = torch.zeros((S, W, K), dtype=dt, device=dev)
+    active[:, :, :O] = visible[:, None].to(dt)
+    use_obs = (~state.first_time) & torch.any(visible, dim=-1)
+    active = active * use_obs.to(dt)[:, None, None]
+    fov = (fov_halfspaces(curr_pos, curr_yaw) if curr_yaw is not None
+           else None)
+
+    lin = _where_s(state.has_solution, state.states_sol[:, :W, 0:3],
+                   curr_pos[:, None, :].expand(S, W, 3))
+    x0 = torch.cat([curr_pos, curr_vel], dim=-1)
+    qp = qplib.build_qp(cfg, x0, xref, qpos, qsize, qyaw, qdyn, active, lin,
+                        fov_rows=fov)
+    warm = _where_s(state.has_solution,
+                    qplib.merge_z(state.states_sol, state.controls_sol),
+                    torch.zeros((S, cfg.num_vars), dtype=dt, device=dev))
+    res = admm_solve(cfg, qp, warm, max_iter, rho_override=state.rho)
+    Xs, Us = qplib.split_z(res.x, cfg)
+    accepted = torch.isfinite(res.prim_res) & (res.prim_res < 1e3) \
+        & torch.all(torch.isfinite(res.x), dim=-1)
+
+    def keep(new, old):
+        return _where_s(accepted, new, old)
+
+    new_state = PlannerState(
+        states_sol=keep(Xs, state.states_sol),
+        controls_sol=keep(Us, state.controls_sol),
+        first_time=state.first_time & ~accepted,
+        has_solution=state.has_solution | accepted,
+        last_ref_start=new_start,
+        xref=keep(xref, state.xref),
+        rho=res.rho_suggest if cfg.solver.temporal_rho else state.rho,
+        # the carried shared-factor fields pass through untouched (this
+        # path factors every solve)
+        fac_d=state.fac_d, fac_e=state.fac_e, fac_c=state.fac_c,
+        fac_minv=state.fac_minv, fac_gref=state.fac_gref)
+    solved = torch.zeros((S, 6), dtype=torch.bool, device=dev)
+    solved[:, 0] = accepted
+    return PlanOutput(state=new_state, valid=accepted,
+                      best_idx=torch.zeros((S,), dtype=torch.int64,
+                                           device=dev),
+                      candidate_states=Xs[:, None].expand(S, 6, H, 8),
+                      solved=solved,
+                      prim_res=res.prim_res[:, None].expand(S, 6))
 
 
 # ---------------------------------------------------------------------------

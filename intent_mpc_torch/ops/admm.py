@@ -16,13 +16,16 @@ has an explicit inverse from the block-tridiagonal Cholesky
 (ops/block_chol.py), or with `structured_factor=False` from the dense
 Cholesky of the assembled matrix. With a shared Factor (one per scenario), each
 candidate refines against its own normal matrix with preconditioned
-CG-2, warm-started from the previous iteration's x-tilde. Iterations are
-a fixed-count Python loop, or with `truncation="osqp"` blocks that stop
-each problem at OSQP 0.6.2's termination test; without a factor,
-`adaptive_rho` runs OSQP's in-solve rho rule with refactorization
-(`_solve_adaptive`). The elementwise tail of each iteration is one
-launch of the CUDA kernel ops/ew_chain.py when `ew_kernel` is on, on
-every one of these loops.
+CG-2, warm-started from the previous iteration's x-tilde, or with
+`shared_refine_mode="stationary"` by the recurrence x += Minv (rhs - M x).
+Iterations are a fixed-count Python loop, or with `truncation="osqp"`
+blocks that stop each problem at OSQP 0.6.2's termination test; without a
+factor, `adaptive_rho` runs OSQP's in-solve rho rule with
+refactorization (`_solve_adaptive`); with a factor, `flat_iter` runs the
+loop in flat constraint space (`_solve_flat`). The elementwise tail of
+each iteration is one launch of the CUDA kernel ops/ew_chain.py when
+`ew_kernel` is on, on every one of these loops but the flat one (JAX's
+dispatch order: its flat branch comes before the kernel's).
 
 Batching: the QP carries leading axes (..., C). A Factor either has the
 same leading axes (one factor per problem) or one axis fewer (one factor
@@ -36,8 +39,10 @@ closed-loop path calls it.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from intent_mpc_torch.ops import qp as qplib
@@ -105,11 +110,10 @@ def check_supported(scfg: SolverConfig, fused: Optional[bool] = None) -> None:
         "woodbury_candidates": scfg.woodbury_candidates,
         "block_refine": scfg.block_refine,
         "folded_refine": scfg.folded_refine,
-        "flat_iter": scfg.flat_iter,
         "minv_dtype": scfg.minv_dtype != "f32",
         "shared_refine_warm_frac": scfg.shared_refine_warm_frac != 0.0,
-        "shared_refine_mode": scfg.shared_refine_mode != "cg",
-        "factor_drift_refresh": scfg.factor_drift_refresh > 0,
+        "shared_refine_mode": scfg.shared_refine_mode not in ("cg",
+                                                             "stationary"),
     }
     bad = [k for k, v in unported.items()
            if v and not (fused and k in _SOLVE_ONLY)]
@@ -301,35 +305,17 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
         def minv_mv(v):
             return torch.matmul(Minv, v[..., None])[..., 0]
 
-    warm_x0 = factor is not None and scfg.shared_refine_x0 == "prev"
-    tiny = 1e-30
-
-    def msolve(rhs, x_init):
-        if refine == 0:
-            return minv_mv(rhs)
-        # preconditioned CG (refine steps) on this candidate's normal
-        # system, Minv as preconditioner; x_init (the previous x-tilde)
-        # saves a Minv read
-        x = minv_mv(rhs) if x_init is None else x_init
-        r = rhs - m_apply(x)
-        z = minv_mv(r)
-        p = z
-        rz = _vdot(r, z)
-        for j in range(refine):
-            ap = m_apply(p)
-            pap = _vdot(p, ap)
-            a = torch.where(torch.abs(pap) > tiny, rz / pap,
-                            torch.zeros_like(pap))
-            x = x + a[..., None] * p
-            if j < refine - 1:
-                r = r - a[..., None] * ap
-                z = minv_mv(r)
-                rz_n = _vdot(r, z)
-                b = torch.where(torch.abs(rz) > tiny, rz_n / rz,
-                                torch.zeros_like(rz))
-                rz = rz_n
-                p = z + b[..., None] * p
-        return x
+    cg = scfg.shared_refine_mode == "cg"
+    warm_x0 = factor is not None and cg and scfg.shared_refine_x0 == "prev"
+    if (factor is not None and scfg.flat_iter
+            and scfg.truncation != "osqp"):
+        # the flat constraint-space iteration: JAX dispatches it before the
+        # elementwise-kernel branch, so this path launches no ew_chain
+        xs, zs, ys = _solve_flat(cfg, qp, scfg, D, E, h_s, q_s, rho, xs,
+                                 iters, minv_mv, refine, cg, warm_x0)
+        return _finish(cfg, qp, hdiag, unscale, xs, zs, ys, rho_base,
+                       feas_tol)
+    msolve = _make_msolve(minv_mv, m_apply, refine, cg)
 
     def x_update(xs, rzy, xt_prev):
         rhs = sigma * xs - q_s + at_s(rzy)
@@ -362,17 +348,169 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
         for _ in range(iters):
             carry = step(carry)
     xs, zs, ys = carry[:3]
+    return _finish(cfg, qp, hdiag, unscale, xs, zs, ys, rho_base, feas_tol,
+                   ran)
 
+
+def _make_msolve(minv_mv, m_apply, refine: int, cg: bool):
+    """The x-update solve of M x = rhs with Minv as the preconditioner:
+    Minv rhs alone at refine 0; else `refine` steps of preconditioned CG
+    (shared_refine_mode "cg", whose x_init, the previous x-tilde, saves a
+    Minv read) or of the stationary recurrence x += Minv (rhs - M x)
+    (mode "stationary", which ignores x_init), as JAX's msolve does."""
+    tiny = 1e-30
+
+    def msolve(rhs, x_init):
+        if refine == 0:
+            return minv_mv(rhs)
+        if not cg:
+            x = minv_mv(rhs)
+            for _ in range(refine):
+                x = x + minv_mv(rhs - m_apply(x))
+            return x
+        x = minv_mv(rhs) if x_init is None else x_init
+        r = rhs - m_apply(x)
+        z = minv_mv(r)
+        p = z
+        rz = _vdot(r, z)
+        for j in range(refine):
+            ap = m_apply(p)
+            pap = _vdot(p, ap)
+            a = torch.where(torch.abs(pap) > tiny, rz / pap,
+                            torch.zeros_like(pap))
+            x = x + a[..., None] * p
+            if j < refine - 1:
+                r = r - a[..., None] * ap
+                z = minv_mv(r)
+                rz_n = _vdot(r, z)
+                b = torch.where(torch.abs(rz) > tiny, rz_n / rz,
+                                torch.zeros_like(rz))
+                rz = rz_n
+                p = z + b[..., None] * p
+        return x
+    return msolve
+
+
+def _finish(cfg, qp, hdiag, unscale, xs, zs, ys, rho_base, feas_tol,
+            ran=None) -> ADMMResult:
+    """The ADMMResult of scaled iterates: unscaled x, y and residuals, and
+    OSQP's adaptive-rho suggestion from the relative residuals."""
     x, y, z, ax, aty = unscale(xs, zs, ys)
-    # OSQP adaptive-rho suggestion from relative residuals
     prim, dual, ratio = _residual_ratio(ax, z, hdiag * x, aty, qp.q)
     do_adapt = (ratio > 5.0) | (ratio < 0.2)
-    rho_b = torch.as_tensor(rho_base, dtype=ratio.dtype, device=dev)
+    rho_b = torch.as_tensor(rho_base, dtype=ratio.dtype, device=x.device)
     rho_next = torch.where(do_adapt, torch.clamp(rho_b * ratio, 1e-4, 1e3),
                            rho_b)
     return ADMMResult(x=x, y=y, prim_res=prim, dual_res=dual,
                       solved=prim < feas_tol, rho_suggest=rho_next,
                       iters=ran)
+
+
+@functools.lru_cache(maxsize=16)
+def _static_a_top(horizon: int, window: int, ts: float,
+                  device: torch.device) -> torch.Tensor:
+    """The QP-independent top block of the constraint matrix: the dynamics
+    equality rows, the state-bound identity and the control-bound
+    identity, in con_to_flat order [eq (8H), sb (8H), cb (5W)], as one
+    dense (16H + 5W, n) float32 matrix on `device`, built once and shared
+    by every candidate, scenario and cycle (JAX admm.py:170-205, entry by
+    entry). Do not modify it in place."""
+    H, W = horizon, window
+    NXc, NUc = qplib.NX, qplib.NU
+    n = NXc * H + NUc * W
+    A = np.zeros((NXc, NXc), np.float32)
+    A[0:3, 0:3] = np.eye(3)
+    A[0:3, 3:6] = np.eye(3) * ts
+    A[3:6, 3:6] = np.eye(3)
+    B = np.zeros((NXc, NUc), np.float32)
+    B[0:3, 0:3] = np.eye(3) * 0.5 * ts * ts
+    B[3:6, 0:3] = np.eye(3) * ts
+    B[6:8, 3:5] = np.eye(2)
+    top = np.zeros((2 * NXc * H + NUc * W, n), np.float32)
+    top[0:NXc, 0:NXc] = -np.eye(NXc)
+    for i in range(1, H):
+        r = NXc * i
+        top[r:r + NXc, NXc * (i - 1):NXc * i] = A
+        top[r:r + NXc, NXc * H + NUc * (i - 1):NXc * H + NUc * i] = B
+        top[r:r + NXc, NXc * i:NXc * (i + 1)] -= np.eye(NXc)
+    top[NXc * H:2 * NXc * H, 0:NXc * H] = np.eye(NXc * H)
+    top[2 * NXc * H:, NXc * H:] = np.eye(NUc * W)
+    return torch.as_tensor(top, device=device)
+
+
+def _solve_flat(cfg: PlannerConfig, qp: QPData, scfg: SolverConfig, D, E,
+                h_s, q_s, rho: ConVec, xs0, iters: int, minv_mv,
+                refine: int, cg: bool, warm_x0: bool):
+    """The ADMM iteration in flat constraint space (SolverConfig.flat_iter,
+    JAX admm.py:329-441): z, y, l, u and rho are single (..., m) vectors;
+    the QP-invariant eq/sb/cb part of A and A^T is one product with the
+    static _static_a_top matrix, and the obstacle rows apply through
+    coefficient tensors folded once per solve (G E D, and the slack
+    columns' E D). The same iteration as the grouped loop, in fewer ops
+    per iteration; its elementwise tail is torch ops (no ew_chain, as in
+    JAX's dispatch). Returns the scaled (xs, zs, ys), z and y as ConVec."""
+    H, W = cfg.horizon, cfg.mpc_window
+    NXc, NUc = qplib.NX, qplib.NU
+    K = qp.G.shape[-2]
+    sigma, alpha = scfg.sigma, scfg.alpha
+
+    A_top = _static_a_top(H, W, cfg.ts, xs0.device)
+    m_top = A_top.shape[0]
+    Dx = D[..., :NXc * H].unflatten(-1, (H, NXc))
+    Du = D[..., NXc * H:].unflatten(-1, (W, NUc))
+
+    e_top = qplib.con_to_flat(E)[..., :m_top]
+    rho_f = qplib.con_to_flat(rho)
+    l_f = qplib.con_to_flat(qp.l.scale(E))
+    u_f = qplib.con_to_flat(qp.u.scale(E))
+
+    # folded obstacle coefficients (scaled rows on the unscaled x):
+    # row (w, k): e [G . (Dx_w p) - slack (dyn Du3 u3 + (1 - dyn) Du4 u4)]
+    Gh = qp.G * E.obs[..., None] * Dx[..., :-1, None, 0:3]      # (.., W, K, 3)
+    sl = E.obs * qp.obs_slack * qp.obs_active
+    sd = sl * qp.obs_dyn * Du[..., :, 3:4]                       # (.., W, K)
+    ss = sl * (1.0 - qp.obs_dyn) * Du[..., :, 4:5]
+
+    def a_flat(x):
+        top = e_top * torch.matmul(D * x, A_top.t())
+        Xu = x[..., :NXc * H].unflatten(-1, (H, NXc))
+        Uu = x[..., NXc * H:].unflatten(-1, (W, NUc))
+        obs = qplib._wd(Gh, Xu[..., :-1, 0:3]) \
+            - sd * Uu[..., :, 3:4] - ss * Uu[..., :, 4:5]
+        return torch.cat([top, obs.flatten(-2)], dim=-1)
+
+    def at_flat(w):
+        top = torch.matmul(e_top * w[..., :m_top], A_top)
+        wo = w[..., m_top:].unflatten(-1, (W, K))
+        gp = qplib._dw(wo, Gh)                                   # (.., W, 3)
+        kw = dict(dtype=gp.dtype, device=gp.device)
+        Xg = torch.cat([
+            torch.cat([gp, torch.zeros(gp.shape[:-1] + (NXc - 3,), **kw)],
+                      dim=-1),
+            torch.zeros(gp.shape[:-2] + (1, NXc), **kw)], dim=-2)
+        Ug = torch.cat([torch.zeros(gp.shape[:-1] + (3,), **kw),
+                        -torch.sum(wo * sd, dim=-1)[..., None],
+                        -torch.sum(wo * ss, dim=-1)[..., None]], dim=-1)
+        return D * top + qplib.merge_z(Xg, Ug)
+
+    def m_op(v):
+        return h_s * v + sigma * v + at_flat(rho_f * a_flat(v))
+
+    msolve = _make_msolve(minv_mv, m_op, refine, cg)
+    x = xs0
+    z = a_flat(xs0)
+    y = torch.zeros_like(z)
+    xt_prev = xs0
+    for _ in range(iters):
+        rhs = sigma * x - q_s + at_flat(rho_f * z - y)
+        x_t = msolve(rhs, xt_prev if warm_x0 else None)
+        ax = a_flat(x_t)
+        x = alpha * x_t + (1.0 - alpha) * x
+        z_relax = alpha * ax + (1.0 - alpha) * z
+        z_n = torch.clamp(z_relax + y / rho_f, l_f, u_f)
+        y = y + rho_f * (z_relax - z_n)
+        z, xt_prev = z_n, x_t
+    return x, qplib.flat_to_con(z, cfg, K), qplib.flat_to_con(y, cfg, K)
 
 
 def _residual_ratio(ax: ConVec, z: ConVec, px, aty, q):

@@ -172,13 +172,18 @@ def linearize_obstacles(oxyz, osize, yaw, c):
 
 
 def build_qp(cfg: PlannerConfig, x0, xref, oxyz, osize, yaw, obs_dyn,
-             obs_active, lin_states) -> QPData:
+             obs_active, lin_states, fov_rows=None) -> QPData:
     """Assemble the QP of one candidate per batch entry.
 
       x0 (..., 6) current [pos, vel]; xref (..., H, 3) reference positions
       (getXRef, mpcPlanner.cpp:968-981); oxyz/osize (..., W, K, 3)
       obstacle centers and semi-axes; yaw, obs_dyn, obs_active (..., W, K);
       lin_states (..., W, 3) linearization positions.
+      fov_rows: optional (half_max, half_min), each (..., 3) as (a, b, c),
+      the camera wedge of updateFovParam (mpcPlanner.cpp:274-295): the
+      last two obstacle slots become a1 x + b1 y <= c1 and
+      a2 x + b2 y >= c2 on every step, live, with no slack column. The
+      caller sizes K with these two spare slots.
     Leading axes of the inputs must broadcast to one batch shape.
     """
     H, W, K = cfg.horizon, cfg.mpc_window, oxyz.shape[-2]
@@ -207,13 +212,24 @@ def build_qp(cfg: PlannerConfig, x0, xref, oxyz, osize, yaw, obs_dyn,
     hi = torch.full(lead + (W, K), INF, dtype=dt, device=dev)
     slack_mask = torch.ones(lead + (W, K), dtype=dt, device=dev)
     active = obs_active.expand(lead + (W, K)).contiguous()
+    if fov_rows is not None:
+        half_max, half_min = fov_rows
+        G[..., K - 2, 0] = half_max[..., 0:1]
+        G[..., K - 2, 1] = half_max[..., 1:2]
+        G[..., K - 1, 0] = half_min[..., 0:1]
+        G[..., K - 1, 1] = half_min[..., 1:2]
+        lo[..., K - 2] = -INF
+        lo[..., K - 1] = half_min[..., 2:3]
+        hi[..., K - 2] = half_max[..., 2:3]
+        active[..., K - 2:] = 1.0
+        slack_mask[..., K - 2:] = 0.0
 
     l = ConVec(eq=beq, sb=x_min.expand(lead + (H, NX)).contiguous(),
                cb=u_min.expand(lead + (W, NU)).contiguous(), obs=lo)
     u = ConVec(eq=beq.clone(), sb=x_max.expand(lead + (H, NX)).contiguous(),
                cb=u_max.expand(lead + (W, NU)).contiguous(), obs=hi)
     return QPData(q=q, l=l, u=u, G=G,
-                  obs_dyn=(obs_dyn * obs_active).expand(lead + (W, K)).contiguous(),
+                  obs_dyn=(obs_dyn * active).contiguous(),
                   obs_active=active, obs_slack=slack_mask)
 
 

@@ -196,8 +196,11 @@ class SolverConfig:
                                       # term_check_interval iterations and
                                       # capped at max_iter (both ported)
     term_check_interval: int = 25     # iterations between termination checks
-    factor_drift_refresh: float = 0.0  # drift-aware factor refresh (not
-                                      # ported; 0 keeps the counter rule)
+    factor_drift_refresh: float = 0.0  # drift-aware factor refresh: a
+                                      # scenario also refactors when its
+                                      # active obstacle gradients drift
+                                      # past this relative threshold; 0
+                                      # keeps the counter rule (ported)
     adaptive_rho: bool = False        # in-solve rho adaptation with
                                       # refactorization, with a factor per
                                       # candidate (ported)
@@ -217,7 +220,7 @@ class SolverConfig:
     woodbury_candidates: bool = False  # exact Woodbury x-update (not ported)
     block_refine: bool = False        # block-apply refinement (not ported)
     folded_refine: bool = False       # pre-folded refinement (not ported)
-    shared_refine_mode: str = "cg"    # "cg" (ported) or "stationary"
+    shared_refine_mode: str = "cg"    # "cg" or "stationary" (both ported)
     shared_refine_warm_frac: float = 0.0  # two-phase refinement (not ported)
     shared_refine_warm: int = 1
     shared_refine_x0: str = "prev"    # CG initial guess: "prev" = previous
@@ -237,8 +240,9 @@ class SolverConfig:
                                       # step (tests/test_torch_admm.py pins
                                       # it), so the port turns it on. False
                                       # runs the grouped torch step.
-    flat_iter: bool = False           # flat constraint-space iteration (not
-                                      # ported)
+    flat_iter: bool = False           # flat constraint-space iteration
+                                      # with a shared factor; launches no
+                                      # ew_chain (ported)
     factor_reuse_cycles: int = 4      # refresh the shared factor only every
                                       # k-th replan cycle and reuse the
                                       # carried one in between (ported)
@@ -334,28 +338,30 @@ class EngineConfig:
     goal_dist_threshold: float = 0.5     # run_mpc_benchmark.py:269
     goal_vel_threshold: float = 0.1
     goal_stop_threshold: float = 0.3     # replanCheckCB goal-dist (mpcNavigation.cpp:423)
-    plant: str = "double_integrator"     # "double_integrator" (ported) or
-                                         # "quadrotor" (not ported)
+    plant: str = "double_integrator"     # "double_integrator" or
+                                         # "quadrotor", the rigid-body
+                                         # quadcopterPlugin model (both
+                                         # ported)
     perfect_tracking: bool = False       # True: odom == commanded target
-                                         # (False ported)
+                                         # (ported)
     use_predictor: bool = True           # False -> constant-obstacle MPC
-                                         # (not ported)
+                                         # (ported)
     use_fake_detector: bool = True       # GT fake detector (ported); False
                                          # flies the real perception stack
                                          # (not ported)
-    use_fov: bool = False                # FOV half-space rows (not ported)
-    repeat_path: int = 1                 # execute_path_times (1 ported)
+    use_fov: bool = False                # FOV half-space rows (ported)
+    repeat_path: int = 1                 # execute_path_times (ported)
     replan_check: bool = True            # committed-trajectory collision
                                          # monitor each cycle (replanCheckCB
-                                         # :631-700) (True ported)
+                                         # :631-700) (ported)
     goal_mode: bool = False              # interactive-goal navigation (not
                                          # ported)
     predictor_stale_hist: bool = False   # predictor reads the previous
-                                         # cycle's history (False ported)
+                                         # cycle's history (ported)
     render_static_grid: bool = True      # real-detector camera option
-    yaw_lookahead: float = 1.0           # trajExeCB :536-553 look-ahead yaw
-                                         # (> 0 ported); <= 0 uses the
-                                         # velocity heading
+    yaw_lookahead: float = 1.0           # trajExeCB :536-553 look-ahead yaw;
+                                         # <= 0 uses the velocity heading
+                                         # (both ported)
     # ---- goal-mode MPC input-trajectory composition (not ported) ----
     ref_mode: str = "linspace"
     ref_vel: float = 1.0
@@ -372,7 +378,7 @@ class EngineConfig:
     acc_limit: float = 20.0
     jerk_limit: float = 100.0
     violation_tol: float = 1e-3
-    # ---- goal-approach safety relaxation (opt-in; not ported) ----
+    # ---- goal-approach safety relaxation (opt-in; ported) ----
     goal_relax: bool = False
     goal_relax_radius: float = 4.0
     goal_relax_speed: float = 0.4

@@ -21,6 +21,7 @@ from intent_mpc_torch.engine.closed_loop import EngineCarry, Metrics
 from intent_mpc_torch.models.controller import ControllerState
 from intent_mpc_torch.models.detector import DetectorState
 from intent_mpc_torch.models.mpc import PlannerState
+from intent_mpc_torch.models.quad_plant import PIDState, QuadState
 from intent_mpc_torch.models.world import Scenario
 from intent_mpc_torch.ops.dense_loop import DenseScaledProblem
 from intent_mpc_torch.ops.fleet import LANES, FleetProblem
@@ -32,9 +33,12 @@ _NESTED = {
     (EngineCarry, "planner"): PlannerState,
     (EngineCarry, "controller"): ControllerState,
     (EngineCarry, "metrics"): Metrics,
+    (EngineCarry, "quad"): QuadState,
     (PlannerState, "fac_e"): ConVec,
     (QPData, "l"): ConVec,
     (QPData, "u"): ConVec,
+    **{(QuadState, f): PIDState for f in QuadState._fields
+       if f.startswith("pid_")},
 }
 
 

@@ -154,6 +154,98 @@ def test_ew_and_grouped_steps_identical_on_cpu(candidates):
     assert torch.equal(a.x, b.x)
 
 
+# (shared_refine_mode, shared_refine_x0) of the flat-iteration cases, as
+# tests/test_qp.py::test_flat_iteration_matches_grouped runs them
+FLAT_MODES = [("cg", "prev"), ("cg", "minv"), ("stationary", "prev")]
+
+
+@pytest.mark.parametrize("iters", [1, 10, 60])
+@pytest.mark.parametrize("mode", FLAT_MODES, ids=lambda m: "-".join(m))
+def test_flat_iterates_match_grouped_and_jax(candidates, mode, iters):
+    """flat_iter (ops/admm._solve_flat) on the shared factor, after 1, 10
+    and 60 iterations from the same warm start: against the port's own
+    grouped loop with the limits of the JAX package's test (x within
+    5e-4, each dual group within 2e-3 of its largest entry, prim_res rtol
+    1e-3: the flat products sum in another order, and the z clip turns a
+    last-ulp difference on a row at its bound into a discrete one), and
+    against JAX's flat loop with the shared-path limits of
+    test_admm_iterates_match_jax (x atol 1e-4 / rtol 1e-4, prim_res atol
+    1e-4 / rtol 1e-3)."""
+    jcfg, tcfg, jqs, tqs, jmean, tmean = candidates
+    kw = dict(shared_refine_mode=mode[0], shared_refine_x0=mode[1])
+    jflat = _with(jcfg, flat_iter=True, **kw)
+    tflat, tgroup = (_with(tcfg, flat_iter=f, **kw) for f in (True, False))
+    warm = (0.1 * np.random.RandomState(7).randn(3, jcfg.num_vars)
+            ).astype(np.float32)
+    jf = jadmm.admm_factor(jflat, jmean)
+    jr = jax.vmap(lambda q, x: jadmm.admm_solve(jflat, q, x, iters,
+                                                factor=jf))(
+        jqs, jnp.asarray(warm))
+    tf = tadmm.admm_factor(tflat, tmean)
+    tr = tadmm.admm_solve(tflat, tqs, torch.as_tensor(warm), iters, factor=tf)
+    tg = tadmm.admm_solve(tgroup, tqs, torch.as_tensor(warm), iters,
+                          factor=tf)
+    assert float((tr.x - tg.x).abs().max()) < 5e-4
+    for name, a, b in zip(tg.y._fields, tg.y, tr.y):
+        rel = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-9)
+        assert rel < 2e-3, (name, rel)
+    np.testing.assert_allclose(tr.prim_res.numpy(), tg.prim_res.numpy(),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(tr.prim_res.numpy(), np.asarray(jr.prim_res),
+                               atol=1e-4, rtol=1e-3)
+
+
+def test_flat_iteration_launches_no_ew_chain(candidates, monkeypatch):
+    """JAX dispatches the flat loop before the elementwise kernel's branch,
+    so with flat_iter and ew_kernel both on the solve never calls
+    ew_chain; without a factor flat_iter does not apply and it does."""
+    _, tcfg, _, tqs, _, tmean = candidates
+    calls = []
+    chain = tadmm.ew_chain
+
+    def count(*a, **k):
+        calls.append(1)
+        return chain(*a, **k)
+    monkeypatch.setattr(tadmm, "ew_chain", count)
+    cfg = _with(tcfg, flat_iter=True, ew_kernel=True)
+    tadmm.admm_solve(cfg, tqs, max_iter=5, factor=tadmm.admm_factor(cfg,
+                                                                     tmean))
+    assert not calls
+    tadmm.admm_solve(cfg, tqs, max_iter=5)
+    assert len(calls) == 5
+
+
+@pytest.mark.parametrize("path", ["shared", "per_candidate"])
+def test_stationary_refinement_matches_jax(candidates, path):
+    """shared_refine_mode="stationary": each x-update is Minv rhs plus
+    `refine` steps x += Minv (rhs - M x) against the candidate's own
+    operator (shared_refine_iters 3 on the shared factor; refine_iters 1
+    per candidate), 60 iterations from the same warm start, against JAX
+    with the limits of test_admm_iterates_match_jax's paths."""
+    jcfg, tcfg, jqs, tqs, jmean, tmean = candidates
+    kw = dict(shared_refine_mode="stationary", shared_refine_iters=3)
+    jcfg, tcfg = _with(jcfg, **kw), _with(tcfg, **kw)
+    warm = (0.1 * np.random.RandomState(7).randn(3, jcfg.num_vars)
+            ).astype(np.float32)
+    if path == "shared":
+        jf = jadmm.admm_factor(jcfg, jmean)
+        jr = jax.vmap(lambda q, x: jadmm.admm_solve(jcfg, q, x, factor=jf))(
+            jqs, jnp.asarray(warm))
+        tr = tadmm.admm_solve(tcfg, tqs, torch.as_tensor(warm),
+                              factor=tadmm.admm_factor(tcfg, tmean))
+    else:
+        jr = jax.vmap(lambda q, x: jadmm.admm_solve(jcfg, q, x))(
+            jqs, jnp.asarray(warm))
+        tr = tadmm.admm_solve(tcfg, tqs, torch.as_tensor(warm))
+    x_atol = 1e-4 if path == "shared" else 2e-5
+    np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=x_atol,
+                               rtol=1e-4)
+    np.testing.assert_allclose(tr.prim_res.numpy(), np.asarray(jr.prim_res),
+                               atol=1e-4, rtol=1e-3)
+
+
 def _reference_case(num_active, with_static):
     """The port's config and QP, and the same QP in the float64 oracle's
     dense form (P, q, A, l, u)."""
@@ -207,7 +299,9 @@ def test_converged_solve_matches_native_oracle(num_active, with_static):
 def test_unported_options_raise(problem):
     _, tcfg, _, tq = problem
     for kw in ({"block_refine": True}, {"woodbury_candidates": True},
-               {"flat_iter": True}, {"minv_dtype": "bf16"}):
+               {"folded_refine": True}, {"minv_dtype": "bf16"},
+               {"shared_refine_warm_frac": 0.5},
+               {"shared_refine_mode": "jacobi"}):
         with pytest.raises(NotImplementedError):
             tadmm.admm_solve(_with(tcfg, **kw), tq, max_iter=1)
 

@@ -164,3 +164,36 @@ def test_checkpoint_with_other_seeds_raises(tmp_path):
     with pytest.raises(ValueError, match="seeds differ"):
         H.run_trials_checkpointed(cfg, [3, 4], path, solver_iters=5,
                                   device="cpu")
+
+
+def test_checkpointed_rows_equal_run_trials_quadrotor_goal_relax(tmp_path):
+    """With the rigid-body plant and goal relax on, the carry holds the
+    quadrotor state and the stall counter: a run cut after its first
+    chunk and resumed from its file gives rows identical (==) to the
+    uninterrupted run_trials, and the file restores both fields bit for
+    bit. The goal-relax radius and speed count the whole approach as
+    stalled, so the counter and the annealed safety distance move."""
+    def cfg_of(timeout):
+        cfg = _config(timeout=timeout)
+        return cfg.replace(engine=dataclasses.replace(
+            cfg.engine, plant="quadrotor", goal_relax=True,
+            goal_relax_radius=20.0, goal_relax_speed=5.0,
+            goal_relax_grace=2))
+    cfg = cfg_of(1.2)
+    plain = H.run_trials(cfg, SEEDS, solver_iters=30, device="cpu")
+    path = str(tmp_path / "q.npz")
+    H.run_trials_checkpointed(cfg_of(0.6), SEEDS, path, chunk_cycles=6,
+                              solver_iters=30, device="cpu")
+    carry, start, _, _ = ckpt.load_checkpoint(path, cfg, device="cpu")
+    assert start == 6 and carry.stall_cycles.tolist() == [6, 6]
+    assert float(carry.quad.quat[:, 0].min()) < 1.0   # the body tilted
+    resumed = H.run_trials_checkpointed(cfg, SEEDS, path, chunk_cycles=6,
+                                        solver_iters=30, device="cpu")
+    assert resumed == plain
+    scen = sh.stack_scenarios(cfg, SEEDS, device="cpu")
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5)
+    ran = cl.init_carry(cfg, scen, device="cpu")
+    for i in range(6):     # the harness's cycles (its reference spacing)
+        ran, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], empty_grid(),
+                                 ran, i, 30)
+    _assert_same_bits(carry, ran)

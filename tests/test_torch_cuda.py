@@ -561,14 +561,21 @@ def test_checkpointed_rows_equal_plain_rows_on_card(cuda_device, fused,
 
 
 # solver options of the sync test's cases (the truncation="osqp" loop reads
-# one flag per block on the host by design and is not among them)
+# one flag per block on the host by design and is not among them), and the
+# loop options of benchmark/capture.LOOP_OPTIONS it runs by name, on the
+# default path and, where named "fused_...", on the fused path
 _NO_SYNC = {"default": {}, "fused": dict(fused_solve=True),
             "default_polish_temporal_rho": dict(polish=True,
                                                 temporal_rho=True),
             "fused_polish_temporal_rho": dict(fused_solve=True, polish=True,
                                               temporal_rho=True),
             "per_candidate_adaptive": dict(shared_factor=False,
-                                           adaptive_rho=True)}
+                                           adaptive_rho=True),
+            "goal_relax": "goal_relax", "drift_refresh": "drift_refresh",
+            "quadrotor": "quadrotor", "use_fov": "use_fov",
+            "no_predictor": "no_predictor", "flat_iter": "flat_iter",
+            "stationary": "stationary", "predictor_stale": "predictor_stale",
+            "fused_quadrotor": "quadrotor", "fused_use_fov": "use_fov"}
 
 
 @pytest.mark.cuda
@@ -578,16 +585,27 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
     torch.cuda.set_sync_debug_mode("error") a factor-refresh cycle (4) and
     a reuse cycle (5) of the production config run without raising, after
     4 warm-up cycles have built the kernels and the cached constants. The
-    default and fused paths, and with them the polish, temporal rho, and
-    a factor per candidate with in-solve adaptive rho."""
+    default and fused paths, and with them the polish, temporal rho, a
+    factor per candidate with in-solve adaptive rho, and each loop option:
+    goal relax and the drift-aware refresh decide per scenario on the
+    device (the stall counter starts past the grace, so the anneal is
+    live)."""
+    from intent_mpc_torch.benchmark.capture import option_start, with_option
     cfg = IntentMPCConfig()
+    opt = _NO_SYNC[solve]
+    start = None
+    if isinstance(opt, str):
+        cfg = with_option(cfg, opt)
+        start = option_start(opt)
+        opt = dict(fused_solve=solve.startswith("fused"))
     cfg = cfg.replace(planner=dataclasses.replace(
-        cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
-                                                **_NO_SYNC[solve])))
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver, **opt)))
     scen = sh.stack_scenarios(cfg, [0, 1])
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
     occ = empty_grid("cuda")
     carry = cl.init_carry(cfg, scen)
+    if start is not None:
+        carry = start(carry, cfg)
     for i in range(4):
         carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
     torch.cuda.synchronize()
@@ -709,3 +727,35 @@ def test_checkpointed_rows_equal_plain_rows_on_card_temporal_rho(
                                     chunk_cycles=6, solver_iters=30)
     assert harness.run_trials_checkpointed(cfg, [1, 2], cut, chunk_cycles=6,
                                            solver_iters=30) == ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ticks", [1, 100])
+def test_quad_plant_on_card_matches_cpu(cuda_device, ticks):
+    """The rigid-body plant (no kernel of its own: eager PyTorch ops) on
+    the card against its CPU run from the same seeded flying state and
+    commands: after one tick within 2e-5, after 100 within 1e-3, as
+    tests/test_torch_quad_plant.py holds it against JAX (each PID's
+    setpoint derivative, rounding noise over the 1 ms step, within
+    2e-3)."""
+    from intent_mpc_torch.engine.checkpoint import flatten, unflatten
+    from intent_mpc_torch.models import quad_plant as qp_
+    g = torch.Generator().manual_seed(4)
+    st = qp_.quad_init(torch.randn((16, 3), generator=g))
+    leaves = [t + 0.1 * torch.randn(t.shape, generator=g)
+              for t in flatten(st)]
+    q = leaves[2]
+    leaves[2] = q / q.norm(dim=-1, keepdim=True)
+    st = unflatten(st, leaves)
+    acc = torch.randn((16, 3), generator=g) * 2.0
+    yaw = torch.rand((16,), generator=g) * 6.0 - 3.0
+    cfg = qp_.QuadPlantConfig()
+    cpu, card = st, unflatten(st, [t.cuda() for t in leaves])
+    for _ in range(ticks):
+        cpu = qp_.quad_step(cfg, cpu, acc, yaw, 0.01)
+        card = qp_.quad_step(cfg, card, acc.cuda(), yaw.cuda(), 0.01)
+    tol = 2e-5 if ticks == 1 else 1e-3
+    for i, (a, b) in enumerate(zip(flatten(card), flatten(cpu))):
+        dinput = i >= 6 and (i - 6) % 3 == 1
+        torch.testing.assert_close(a.cpu(), b, rtol=tol,
+                                   atol=2e-3 if dinput else tol)

@@ -215,18 +215,21 @@ def _fused(cfg, **solver):
 def test_fused_solve_options_accepted():
     """With fused_solve the options only admm_solve reads are not checked
     (the JAX planner's fused branch never reads them); admm_solve itself
-    still refuses what it does not run. polish and temporal_rho run on
-    the fused path; an unported option the fused solve shares
-    (minv_dtype) is refused there too."""
+    still refuses what it does not run (stationary refinement it runs).
+    polish and temporal_rho run on the fused path; an unported option
+    the fused solve shares (minv_dtype) is refused there too."""
     cfg = small_config()
     fused = _fused(cfg, fused_solve=True, shared_refine_mode="stationary",
                    shared_refine_x0="minv", factor_reuse_cycles=1)
     tcl.check_supported(fused)
+    tadmm.check_supported(fused.planner.solver, fused=False)
     tcl.check_supported(_fused(cfg, fused_solve=True))
     tcl.check_supported(_fused(cfg, fused_solve=True, polish=True,
                                temporal_rho=True))
-    with pytest.raises(NotImplementedError, match="shared_refine_mode"):
-        tadmm.check_supported(fused.planner.solver, fused=False)
+    warm = _fused(cfg, fused_solve=True, shared_refine_warm_frac=0.5)
+    tcl.check_supported(warm)
+    with pytest.raises(NotImplementedError, match="shared_refine_warm_frac"):
+        tadmm.check_supported(warm.planner.solver, fused=False)
     with pytest.raises(NotImplementedError, match="minv_dtype"):
         tcl.check_supported(_fused(cfg, fused_solve=True, minv_dtype="bf16"))
 

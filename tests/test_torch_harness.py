@@ -75,24 +75,79 @@ def test_aggregate_matches_jax(both_rows):
     assert H.aggregate([]) == {} and len(H.aggregate(trows)) == 14
 
 
-UNPORTED = [["--goal-relax"], ["--predictor-stale"], ["--plant", "quadrotor"],
-            ["--drift-refresh", "0.1"], ["--flat-iter"],
-            ["--refine-mode", "stationary"], ["--fused", "--flat-iter"]]
+# options the port does not run yet; the CLI has no flag for them, so the
+# test sets them in the config the flags describe
+UNPORTED = {"woodbury_candidates": dict(woodbury_candidates=True),
+            "block_refine": dict(block_refine=True),
+            "folded_refine": dict(folded_refine=True),
+            "minv_dtype": dict(minv_dtype="bf16"),
+            "shared_refine_warm_frac": dict(shared_refine_warm_frac=0.5),
+            "goal_mode": dict(goal_mode=True),
+            "static_clustering": dict(static_clustering=True),
+            "use_fake_detector": dict(use_fake_detector=False)}
 
 
-@pytest.mark.parametrize("flags", UNPORTED, ids=lambda f: " ".join(f))
+def _with_option(cfg, **kw):
+    """cfg with one solver, planner or engine field set."""
+    (k, v), = kw.items()
+    if k in cfg.engine.__dataclass_fields__:
+        return cfg.replace(engine=dataclasses.replace(cfg.engine, **kw))
+    if k in cfg.planner.__dataclass_fields__:
+        return cfg.replace(planner=dataclasses.replace(cfg.planner, **kw))
+    return cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(cfg.planner.solver, **kw)))
+
+
+@pytest.mark.parametrize("flags", list(UNPORTED))
 def test_cli_refuses_unported_flags_before_any_work(flags, monkeypatch,
                                                     tmp_path):
-    """Each flag that names an option the port does not run parses, then
-    raises NotImplementedError before a scenario is built; with --fused
-    too, where the fleet solve would not read the option."""
+    """A config that names an option the port does not run raises
+    NotImplementedError in the CLI before a scenario is built, with
+    --fused too, where the fleet solve would not read a solver option."""
     def no_work(*a, **k):
         raise AssertionError("work started")
+    build = H.config_from_args
+    monkeypatch.setattr(H, "config_from_args",
+                        lambda args: _with_option(build(args),
+                                                  **UNPORTED[flags]))
     monkeypatch.setattr(H.sh, "stack_scenarios", no_work)
-    with pytest.raises(NotImplementedError):
-        H.main(["--device", "cpu", "--trials", "1", "--out",
-                str(tmp_path)] + flags)
+    for extra in ([], ["--fused"]):
+        with pytest.raises(NotImplementedError, match=flags):
+            H.main(["--device", "cpu", "--trials", "1", "--out",
+                    str(tmp_path)] + extra)
     assert not os.listdir(tmp_path)
+
+
+# the loop-option flags and the config field each sets (as the JAX CLI)
+LOOP_FLAGS = {
+    "--goal-relax": (["--goal-relax"], "engine", "goal_relax", True),
+    "--predictor-stale": (["--predictor-stale"], "engine",
+                          "predictor_stale_hist", True),
+    "--plant quadrotor": (["--plant", "quadrotor"], "engine", "plant",
+                          "quadrotor"),
+    "--drift-refresh": (["--drift-refresh", "0.1"], "solver",
+                        "factor_drift_refresh", 0.1),
+    "--flat-iter": (["--flat-iter"], "solver", "flat_iter", True),
+    "--refine-mode stationary": (["--refine-mode", "stationary"], "solver",
+                                 "shared_refine_mode", "stationary"),
+}
+
+
+@pytest.mark.parametrize("case", list(LOOP_FLAGS))
+def test_cli_runs_loop_option_flags(case, tmp_path):
+    """Each loop-option flag sets the config field the JAX CLI sets and
+    runs: one trial of 3 cycles on the CPU at a small map writes its row,
+    with 3 solves."""
+    flags, where, field, value = LOOP_FLAGS[case]
+    cfg = H.config_from_args(H.parse_args(["--out", str(tmp_path)] + flags))
+    obj = cfg.engine if where == "engine" else cfg.planner.solver
+    assert getattr(obj, field) == value
+    agg = H.main(["--device", "cpu", "--trials", "1", "--timeout", "0.3",
+                  "--obstacles", "6", "--max-obstacles", "6", "--iters",
+                  "30", "--out", str(tmp_path)] + flags)
+    assert agg["num_trials"] == 1
+    rows = A.load_rows(str(tmp_path / "trials.csv"))
+    assert rows[0]["mpc_solve_count"] == 3
 
 
 @pytest.mark.parametrize("flags", [["--per-candidate-factor"],
@@ -180,3 +235,22 @@ def test_load_burners_start_and_stop():
         bench.stop_burners(procs)
     assert not any(p.is_alive() for p in procs)
     assert bench.start_burners(0) == []
+
+
+def test_bench_solver_flags_set_the_jax_bench_fields():
+    """bench.py's solver-variant flags set the SolverConfig fields JAX's
+    bench.py sets (its main, :98-132), on the port's bench config."""
+    args = bench.parse_args(["--refine", "3", "--refine-mode", "stationary",
+                             "--refine-x0", "minv", "--factor-reuse", "2",
+                             "--drift-refresh", "0.1", "--flat-iter",
+                             "--per-candidate-factor", "--fused"])
+    sv = bench.bench_config(args.obstacles, args.fused,
+                            bench.solver_fields(args)).planner.solver
+    assert (sv.shared_refine_iters, sv.shared_refine_mode,
+            sv.shared_refine_x0, sv.factor_reuse_cycles,
+            sv.factor_drift_refresh, sv.flat_iter, sv.shared_factor,
+            sv.fused_solve) == (3, "stationary", "minv", 2, 0.1, True,
+                                False, True)
+    plain = bench.bench_config(solver=bench.solver_fields(
+        bench.parse_args([]))).planner.solver
+    assert plain == bench.bench_config().planner.solver

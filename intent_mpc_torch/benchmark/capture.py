@@ -13,11 +13,12 @@ import time
 
 import torch
 
+from intent_mpc_torch.benchmark import real_loop
 from intent_mpc_torch.engine import closed_loop as cl
 from intent_mpc_torch.models import mpc as mpclib
-from intent_mpc_torch.models.occupancy import empty_grid
 from intent_mpc_torch.models.world import straight_line_ref_traj
 from intent_mpc_torch.parallel import sharding as sh
+from intent_mpc_torch.utils.config import RealDetectorConfig, small_config
 
 
 def cuda_time_ms(fn, reps=50):
@@ -69,6 +70,47 @@ LOOP_OPTIONS = {
 }
 
 
+# the real-perception DYNUS configuration of results/real_dynus4 and
+# results/real_dynus28 (the flags of `real_loop --dynus`)
+REAL_DYNUS_FLAGS = ("--dynus", "--obstacles", "200", "--timeout", "60",
+                    "--max-obstacles", "64", "--max-tracks", "16")
+
+
+def real_dynus_config():
+    """The real-perception mode of `real_loop` at REAL_DYNUS_FLAGS: the
+    rendered-depth detector, static clustering of each seed's prebuilt
+    static map, the sampled predictor on it."""
+    args = real_loop.parse_args(list(REAL_DYNUS_FLAGS))
+    return real_loop.real_cfg_of(real_loop.build_cfg(args), args)
+
+
+def real_small_config(world: str, fused_solve: bool = False):
+    """A small real-perception config for card-against-CPU checks: "micro"
+    (four dynamic obstacles in a corridor, real_loop's default world) or
+    "dynus" (24 obstacles, 65% dynamic, the statics through each seed's
+    prebuilt map and per-cycle clustering rows, as real_loop --dynus), at
+    horizon 8, 4 QP slots and 4 tracks."""
+    cfg = small_config(num_obstacles=24 if world == "dynus" else 4,
+                       horizon=8, timeout=0.5, max_obstacles=4, hist=8)
+    rd = RealDetectorConfig(max_tracks=4, max_detections=4)
+    if world == "dynus":
+        cfg = cfg.replace(
+            world=dataclasses.replace(cfg.world, x_range=(3.0, 14.0),
+                                      y_range=(-4.0, 4.0)),
+            goal=(12.0, 0.0, 2.0), real_detector=rd,
+            planner=dataclasses.replace(cfg.planner, static_clustering=True),
+            engine=dataclasses.replace(cfg.engine, use_fake_detector=False,
+                                       render_static_grid=False))
+    else:
+        cfg = cfg.replace(
+            world=dataclasses.replace(cfg.world, dynamic_ratio=1.0,
+                                      x_range=(3.0, 8.0), y_range=(-2.0, 2.0),
+                                      z_range=(1.0, 2.0)),
+            real_detector=rd, start=(0.0, 0.0, 1.5), goal=(8.0, 0.0, 1.5),
+            engine=dataclasses.replace(cfg.engine, use_fake_detector=False))
+    return fused(cfg) if fused_solve else cfg
+
+
 def with_option(cfg, name):
     """cfg with the LOOP_OPTIONS entry `name` set."""
     engine, solver, _ = LOOP_OPTIONS[name]
@@ -85,21 +127,23 @@ def option_start(name):
 
 
 def run_loop(cfg, S, cycles, device, start=None):
-    """Drive the closed loop through the public entry points; returns
-    (carry, per-cycle seconds with a synchronize after each cycle,
-    per-cycle positions on the CPU). `start(carry, cfg)` changes the
-    fresh carry before the first cycle."""
+    """Drive the closed loop through the public entry points (with the
+    static maps the config reads, real_loop.static_maps); returns (carry,
+    per-cycle seconds with a synchronize after each cycle, per-cycle
+    positions on the CPU). `start(carry, cfg)` changes the fresh carry
+    before the first cycle."""
     scen = sh.stack_scenarios(cfg, range(S), device=device)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5,
                                  device=device)
-    occ = empty_grid(device)
+    occ, veto = real_loop.static_maps(cfg, range(S), device)
     carry = cl.init_carry(cfg, scen, device=device)
     if start is not None:
         carry = start(carry, cfg)
     secs, positions = [], []
     for i in range(cycles):
         t0 = time.perf_counter()
-        carry, pos = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
+        carry, pos = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry,
+                                     i, veto_occ=veto)
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)

@@ -5,7 +5,8 @@
 
 Runs the default DYNUS closed loop (with `--fused`, the fleet-fused
 solve of bench.py --fused; with `--option NAME`, one of the loop options
-of benchmark/capture.LOOP_OPTIONS), warms up on cycles 0-3, then
+of benchmark/capture.LOOP_OPTIONS, or `real_dynus`, the real-perception
+DYNUS loop of benchmark/real_loop.py --dynus), warms up on cycles 0-3, then
 profiles `--cycles` further cycles (4.. , so one factor refresh and
 three reuse cycles at the default k = 4) with torch.profiler, and prints
 one JSON line: wall time per cycle, device-busy time per cycle (the
@@ -24,10 +25,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from intent_mpc_torch.benchmark.bench import bench_config
-from intent_mpc_torch.benchmark.capture import (LOOP_OPTIONS, option_start,
+from intent_mpc_torch.benchmark.capture import (LOOP_OPTIONS, fused,
+                                                option_start,
+                                                real_dynus_config,
                                                 with_option)
+from intent_mpc_torch.benchmark.real_loop import static_maps
 from intent_mpc_torch.engine import closed_loop as cl
-from intent_mpc_torch.models.occupancy import empty_grid
+from intent_mpc_torch.models import clustering as clus
 from intent_mpc_torch.models.world import straight_line_ref_traj
 from intent_mpc_torch.ops import ew_chain as ew
 from intent_mpc_torch.ops import fleet as fl
@@ -40,31 +44,38 @@ def main():
     ap.add_argument("--scenarios", type=int, default=128)
     ap.add_argument("--cycles", type=int, default=4)
     ap.add_argument("--fused", action="store_true")
-    ap.add_argument("--option", default=None, choices=sorted(LOOP_OPTIONS))
+    ap.add_argument("--option", default=None,
+                    choices=sorted(LOOP_OPTIONS) + ["real_dynus"])
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
     dev = resolve_device(None)
-    cfg = bench_config(fused=args.fused)
-    if args.option:
-        cfg = with_option(cfg, args.option)
+    start = None
+    if args.option == "real_dynus":
+        cfg = real_dynus_config()
+        cfg = fused(cfg) if args.fused else cfg
+    else:
+        cfg = bench_config(fused=args.fused)
+        if args.option:
+            cfg = with_option(cfg, args.option)
+            start = option_start(args.option)
     scen = sh.stack_scenarios(cfg, range(args.scenarios), device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device=dev)
-    occ = empty_grid(dev)
+    occ, veto = static_maps(cfg, range(args.scenarios), dev)
     carry = cl.init_carry(cfg, scen, device=dev)
-    start = option_start(args.option) if args.option else None
     if start is not None:
         carry = start(carry, cfg)
     for i in range(4):
-        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
+        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i,
+                                   veto_occ=veto)
     torch.cuda.synchronize()
 
-    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = 0
+    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = clus.HOST_READS = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(4, 4 + args.cycles):
             carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
-                                       carry, i)
+                                       carry, i, veto_occ=veto)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if args.trace:
@@ -94,6 +105,7 @@ def main():
         "kernel_launches_per_cycle": len(kernels) / c,
         "ew_chain_launches_per_cycle": ew.EW_LAUNCHES / c,
         "fleet_admm_launches_per_cycle": fl.FLEET_LAUNCHES / c,
+        "dbscan_host_reads_per_cycle": clus.HOST_READS / c,
         "top_kernels": [{"name": k[:80], "count_per_cycle": n / c,
                          "device_ms_per_cycle": t / c / 1e3}
                         for k, (n, t) in top],

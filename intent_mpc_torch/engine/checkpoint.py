@@ -7,7 +7,11 @@ issues the same operations on the same bits as the uninterrupted run, so
 it continues the same trajectories.
 
 The carry is nested NamedTuples whose optional fields may be None (the
-planner's carried shared factor exists only with factor reuse). `flatten`
+planner's carried shared factor exists only with factor reuse, the real
+detector's track table, history rings and perception stats only with
+real perception). The static maps of a real-perception fleet are not
+state: like the scenarios they are rebuilt from the seeds
+(benchmark/real_loop.static_maps). `flatten`
 lists the tensor leaves in field order and skips None; `unflatten` puts
 leaves back into a template built by `init_carry` from the config, so a
 field, shape or dtype mismatch raises instead of mis-zipping leaves.

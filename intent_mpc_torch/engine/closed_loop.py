@@ -1,6 +1,6 @@
 """Closed-loop simulation engine: world -> detector -> predictor -> MPC ->
-controller -> dynamics (port of intent_mpc_tpu/engine/closed_loop.py,
-the ground-truth-detector loop in predefined-goal mode).
+controller -> dynamics (port of intent_mpc_tpu/engine/closed_loop.py in
+predefined-goal mode).
 
 A batch of S scenarios steps together:
 
@@ -11,28 +11,34 @@ A batch of S scenarios steps together:
     history pushes (ticks 0/3/6), and the benchmark monitor's per-sample
     metric updates (run_mpc_benchmark.py:224-385).
 
-The port runs the ground-truth fake detector with its engine options:
-the predictor or the constant-obstacle MPC, either plant or perfect
-tracking, the camera-FOV rows, the stale predictor history, the
-committed-trajectory monitor on or off, path repetition, look-ahead or
-velocity-heading yaw, and the goal-approach relaxation.
-`check_supported` raises for goal mode, static clustering and real
-perception.
+The port runs the ground-truth fake detector or the real perception
+stack (use_fake_detector=False: a depth frame rendered at each sense
+tick, DBSCAN detections, KF tracks, models/real_detector.py), static
+clustering of the occupancy map into rotated-box MPC rows, and the
+engine options: the predictor or the constant-obstacle MPC, either plant
+or perfect tracking, the camera-FOV rows, the stale predictor history,
+the committed-trajectory monitor on or off, path repetition, look-ahead
+or velocity-heading yaw, and the goal-approach relaxation.
+`check_supported` raises for goal mode.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from intent_mpc_torch.models import clustering as clus
 from intent_mpc_torch.models import detector as det
 from intent_mpc_torch.models import mpc as mpclib
 from intent_mpc_torch.models import predictor as predlib
+from intent_mpc_torch.models import real_detector as rdet
 from intent_mpc_torch.models.controller import (ControllerState, acc_command,
                                                 init_controller)
 from intent_mpc_torch.models.occupancy import (OccupancyGrid, empty_grid,
-                                               is_occupied)
+                                               is_occupied,
+                                               local_occupied_points)
 from intent_mpc_torch.models.quad_plant import (QuadPlantConfig, QuadState,
                                                 quad_init, quad_step)
 from intent_mpc_torch.models.world import Scenario, obstacle_state
@@ -106,6 +112,9 @@ class EngineCarry(NamedTuple):
                                   # plant="quadrotor"; pos/vel mirror it)
     done: torch.Tensor            # monitor goal criterion met
     metrics: Metrics
+    # real perception (use_fake_detector=False): the depth-camera track
+    # table and per-track history rings; None on the GT path
+    real_det: Optional[rdet.RealDetectorState] = None
     # goal-approach relaxation (EngineConfig.goal_relax): (S,) int32
     # consecutive stalled-near-goal cycles driving the dynamic-safety
     # anneal; None when the option is off
@@ -118,15 +127,8 @@ def check_supported(cfg: IntentMPCConfig) -> None:
     if e.plant not in ("double_integrator", "quadrotor"):
         raise ValueError("plant must be 'double_integrator' or "
                          "'quadrotor', got %r" % (e.plant,))
-    unported = {
-        "use_fake_detector": not e.use_fake_detector,
-        "goal_mode": e.goal_mode,
-        "static_clustering": p.static_clustering,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError("engine options not ported: %s"
-                                  % ", ".join(bad))
+    if e.goal_mode:
+        raise NotImplementedError("engine options not ported: goal_mode")
     check_solver(p.solver)
 
 
@@ -171,6 +173,9 @@ def init_carry(cfg: IntentMPCConfig, scenario: Scenario,
         quad=quad_init(start.clone()),
         done=torch.zeros((S,), dtype=torch.bool, device=dev),
         metrics=init_metrics(S, dev),
+        real_det=(None if cfg.engine.use_fake_detector else
+                  rdet.init_real_detector(cfg.real_detector, cfg.detector,
+                                          S, dev)),
         stall_cycles=(torch.zeros((S,), dtype=torch.int32, device=dev)
                       if cfg.engine.goal_relax else None))
 
@@ -268,15 +273,51 @@ def _goal_relax(cfg: IntentMPCConfig, carry: EngineCarry,
     return stall, dsd - relax
 
 
+def _static_rows(cfg: IntentMPCConfig, occ: OccupancyGrid,
+                 pos: torch.Tensor):
+    """Local static clustering (getStaticObstacles; the real-perception
+    composition, where statics reach the MPC through the static map ->
+    obstacleClustering -> rotated-box rows, mpcPlanner.cpp:191-193 +
+    updateObstacleParam :1186-1195): the nearest occupied voxels around
+    each scenario's position, clustered into cluster_slots boxes."""
+    p = cfg.planner
+    pts, valid = local_occupied_points(occ, pos, p.cluster_window,
+                                       p.cluster_points)
+    so = clus.cluster_obstacles(
+        clus.ClusteringConfig(max_clusters=4, tree_level=2, min_pts=8),
+        pts, valid)
+    if so.centroid.shape[1] != p.cluster_slots:
+        raise ValueError("cluster_slots %d, the clustering gives %d"
+                         % (p.cluster_slots, so.centroid.shape[1]))
+    return so.centroid, so.size, so.yaw, so.active
+
+
+def _sense(cfg: IntentMPCConfig, rd, scenario: Scenario, pos, yaw, obs_pos,
+           cam_occ, veto_occ):
+    """One real-perception tick: the camera images every box of the
+    scenario (the GT scene), the stack tracks what it sees."""
+    obs_all = torch.ones(obs_pos.shape[:2], dtype=torch.bool,
+                         device=obs_pos.device)
+    return rdet.sense_and_track(cfg.real_detector, cfg.detector, rd, pos,
+                                yaw, obs_pos, scenario.bbox, obs_all, cam_occ,
+                                obs_dynamic=~scenario.is_static,
+                                static_occ=veto_occ)
+
+
 def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
                  ref_traj: torch.Tensor, traj_len: int,
                  occ: OccupancyGrid, carry: EngineCarry, cycle_idx: int,
-                 solver_iters: Optional[int] = None
+                 solver_iters: Optional[int] = None,
+                 veto_occ: Optional[OccupancyGrid] = None
                  ) -> Tuple[EngineCarry, torch.Tensor]:
     """One 10 Hz MPC cycle + its 10 control ticks for S scenarios.
 
     scenario (S, N, ...); ref_traj (L, 3) shared; traj_len its valid
-    length; cycle_idx the Python cycle counter. Returns (carry, pos (S, 3))."""
+    length; occ the static map, shared or one per scenario; cycle_idx
+    the Python cycle counter. veto_occ: the grid of the real detector's
+    static-map veto (RealDetectorConfig.static_map_veto), the solid
+    static volume; with the veto on and none given, occ. Returns (carry,
+    pos (S, 3))."""
     ecfg = cfg.engine
     dev = carry.pos.device
     S = carry.pos.shape[0]
@@ -289,14 +330,31 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
 
     # ---- detector updates at cycle start ----
     obs_pos0, _ = obstacle_state(scenario, t0)
-    d = det.fd_update(cfg.detector, carry.detector, obs_pos0, t0)
-    d = det.hist_push(d, obs_pos0)
-    # predictor_stale_hist: the predictor and the MPC read the history as
-    # of the previous cycle's last 30 Hz tick (the reference's 30 Hz
-    # predictor-timer staleness bound); by default the fresh push
-    d_query = carry.detector if ecfg.predictor_stale_hist else d
-    pos_h, vel_h, acc_h, size_h, hist_len, visible = det.query_history(
-        cfg.detector, d_query, scenario.bbox, carry.pos)
+    rd = carry.real_det
+    if ecfg.use_fake_detector:
+        d = det.fd_update(cfg.detector, carry.detector, obs_pos0, t0)
+        d = det.hist_push(d, obs_pos0)
+        # predictor_stale_hist: the predictor and the MPC read the history
+        # as of the previous cycle's last 30 Hz tick (the reference's 30 Hz
+        # predictor-timer staleness bound); by default the fresh push
+        d_query = carry.detector if ecfg.predictor_stale_hist else d
+        pos_h, vel_h, acc_h, size_h, hist_len, visible = det.query_history(
+            cfg.detector, d_query, scenario.bbox, carry.pos)
+    else:
+        # real perception (use_fake_detector=false, mpcNavigation.cpp:
+        # 129-136): render a depth frame at the drone's pose, run the
+        # detect/track/classify stack and query track histories
+        d = carry.detector
+        cam_occ = occ if ecfg.render_static_grid else None
+        if not cfg.real_detector.static_map_veto:
+            veto_occ = None
+        elif veto_occ is None:
+            veto_occ = occ
+        rd = _sense(cfg, rd, scenario, carry.pos, carry.yaw, obs_pos0,
+                    cam_occ, veto_occ)
+        pos_h, vel_h, acc_h, size_h, hist_len, visible = rdet.query_history(
+            cfg.real_detector, cfg.detector, rd, carry.pos,
+            static_occ=veto_occ)
 
     # ---- replan-check collision monitor (replanCheckCB :414-422); in
     # predefined-goal mode it only counts: the engine replans every cycle
@@ -308,6 +366,9 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     else:
         traj_hit = torch.zeros((S,), dtype=torch.bool, device=dev)
     planner_in = carry.planner
+
+    static_obs = (_static_rows(cfg, occ, carry.pos)
+                  if cfg.planner.static_clustering else None)
 
     dyn_safety, stall_new = None, carry.stall_cycles
     if ecfg.goal_relax:
@@ -321,7 +382,7 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
             cfg.planner, planner_in, carry.pos, carry.vel, ref_traj, traj_len,
             prediction, visible, solver_iters, cycle_idx=cycle_idx,
             curr_yaw=carry.yaw if ecfg.use_fov else None,
-            dyn_safety=dyn_safety)
+            dyn_safety=dyn_safety, static_obs=static_obs)
     else:
         # use_predictor=false: obstacles held constant over the horizon
         # (mpcNavigation.cpp:301-311 + updateDynamicObstacles); as in JAX
@@ -329,7 +390,8 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         plan_out = mpclib.make_plan(
             cfg.planner, planner_in, carry.pos, carry.vel, ref_traj,
             traj_len, pos_h[:, :, 0], vel_h[:, :, 0], size_h[:, :, 0],
-            visible, solver_iters, dyn_safety=dyn_safety)
+            visible, solver_iters, static_obs=static_obs,
+            dyn_safety=dyn_safety)
 
     run_mpc = active & ~carry.stopping
     planner = tree_where(run_mpc, plan_out.state, planner_in)
@@ -426,8 +488,12 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         obs_pos_t, _ = obstacle_state(scenario, tk + dt)
         # ~30 Hz history pushes; tick 0's push is the cycle-start push above
         if k in ecfg.hist_ticks and k != 0:
-            d2 = det.fd_update(cfg.detector, d, obs_pos_t, tk + dt)
-            d = det.hist_push(d2, obs_pos_t)
+            if ecfg.use_fake_detector:
+                d2 = det.fd_update(cfg.detector, d, obs_pos_t, tk + dt)
+                d = det.hist_push(d2, obs_pos_t)
+            else:
+                rd = _sense(cfg, rd, scenario, pos, yaw, obs_pos_t, cam_occ,
+                            veto_occ)
 
         # ---- monitor updates (masked once done) ----
         dist_boxes = _aabb_distance(pos, obs_pos_t, scenario.bbox)
@@ -502,7 +568,7 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         stopping=stopping, stop_pos=stop_pos, repeats_left=repeats_left,
         tracking_start=tracking_start, yaw=yaw,
         ref_anchor=carry.ref_anchor, quad=quad, done=done, metrics=metrics,
-        stall_cycles=stall_new)
+        real_det=rd, stall_cycles=stall_new)
     return new_carry, pos
 
 
@@ -512,9 +578,11 @@ def run_episode(cfg: IntentMPCConfig, scenario: Scenario,
                 solver_iters: Optional[int] = None,
                 num_cycles: Optional[int] = None,
                 record_path: bool = False,
-                device=None):
+                device=None,
+                veto_occ: Optional[OccupancyGrid] = None):
     """Run a batch of episodes (scenario axis S) on `device` (the GPU by
-    default). Returns (final EngineCarry, path (S, C, 3) or None)."""
+    default); occ and veto_occ as episode_step takes them. Returns (final
+    EngineCarry, path (S, C, 3) or None)."""
     dev = resolve_device(device)
     scenario = Scenario(*(a.to(dev) for a in scenario))
     ref_traj = ref_traj.to(dev)
@@ -525,7 +593,7 @@ def run_episode(cfg: IntentMPCConfig, scenario: Scenario,
     paths = []
     for i in range(n):
         carry, p = episode_step(cfg, scenario, ref_traj, traj_len, occ, carry,
-                                i, solver_iters)
+                                i, solver_iters, veto_occ=veto_occ)
         if record_path:
             paths.append(p)
     return carry, (torch.stack(paths, dim=1) if record_path else None)
@@ -570,5 +638,33 @@ def summarize(cfg: IntentMPCConfig, carry: EngineCarry) -> list:
             "mpc_prim_res_max": float(m.prim_res_max[i]),
             "traj_collision_cycles": int(m.traj_collision_cycles[i]),
             "stop_replans": int(m.stop_replans[i]),
+        })
+    return out
+
+
+def perception_summary(carry: EngineCarry) -> list:
+    """Track-vs-GT perception quality of real-detector episodes, one dict
+    per scenario (models/real_detector.PerceptionStats); [] on the GT
+    path."""
+    if carry.real_det is None:
+        return []
+    st = rdet.PerceptionStats(*(a.detach().cpu()
+                                for a in carry.real_det.stats))
+    out = []
+    for i in range(st.err_n.shape[0]):
+        err_n = max(int(st.err_n[i]), 1)
+        out.append({
+            "track_pos_rmse": float(math.sqrt(float(st.err_sq_sum[i])
+                                              / err_n)),
+            "track_matches": int(st.err_n[i]),
+            "missed_rate": float(st.missed_sum[i])
+            / max(int(st.gt_in_fov_sum[i]), 1),
+            "missed_count": int(st.missed_sum[i]),
+            "gt_in_fov_ticks": int(st.gt_in_fov_sum[i]),
+            "spurious_rate": float(st.spurious_sum[i])
+            / max(int(st.track_ticks_sum[i]), 1),
+            "spurious_count": int(st.spurious_sum[i]),
+            "dyn_track_ticks": int(st.track_ticks_sum[i]),
+            "track_births": int(st.births_sum[i]),
         })
     return out

@@ -1,7 +1,8 @@
 """MPC planner: intent-weighted multi-hypothesis candidate solve and
 selection (port of intent_mpc_tpu/models/mpc.py): the predictor path
-`make_plan_with_pred`, with the camera-FOV rows and the goal-relax
-safety distance, and the constant-obstacle `make_plan`.
+`make_plan_with_pred`, with the camera-FOV rows, the goal-relax
+safety distance and the clustered static rows, and the constant-obstacle
+`make_plan`.
 
 Rebuild of trajPlanner::mpcPlanner (trajectory_planner/mpcPlanner.cpp).
 The reference solves <=6 candidate QPs sequentially under a 0.15 s
@@ -76,9 +77,11 @@ def init_planner_state(cfg: PlannerConfig, batch: int,
     fac = {}
     if cfg.solver.factor_reuse_cycles > 1:
         # identity-preconditioner placeholder until the first refresh;
-        # obs scaling sized for K slots + 1 second-series slot
+        # obs scaling sized for K slots + 1 second-series slot, where
+        # static clustering appends cluster_slots rows to every QP
         n = cfg.num_vars
-        K = cfg.max_obstacles
+        K = cfg.max_obstacles + (cfg.cluster_slots if cfg.static_clustering
+                                 else 0)
         fac = dict(
             fac_d=torch.ones((S, n), **kw),
             fac_e=qplib.ConVec(eq=torch.ones((S, H, 8), **kw),
@@ -305,6 +308,26 @@ def _pad_slots(a: torch.Tensor, fill: float, dim: int) -> torch.Tensor:
                                     device=a.device)], dim=dim)
 
 
+def _append_static(cfg: PlannerConfig, static_obs, use_obs, qpos, qsize,
+                   qyaw, qdyn, qact):
+    """The static boxes' C slots after the dynamic ones, the same in every
+    candidate: qpos/qsize (S, 6, W, K, 3), qyaw/qdyn (S, 6, W, K), qact
+    (S, 6, K) -> K + C slots."""
+    sc, ss, sy, sa = static_obs
+    S, C = sc.shape[:2]
+    cand, W = qpos.shape[1], qpos.shape[2]
+    shape = (S, cand, W, C)
+    spos = sc[:, None, None].expand(shape + (3,))
+    ssize = (ss / 2.0 + cfg.static_safety_dist)[:, None, None].expand(
+        shape + (3,))
+    sact = sa.to(qact.dtype) * use_obs.to(qact.dtype)[:, None]
+    return (torch.cat([qpos, spos], dim=3), torch.cat([qsize, ssize], dim=3),
+            torch.cat([qyaw, sy[:, None, None].expand(shape)], dim=3),
+            torch.cat([qdyn, torch.zeros(shape, dtype=qdyn.dtype,
+                                         device=qdyn.device)], dim=3),
+            torch.cat([qact, sact[:, None].expand(S, cand, C)], dim=2))
+
+
 def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
                         curr_pos: torch.Tensor, curr_vel: torch.Tensor,
                         input_traj: torch.Tensor, traj_len: int,
@@ -312,8 +335,8 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
                         max_iter: Optional[int] = None,
                         cycle_idx: Optional[int] = None,
                         curr_yaw: Optional[torch.Tensor] = None,
-                        dyn_safety: Optional[torch.Tensor] = None
-                        ) -> PlanOutput:
+                        dyn_safety: Optional[torch.Tensor] = None,
+                        static_obs=None) -> PlanOutput:
     """One replanning cycle (mpcCB body + makePlanWithPred) for a batch
     of S scenarios; the 6 intent-combination QPs of each are one batch.
 
@@ -325,7 +348,13 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
     uses the 2-argument form) and refreshes the shared factor every cycle.
     dyn_safety (S,): the per-scenario dynamic safety distance of the QP's
     obstacle rows (the engine's goal-approach relaxation); scoring keeps
-    cfg.dynamic_safety_dist."""
+    cfg.dynamic_safety_dist.
+    static_obs: (centroid (S, C, 3), size (S, C, 3), yaw (S, C), active
+    (S, C)) rotated static boxes from obstacle clustering, appended as the
+    same C rows to every candidate QP with the static safety distance, the
+    static slack column (u[4], obs_dyn 0) and the box's yaw
+    (updateObstacleParam :1186-1195); they count for the first-cycle
+    test like visible obstacles and stay out of the scoring."""
     W = cfg.mpc_window
     S, O = pred.pos.shape[0], pred.pos.shape[1]
     dev = curr_pos.device
@@ -364,6 +393,9 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
 
     # firstTime / no-pred: no obstacle constraints (makePlanWithPred :593-602)
     use_obs = (~state.first_time) & any_visible
+    if static_obs is not None:
+        use_obs = use_obs | ((~state.first_time)
+                             & torch.any(static_obs[3], dim=-1))
     cand_active = cand_active * use_obs.to(cand_active.dtype)[:, None, None]
 
     # obstacle param conversion (updateObstacleParam :1148-1197):
@@ -373,16 +405,20 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
     qsize = cand_size[:, :, :W] / 2.0 + ds
     qpos = cand_pos[:, :, :W]
     qact = cand_active
+    qyaw = torch.zeros(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
+    qdyn = torch.ones(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
+    if static_obs is not None:
+        qpos, qsize, qyaw, qdyn, qact = _append_static(
+            cfg, static_obs, use_obs, qpos, qsize, qyaw, qdyn, qact)
     fov = None
     if curr_yaw is not None:
         # two spare slots for the FOV rows (the QP only; scoring uses the
         # unpadded obstacle set)
         qpos, qsize = _pad_slots(qpos, 0.0, 3), _pad_slots(qsize, 1.0, 3)
+        qyaw, qdyn = _pad_slots(qyaw, 0.0, 3), _pad_slots(qdyn, 1.0, 3)
         qact = _pad_slots(qact, 0.0, 2)
         half_max, half_min = fov_halfspaces(curr_pos, curr_yaw)
         fov = (half_max[:, None], half_min[:, None])
-    qyaw = torch.zeros(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
-    qdyn = torch.ones(qpos.shape[:-1], dtype=qpos.dtype, device=dev)
     qact = qact[:, :, None, :].expand(qpos.shape[:-1])
 
     # linearization points: previous solution states or current position
@@ -549,17 +585,16 @@ def make_plan(cfg: PlannerConfig, state: PlannerState,
     curr_yaw and dyn_safety as make_plan_with_pred takes them. The
     returned PlanOutput broadcasts the one QP's states over the 6
     candidate slots, candidate 0 carries its acceptance and best_idx is 0.
-    static_obs (static clustering) is not ported and raises."""
-    if static_obs is not None:
-        raise NotImplementedError("make_plan: static_obs (static "
-                                  "clustering) is not ported")
+    static_obs: the clustered static boxes as make_plan_with_pred takes
+    them, in slots O..O+C."""
     H, W = cfg.horizon, cfg.mpc_window
     S, O = obs_pos.shape[0], obs_pos.shape[1]
     dev, dt = obs_pos.device, obs_pos.dtype
     xref, new_start = reference_window(
         cfg, input_traj, traj_len, curr_pos, state.last_ref_start)
 
-    K = O + (2 if curr_yaw is not None else 0)
+    C = 0 if static_obs is None else static_obs[0].shape[1]
+    K = O + C + (2 if curr_yaw is not None else 0)
     ds = (cfg.dynamic_safety_dist if dyn_safety is None
           else dyn_safety[:, None, None])
     qpos = torch.zeros((S, W, K, 3), dtype=dt, device=dev)
@@ -571,6 +606,14 @@ def make_plan(cfg: PlannerConfig, state: PlannerState,
     active = torch.zeros((S, W, K), dtype=dt, device=dev)
     active[:, :, :O] = visible[:, None].to(dt)
     use_obs = (~state.first_time) & torch.any(visible, dim=-1)
+    if static_obs is not None:
+        sc, ss, sy, sa = static_obs
+        qpos[:, :, O:O + C] = sc[:, None]
+        qsize[:, :, O:O + C] = (ss / 2.0 + cfg.static_safety_dist)[:, None]
+        qyaw[:, :, O:O + C] = sy[:, None]
+        qdyn[:, :, O:O + C] = 0.0
+        active[:, :, O:O + C] = sa[:, None].to(dt)
+        use_obs = use_obs | ((~state.first_time) & torch.any(sa, dim=-1))
     active = active * use_obs.to(dt)[:, None, None]
     fov = (fov_halfspaces(curr_pos, curr_yaw) if curr_yaw is not None
            else None)

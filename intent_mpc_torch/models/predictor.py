@@ -1,16 +1,21 @@
-"""Intent predictor: Markov-chain intent probabilities + closed-form
-multi-hypothesis moments (port of intent_mpc_tpu/models/predictor.py,
-the empty-map path the DYNUS benchmark runs).
+"""Intent predictor: Markov-chain intent probabilities + multi-hypothesis
+trajectory rollouts (port of intent_mpc_tpu/models/predictor.py).
 
 Reference: dynamic_predictor/include/dynamic_predictor/dynamicPredictor.cpp.
 Intent order matches the reference enum (dynamic_predictor/utils.h:15-20):
 FORWARD=0, LEFT=1, RIGHT=2, STOP=3.
 
-With an empty occupancy map every rollout sample is valid and sample
-positions factorize, so genTraj's per-step mean and (biased) variance
-over the sample grid reduce to products of 1-D moments; no
-(samples x steps) arrays are materialized. The sampled path on a real
-grid is not ported: `predict` raises for a non-empty grid.
+Two paths, chosen by the map as in JAX:
+  * an empty occupancy map (the DYNUS GT benchmark): every rollout sample
+    is valid and sample positions factorize, so genTraj's per-step mean
+    and (biased) variance over the sample grid reduce to products of 1-D
+    moments; no (samples x steps) arrays are materialized;
+  * a real grid (the prebuilt static map of the real-perception loop):
+    the reference's data-dependent sample loops with occupancy-rejection
+    `break`s (:365-397, :438-482) become fixed sample grids with validity
+    masks, masked per-step means and variances, and positionCorrection's
+    nearest-sample substitute. A per-scenario grid needs the scenario
+    axis leading.
 
 Every function takes leading batch axes (..., O) before its per-obstacle
 trailing dims.
@@ -24,7 +29,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from intent_mpc_torch.models.occupancy import OccupancyGrid, is_empty
+from intent_mpc_torch.models.occupancy import (OccupancyGrid, is_empty,
+                                               is_occupied)
 from intent_mpc_torch.utils.config import PredictorConfig
 
 FORWARD, LEFT, RIGHT, STOP = 0, 1, 2, 3
@@ -214,18 +220,164 @@ def predict_single_fast(cfg: PredictorConfig, pos0, vel0, acc0, size0):
     return pos, size
 
 
+# ---------------------------------------------------------------------------
+# Rollout sample grids (a real occupancy map)
+# ---------------------------------------------------------------------------
+
+def _masked_mean_var(points_xy, valid):
+    """Masked per-step mean and variance over the sample axis: points_xy
+    (..., N, P+1, 2), valid (..., N) float. Mirrors genTraj
+    (dynamicPredictor.cpp:503-538): the variance divides by the valid
+    count."""
+    w = valid[..., None, None]
+    cnt = torch.clamp(torch.sum(valid, dim=-1), min=1.0)[..., None, None]
+    mean = torch.sum(points_xy * w, dim=-3) / cnt
+    var = torch.sum(((points_xy - mean[..., None, :, :]) ** 2) * w,
+                    dim=-3) / cnt
+    return mean, var
+
+
+def _with_pos_z(xy, pos0):
+    """Append pos0's z to sample positions xy (..., N.., P+1, 2)."""
+    z = pos0[..., 2].reshape(pos0.shape[:-1] + (1,) * (xy.dim() - pos0.dim()))
+    return torch.cat([xy, z[..., None].expand(xy.shape[:-1] + (1,))], dim=-1)
+
+
+def _forward_samples(cfg: PredictorConfig, pos0, vel0, occ: OccupancyGrid):
+    """modelForward (dynamicPredictor.cpp:351-402): const-velocity rollouts
+    over an (angle, speed) grid. Returns (..., N, P+1, 3) positions and
+    (..., N) valid, N = angles x speeds."""
+    P = cfg.num_pred
+    na, ns = cfg.num_forward_angle_samples, cfg.max_forward_speed_samples
+    speed = torch.linalg.vector_norm(vel0[..., 0:2], dim=-1)
+    ang0 = torch.atan2(vel0[..., 1], vel0[..., 0])
+    angles = (ang0[..., None] - cfg.front_angle) \
+        + cfg.forward_angle_step * _arange(na, pos0)             # (...,na)
+    speeds = cfg.forward_speed_step * _arange(ns, pos0)
+    sp_valid = speeds < 2.0 * speed[..., None]                   # loop bound j < 2v
+
+    t = _arange(P + 1, pos0) * cfg.dt
+    dirs = torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)
+    xy = pos0[..., None, None, None, 0:2] \
+        + dirs[..., :, None, None, :] * speeds[:, None, None] * t[:, None]
+    pts = _with_pos_z(xy, pos0)                                  # (...,na,ns,P+1,3)
+    free = ~is_occupied(occ, pts[..., 1:, :])
+    clear = torch.all(free, dim=-1)                              # (...,na,ns)
+    # the reference `break`s out of the speed loop on the first collision,
+    # discarding every higher speed of that angle (:389-395)
+    clear = torch.cumprod(clear.to(torch.int32), dim=-1).to(torch.bool)
+    valid = clear & sp_valid[..., None, :]
+    lead = pts.shape[:-4]
+    return (pts.reshape(lead + (na * ns, P + 1, 3)),
+            valid.reshape(lead + (na * ns,)))
+
+
+def _turning_samples(cfg: PredictorConfig, intent, pos0, vel0,
+                     occ: OccupancyGrid):
+    """modelTurning (dynamicPredictor.cpp:404-486): rotate-velocity
+    rollouts over (speed, ang-vel, end-angle); intent LEFT or RIGHT."""
+    P = cfg.num_pred
+    ns = cfg.max_turning_speed_samples
+    nw = cfg.num_turning_angvel_samples
+    ne = cfg.num_turning_end_samples
+    speed = torch.linalg.vector_norm(vel0[..., 0:2], dim=-1)
+    ang0 = torch.atan2(vel0[..., 1], vel0[..., 0])
+    speeds = cfg.turning_speed_step * _arange(ns, pos0)
+    sp_valid = speeds < 2.0 * speed[..., None]                   # (...,ns)
+
+    if intent == LEFT:
+        end = (cfg.front_angle + ang0[..., None]) \
+            + cfg.turning_end_step * _arange(ne, pos0)
+        angvel = (math.pi / 2) / cfg.max_turning_time \
+            + cfg.turning_angvel_step * _arange(nw, pos0)
+    else:
+        end = (-(math.pi - cfg.front_angle) + ang0[..., None]) \
+            + cfg.turning_end_step * _arange(ne, pos0)
+        angvel = (-math.pi / 2) / cfg.min_turning_time \
+            + cfg.turning_angvel_step * _arange(nw, pos0)
+
+    t = _arange(P, pos0)
+    raw = ang0[..., None, None, None] \
+        + t[None, None, :] * angvel[:, None, None] * cfg.dt      # (...,nw,1,P)
+    endb = end[..., None, :, None]                               # (...,1,ne,1)
+    ang_t = torch.minimum(raw, endb) if intent == LEFT \
+        else torch.maximum(raw, endb)
+    dirs = torch.stack([torch.cos(ang_t), torch.sin(ang_t)], dim=-1)
+    disp = torch.cumsum(dirs, dim=-2) * cfg.dt                   # (...,nw,ne,P,2)
+    xy = pos0[..., None, None, None, None, 0:2] \
+        + speeds[:, None, None, None, None] * disp[..., None, :, :, :, :]
+    xy = torch.cat([pos0[..., None, None, None, None, 0:2].expand(
+        xy.shape[:-2] + (1, 2)), xy], dim=-2)                    # (...,ns,nw,ne,P+1,2)
+    pts = _with_pos_z(xy, pos0)
+    free = ~is_occupied(occ, pts[..., 1:, :])
+    clear = torch.all(free, dim=-1)                              # (...,ns,nw,ne)
+    valid = clear & sp_valid[..., :, None, None]
+    lead = pts.shape[:-5]
+    N = ns * nw * ne
+    return pts.reshape(lead + (N, P + 1, 3)), valid.reshape(lead + (N,))
+
+
+def _aggregate(cfg: PredictorConfig, pts, valid, size0, occ: OccupancyGrid):
+    """genTraj + positionCorrection: masked mean/variance and z-score size
+    inflation; where the mean path collides, the nearest valid sample
+    (the lowest index on ties) replaces it."""
+    any_valid = torch.any(valid, dim=-1)
+    mean_xy, var_xy = _masked_mean_var(pts[..., 0:2], valid.to(pts.dtype))
+    mean = _with_pos_z(mean_xy, pts[..., 0, 0, :])               # (...,P+1,3)
+    size = _inflate(cfg, size0, var_xy)
+
+    # positionCorrection (dynamicPredictor.cpp:540-567)
+    collide = torch.any(is_occupied(occ, mean), dim=-1)
+    d = torch.linalg.vector_norm(pts[..., 0:2] - mean[..., None, :, 0:2],
+                                 dim=-1)                         # (...,N,P+1)
+    score = torch.sum(d, dim=-1) + torch.where(
+        valid, torch.zeros_like(d[..., 0]), torch.full_like(d[..., 0],
+                                                            float("inf")))
+    nearest = torch.argmin(score, dim=-1)                        # (...)
+    near = torch.gather(pts, -3, nearest[..., None, None, None].expand(
+        nearest.shape + (1,) + pts.shape[-2:]))[..., 0, :, :]
+    mean = torch.where(collide[..., None, None], near, mean)
+    return mean, size, any_valid
+
+
+def predict_single(cfg: PredictorConfig, pos0, vel0, acc0, size0,
+                   occ: OccupancyGrid):
+    """All 4 intent hypotheses from the sample grids on a real map:
+    (..., 3) inputs -> (pos (..., 4, P+1, 3), size (..., 4, P+1, 3)).
+    genPoints semantics (dynamicPredictor.cpp:331-349): speed <= stopVel
+    -> every intent uses the stop model; an intent with no valid sample
+    falls back to it too (:312-326)."""
+    speed = torch.linalg.vector_norm(vel0[..., 0:2], dim=-1)
+    stopped = speed <= cfg.stop_vel
+    stop_pos, stop_size = _stop_prediction(cfg, pos0, vel0, size0)
+
+    def hypothesis(samples):
+        pos, size, ok = _aggregate(cfg, *samples, size0, occ)
+        use_stop = (stopped | ~ok)[..., None, None]
+        return (torch.where(use_stop, stop_pos, pos),
+                torch.where(use_stop, stop_size, size))
+
+    fw = hypothesis(_forward_samples(cfg, pos0, vel0, occ))
+    lf = hypothesis(_turning_samples(cfg, LEFT, pos0, vel0, occ))
+    rt = hypothesis(_turning_samples(cfg, RIGHT, pos0, vel0, occ))
+    pos = torch.stack([fw[0], lf[0], rt[0], stop_pos], dim=-3)
+    size = torch.stack([fw[1], lf[1], rt[1], stop_size], dim=-3)
+    return pos, size
+
+
 def predict(cfg: PredictorConfig, pos_hist, vel_hist, acc_hist, size_hist,
             hist_len, occ: Optional[OccupancyGrid] = None) -> Prediction:
     """Full predictor over all obstacles (vectorized predictor::predict).
 
     Histories are (..., O, Hh, 3), newest at index 0; hist_len (..., O).
-    Only the empty map (occ None or the 1-voxel empty grid) is ported."""
-    if occ is not None and not is_empty(occ):
-        raise NotImplementedError(
-            "the sampled predictor path on a non-empty occupancy grid is "
-            "not ported; the port runs the empty-map moment path")
+    occ None or the 1-voxel empty grid selects the closed-form moment
+    path, a real grid the sampled path (a per-scenario grid with the
+    scenario axis leading)."""
     probs = intent_probabilities(cfg, pos_hist, vel_hist, hist_len)
-    pos, size = predict_single_fast(cfg, pos_hist[..., 0, :],
-                                    vel_hist[..., 0, :], acc_hist[..., 0, :],
-                                    size_hist[..., 0, :])
+    args = (pos_hist[..., 0, :], vel_hist[..., 0, :], acc_hist[..., 0, :],
+            size_hist[..., 0, :])
+    if occ is None or is_empty(occ):
+        pos, size = predict_single_fast(cfg, *args)
+    else:
+        pos, size = predict_single(cfg, *args, occ)
     return Prediction(pos=pos, size=size, intent_prob=probs)

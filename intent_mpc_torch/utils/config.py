@@ -63,8 +63,11 @@ class DetectorConfig:
 
 @dataclass(frozen=True)
 class RealDetectorConfig:
-    """Depth-camera dynamic-detector stack (EngineConfig.use_fake_detector
-    =False). Not ported yet: the port runs the ground-truth detector only.
+    """Depth-camera dynamic-detector stack flown in the closed loop
+    (EngineConfig.use_fake_detector=False, models/real_detector.py):
+    rendered depth -> projected points -> DBSCAN clusters -> AABBs ->
+    const-vel KF tracks -> dynamic classification votes -> predictor-format
+    histories.
 
     Reference: onboard_detector/dynamicDetector.cpp detectionCB/trackingCB/
     classificationCB selected over the fake detector by use_fake_detector
@@ -282,8 +285,9 @@ class PlannerConfig:
     max_acc: float = 20.0
     max_obstacles: int = 64           # padded obstacle-slot count (fixed shapes)
     static_clustering: bool = False   # cluster the local static map into
-                                      # rotated-box MPC rows (not ported;
-                                      # the DYNUS GT bench disables it,
+                                      # rotated-box MPC rows (the
+                                      # real-perception composition; the
+                                      # DYNUS GT bench disables it,
                                       # mpcPlanner.cpp:191-193)
     cluster_window: Tuple[int, int, int] = (48, 48, 24)
     cluster_points: int = 512
@@ -346,9 +350,9 @@ class EngineConfig:
                                          # (ported)
     use_predictor: bool = True           # False -> constant-obstacle MPC
                                          # (ported)
-    use_fake_detector: bool = True       # GT fake detector (ported); False
-                                         # flies the real perception stack
-                                         # (not ported)
+    use_fake_detector: bool = True       # GT fake detector; False flies
+                                         # the real perception stack (both
+                                         # ported)
     use_fov: bool = False                # FOV half-space rows (ported)
     repeat_path: int = 1                 # execute_path_times (ported)
     replan_check: bool = True            # committed-trajectory collision
@@ -358,7 +362,8 @@ class EngineConfig:
                                          # ported)
     predictor_stale_hist: bool = False   # predictor reads the previous
                                          # cycle's history (ported)
-    render_static_grid: bool = True      # real-detector camera option
+    render_static_grid: bool = True      # the real detector's camera also
+                                         # ray-marches the static grid
     yaw_lookahead: float = 1.0           # trajExeCB :536-553 look-ahead yaw;
                                          # <= 0 uses the velocity heading
                                          # (both ported)

@@ -6,7 +6,8 @@ the port's field names whose leaves are numpy arrays (for example the
 JAX package's NamedTuples after mapping `np.asarray` over them; fields
 the port does not carry are ignored) and build the port's NamedTuples
 on a device, so that both implementations can start from identical
-state, including the carried shared factor. `fleet_problem_from_lanes`
+state, including the carried shared factor and the real detector's
+track table; `grid_from_numpy` carries static occupancy maps. `fleet_problem_from_lanes`
 and `fleet_outputs_to_lanes` carry the fleet solve's packed problem and
 its outputs between the TPU lane layout and the port's layout;
 `dense_problem_from_numpy` carries the dense-A path's problem.
@@ -21,7 +22,11 @@ from intent_mpc_torch.engine.closed_loop import EngineCarry, Metrics
 from intent_mpc_torch.models.controller import ControllerState
 from intent_mpc_torch.models.detector import DetectorState
 from intent_mpc_torch.models.mpc import PlannerState
+from intent_mpc_torch.models.occupancy import OccupancyGrid
+from intent_mpc_torch.models.perception import Tracks
 from intent_mpc_torch.models.quad_plant import PIDState, QuadState
+from intent_mpc_torch.models.real_detector import (PerceptionStats,
+                                                   RealDetectorState)
 from intent_mpc_torch.models.world import Scenario
 from intent_mpc_torch.ops.dense_loop import DenseScaledProblem
 from intent_mpc_torch.ops.fleet import LANES, FleetProblem
@@ -34,6 +39,9 @@ _NESTED = {
     (EngineCarry, "controller"): ControllerState,
     (EngineCarry, "metrics"): Metrics,
     (EngineCarry, "quad"): QuadState,
+    (EngineCarry, "real_det"): RealDetectorState,
+    (RealDetectorState, "tracks"): Tracks,
+    (RealDetectorState, "stats"): PerceptionStats,
     (PlannerState, "fac_e"): ConVec,
     (QPData, "l"): ConVec,
     (QPData, "u"): ConVec,
@@ -78,6 +86,25 @@ def carry_from_numpy(tree, device="cpu", add_batch_axis=False) -> EngineCarry:
     scenario batch, so a carry of one scenario needs add_batch_axis=True;
     a batched carry (leading axis S on every leaf) converts as it is."""
     return _from(tree, EngineCarry, _to_tensor(device, add_batch_axis))
+
+
+def grid_from_numpy(grids, device="cpu") -> OccupancyGrid:
+    """A per-scenario OccupancyGrid (S, nx, ny, nz) from S grids with numpy
+    leaves of one shape, origin and resolution (such as the JAX package's
+    `static_grid_for` of each seed); one grid gives S = 1."""
+    if hasattr(grids, "grid"):
+        grids = [grids]
+    origin = np.array(grids[0].origin, np.float32)
+    res = np.array(grids[0].resolution, np.float32)
+    for g in grids[1:]:
+        if (not np.array_equal(np.asarray(g.origin), origin)
+                or np.asarray(g.resolution) != res):
+            raise ValueError("grids of one origin and resolution only")
+    return OccupancyGrid(
+        grid=torch.as_tensor(np.stack([np.asarray(g.grid) for g in grids]),
+                             device=device),
+        origin=torch.as_tensor(origin, device=device),
+        resolution=torch.as_tensor(res, device=device))
 
 
 def carry_to_numpy(carry: EngineCarry) -> EngineCarry:

@@ -759,3 +759,41 @@ def test_quad_plant_on_card_matches_cpu(cuda_device, ticks):
         dinput = i >= 6 and (i - 6) % 3 == 1
         torch.testing.assert_close(a.cpu(), b, rtol=tol,
                                    atol=2e-3 if dinput else tol)
+
+
+@pytest.mark.cuda
+def test_real_path_waits_only_for_dbscan_flags(cuda_device):
+    """On the real-perception DYNUS path the only waits for the device are
+    DBSCAN's reads of its "labels changed" flag, once per block of rounds
+    (models/clustering.HOST_READS, the count chip_smoke's real_perception
+    phase reports): under torch.cuda.set_sync_debug_mode("warn") two
+    cycles after two warm-up cycles warn exactly HOST_READS times, at
+    least once per sense tick and static clustering."""
+    import warnings
+    from intent_mpc_torch.benchmark.capture import real_dynus_config
+    from intent_mpc_torch.benchmark.real_loop import static_maps
+    from intent_mpc_torch.models import clustering as clus
+    cfg = real_dynus_config()
+    scen = sh.stack_scenarios(cfg, [0, 1])
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
+    occ, veto = static_maps(cfg, [0, 1], "cuda")
+    carry = cl.init_carry(cfg, scen)
+    for i in range(2):
+        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry,
+                                   i, veto_occ=veto)
+    torch.cuda.synchronize()
+    clus.HOST_READS = 0
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in (2, 3):
+                carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                           carry, i, veto_occ=veto)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    per_cycle = len(cfg.engine.hist_ticks) + 1
+    assert clus.HOST_READS >= 2 * per_cycle
+    assert len(syncs) == clus.HOST_READS, [str(w.message) for w in syncs[:3]]
+    assert bool(torch.isfinite(carry.pos).all())

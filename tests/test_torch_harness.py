@@ -82,9 +82,7 @@ UNPORTED = {"woodbury_candidates": dict(woodbury_candidates=True),
             "folded_refine": dict(folded_refine=True),
             "minv_dtype": dict(minv_dtype="bf16"),
             "shared_refine_warm_frac": dict(shared_refine_warm_frac=0.5),
-            "goal_mode": dict(goal_mode=True),
-            "static_clustering": dict(static_clustering=True),
-            "use_fake_detector": dict(use_fake_detector=False)}
+            "goal_mode": dict(goal_mode=True)}
 
 
 def _with_option(cfg, **kw):

@@ -12,6 +12,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "intent_mpc_tpu")
+# the real-perception slice's modules, which both checks must reach
+REAL_PERCEPTION = ("models.clustering", "models.sensor", "models.perception",
+                   "models.real_detector", "benchmark.real_loop")
 
 torch.set_num_threads(1)
 
@@ -43,6 +46,9 @@ def _imported(path):
 def test_no_jax_imports_in_port_sources():
     files = _port_files()
     assert len(files) > 15
+    for m in REAL_PERCEPTION:
+        assert os.path.join(ROOT, "intent_mpc_torch",
+                            *m.split(".")) + ".py" in files, m
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported(p)
            if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -57,7 +63,9 @@ def test_importing_port_loads_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert len(mods) > 15, mods\n"
-        "assert not bad, bad\n" % (FORBIDDEN,))
+        "missing = [m for m in %r if 'intent_mpc_torch.' + m not in mods]\n"
+        "assert not missing, missing\n"
+        "assert not bad, bad\n" % (FORBIDDEN, REAL_PERCEPTION))
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -65,7 +73,7 @@ def test_importing_port_loads_no_jax():
 
 
 def _entry_calls(tmp_path):
-    from intent_mpc_torch.benchmark import harness
+    from intent_mpc_torch.benchmark import harness, real_loop
     from intent_mpc_torch.engine import checkpoint, closed_loop as cl
     from intent_mpc_torch.models.world import (load_ref_traj,
                                                straight_line_ref_traj)
@@ -87,13 +95,16 @@ def _entry_calls(tmp_path):
         "load_checkpoint": lambda: checkpoint.load_checkpoint(
             str(tmp_path / "c.npz"), cfg),
         "load_ref_traj": lambda: load_ref_traj(str(tmp_path / "ref.txt")),
+        "real_loop": lambda: real_loop.main(["--seeds", "0", "--out",
+                                             str(tmp_path / "rl")]),
     }
 
 
 @pytest.mark.parametrize("entry", ["init_carry", "run_episode",
                                    "stack_scenarios", "batch_rollout",
                                    "run_trials", "run_trials_checkpointed",
-                                   "load_checkpoint", "load_ref_traj"])
+                                   "load_checkpoint", "load_ref_traj",
+                                   "real_loop"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a device argument an entry point runs on CUDA; with no CUDA
     device it raises instead of falling back to the CPU (before it reads

@@ -256,14 +256,17 @@ def test_fused_fov_upper_bound_is_inert():
 
 def test_check_supported_raises_for_exactly_the_options_left():
     """engine/closed_loop.check_supported accepts every option this port
-    runs and raises for goal mode, static clustering, real perception and
-    the TPU-only solver knobs, each by name."""
+    runs, real perception and static clustering among them, and raises for
+    goal mode and the TPU-only solver knobs, each by name."""
     base = IntentMPCConfig()
     for opt in OPTIONS.values():
         tcl.check_supported(with_options(base, opt.get("engine"),
                                          opt.get("solver")))
+    tcl.check_supported(with_options(base, dict(use_fake_detector=False),
+                                     None))
+    tcl.check_supported(base.replace(planner=dataclasses.replace(
+        base.planner, static_clustering=True)))
     left = {"goal_mode": dict(engine=dict(goal_mode=True)),
-            "use_fake_detector": dict(engine=dict(use_fake_detector=False)),
             "woodbury_candidates": dict(solver=dict(
                 woodbury_candidates=True)),
             "block_refine": dict(solver=dict(block_refine=True)),
@@ -277,9 +280,6 @@ def test_check_supported_raises_for_exactly_the_options_left():
         with pytest.raises(NotImplementedError, match=name):
             tcl.check_supported(with_options(base, opt.get("engine"),
                                              opt.get("solver")))
-    with pytest.raises(NotImplementedError, match="static_clustering"):
-        tcl.check_supported(base.replace(planner=dataclasses.replace(
-            base.planner, static_clustering=True)))
 
 
 @pytest.mark.slow

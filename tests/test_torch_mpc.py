@@ -104,3 +104,95 @@ def test_candidate_sort_breaks_ties_like_reference():
     want = np.stack([np.flip(np.argsort(np.asarray(r), kind="stable"))
                      for r in w.numpy()])
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _static_boxes():
+    """Three clustered static boxes near the path (rotated; the third
+    inactive) as (centroid, size, yaw, active)."""
+    return (np.array([[2.5, 0.6, 2.0], [4.0, -1.0, 2.0], [1.0, 3.0, 2.0]],
+                     np.float32),
+            np.array([[0.4, 1.0, 3.0], [1.0, 0.4, 3.0], [0.5, 0.5, 1.0]],
+                     np.float32),
+            np.array([0.3, -0.5, 1.0], np.float32),
+            np.array([True, True, False]))
+
+
+@pytest.mark.parametrize("planner", ["make_plan_with_pred", "make_plan"])
+def test_static_rows_match_jax(setup, planner):
+    """static_obs (the clustered static boxes of the real-perception loop)
+    on both planners from the state after the first solve: the static
+    rows bind with the static safety distance, the static slack column
+    (obs_dyn 0) and the boxes' yaw. The predictor path factors afresh (no
+    cycle index; the carried factor's static sizing is checked below and
+    in the closed-loop tests); the constant-obstacle path refines once per
+    x-update, as tests/test_torch_loop_options.py holds it. Candidate
+    states atol 1e-4, as above; validity, solve flags and the chosen
+    candidate equal; the plan moves against the one without the rows."""
+    import dataclasses
+    jcfg, tcfg, plan, state1, tin, L = setup
+    if planner == "make_plan":
+        jcfg, tcfg = (c.replace(planner=dataclasses.replace(
+            c.planner, solver=dataclasses.replace(c.planner.solver,
+                                                  refine_iters=1)))
+            for c in (jcfg, tcfg))
+    box = _static_boxes()
+    tbox = tuple(torch.as_tensor(a)[None] for a in box)
+    pos = jnp.asarray(tin["pos"][0].numpy())
+    vel = jnp.asarray(tin["vel"][0].numpy())
+    ref = jnp.asarray(tin["ref"].numpy())
+    tstate = convert.from_numpy(_np_tree(state1), tmpc.PlannerState,
+                                add_batch_axis=True)
+    if planner == "make_plan_with_pred":
+        jpred_ = jax.tree.map(lambda a: jnp.asarray(a[0].numpy()),
+                              tuple(tin["pred"]))
+        jp = jpred.Prediction(*jpred_)
+        vis = jnp.asarray(tin["vis"][0].numpy())
+        jf = jax.jit(lambda st, so: jmpc.make_plan_with_pred(
+            jcfg.planner, st, pos, vel, ref, jnp.asarray(L), jp, vis,
+            static_obs=so))
+        jout, jnone = jf(state1, tuple(map(jnp.asarray, box))), jf(state1,
+                                                                   None)
+        tout = tmpc.make_plan_with_pred(tcfg.planner, tstate, tin["pos"],
+                                        tin["vel"], tin["ref"], L,
+                                        tin["pred"], tin["vis"],
+                                        static_obs=tbox)
+    else:
+        nom = tin["pred"].pos[:, :, 0, 0]
+        ob = (jnp.asarray(nom[0].numpy()), jnp.zeros_like(nom[0].numpy()),
+              jnp.asarray(tin["pred"].size[0, :, 0, 0].numpy()))
+        vis = jnp.asarray(tin["vis"][0].numpy())
+        jf = jax.jit(lambda st, so: jmpc.make_plan(
+            jcfg.planner, st, pos, vel, ref, jnp.asarray(L), *ob, vis,
+            static_obs=so))
+        jout, jnone = jf(state1, tuple(map(jnp.asarray, box))), jf(state1,
+                                                                   None)
+        tout = tmpc.make_plan(tcfg.planner, tstate, tin["pos"], tin["vel"],
+                              tin["ref"], L, nom, torch.zeros_like(nom),
+                              tin["pred"].size[:, :, 0, 0], tin["vis"],
+                              static_obs=tbox)
+    np.testing.assert_allclose(tout.candidate_states.numpy()[0],
+                               np.asarray(jout.candidate_states), atol=1e-4)
+    assert int(tout.best_idx[0]) == int(jout.best_idx)
+    assert bool(tout.valid[0]) == bool(jout.valid)
+    np.testing.assert_array_equal(tout.solved.numpy()[0],
+                                  np.asarray(jout.solved))
+    np.testing.assert_allclose(tout.state.states_sol.numpy()[0],
+                               np.asarray(jout.state.states_sol), atol=1e-4)
+    moved = np.abs(np.asarray(jout.state.states_sol)
+                   - np.asarray(jnone.state.states_sol)).max()
+    assert moved > 1e-2, moved
+
+
+def test_static_clustering_sizes_the_carried_factor():
+    """With static clustering the carried shared factor's obstacle scaling
+    holds max_obstacles + cluster_slots + 1 slots, as in JAX."""
+    import dataclasses
+    for static in (False, True):
+        jp = dataclasses.replace(jsmall(**KW).planner,
+                                 static_clustering=static)
+        tp = dataclasses.replace(tsmall(**KW).planner,
+                                 static_clustering=static)
+        want = jmpc.init_planner_state(jp).fac_e.obs.shape
+        got = tmpc.init_planner_state(tp, 2).fac_e.obs.shape
+        assert got == (2,) + tuple(want)
+        assert want[-1] == KW["max_obstacles"] + 1 + 16 * static

@@ -1,12 +1,14 @@
 """Port parity: intent_mpc_torch.models.detector and models.predictor
 against the JAX package and the reference-literal oracle."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from intent_mpc_tpu.models import detector as jdet
+from intent_mpc_tpu.models import occupancy as jocc
 from intent_mpc_tpu.models import predictor as jpred
 from intent_mpc_tpu.models.occupancy import empty_grid as jempty
 from intent_mpc_tpu.oracle import predictor_ref as ref
@@ -131,10 +133,76 @@ def test_predict_empty_grid_matches():
 
 
 def test_predict_rejects_occupied_grid():
+    """On a fully occupied grid every rollout sample is rejected, so every
+    moving obstacle's hypotheses fall back to the stop model
+    (dynamicPredictor.cpp:312-326), as in JAX."""
     from intent_mpc_torch.models.occupancy import OccupancyGrid
     grid = OccupancyGrid(torch.ones((4, 4, 4), dtype=torch.int8),
                          torch.zeros(3), torch.tensor(0.2))
-    z = torch.zeros((1, 2, 4, 3))
-    with pytest.raises(NotImplementedError):
-        tpred.predict(PredictorConfig(), z, z, z, z,
-                      torch.full((1, 2), 4, dtype=torch.int32), grid)
+    jgrid = jocc.OccupancyGrid(jnp.ones((4, 4, 4), jnp.int8), jnp.zeros(3),
+                               jnp.asarray(0.2, jnp.float32))
+    p = np.full((2, 4, 3), 0.4, np.float32)
+    v = np.zeros((2, 4, 3), np.float32)
+    v[:, :, 0] = [[1.0], [0.5]]
+    hl = np.full(2, 4, np.int32)
+    cfg = PredictorConfig(num_pred=6)
+    t = tpred.predict(cfg, *(torch.as_tensor(a)[None] for a in
+                             (p, v, v * 0, p * 0 + 1.0, hl)), grid)
+    j = jpred.predict(JPredictorConfig(num_pred=6), p, v, v * 0, p * 0 + 1.0,
+                      hl, jgrid)
+    stop = tpred._stop_prediction(cfg, torch.as_tensor(p[:, 0]),
+                                  torch.as_tensor(v[:, 0]),
+                                  torch.full((2, 3), 1.0))
+    for k in range(4):
+        np.testing.assert_array_equal(t.pos[0, :, k].numpy(), stop[0].numpy())
+        np.testing.assert_allclose(t.size[0, :, k].numpy(), stop[1].numpy(),
+                                   atol=ATOL)
+    np.testing.assert_allclose(t.pos.numpy()[0], np.asarray(j.pos), atol=ATOL)
+    np.testing.assert_allclose(t.size.numpy()[0], np.asarray(j.size),
+                               atol=ATOL)
+
+
+def test_predict_sampled_path_matches_jax():
+    """predict on a real map (a pillar ahead of obstacle 0, walls across
+    the walks) takes the sampled path: some rollouts are rejected, the
+    speed loop breaks, and obstacle 0's forward mean path, which runs into
+    the pillar, takes the nearest sample. Against JAX's jitted
+    predict_single path within 1e-5, with the grid shared and per
+    scenario (two scenarios, each with its own copy)."""
+    from intent_mpc_torch.models import occupancy as tocc
+    args = ((-8.0, -8.0, 0.0), (16.0, 16.0, 4.0), 0.2,
+            np.array([[3.0, 0.0, 2.0], [-2.0, 4.0, 2.0], [0.0, -5.0, 2.0]],
+                     np.float32),
+            np.array([[0.4, 0.6, 4.0], [4.0, 0.4, 4.0], [3.0, 0.4, 4.0]],
+                     np.float32))
+    jg = jocc.build_from_static_obstacles(*args, inflation=(0.3, 0.3, 0.2))
+    tg = tocc.build_from_static_obstacles(*args, inflation=(0.3, 0.3, 0.2))
+    rng = np.random.RandomState(6)
+    ph, vh = _walks(rng, O, HH)
+    ph[..., 0:2] *= 0.5
+    ph[0] = [0.0, 0.0, 2.0] - np.arange(HH)[:, None] * [0.15, 0.0, 0.0]
+    vh[0] = [1.5, 0.0, 0.0]
+    ah = vh * 0.1
+    size = np.broadcast_to(rng.uniform(0.5, 1.5, (O, 1, 3)),
+                           (O, HH, 3)).astype(np.float32)
+    hl = np.array([HH, 6, HH, 3, HH], np.int32)
+    arrs = (ph, vh, ah, size, hl)
+    j = jax.jit(lambda *a: jpred.predict(JPredictorConfig(), *a))(*arrs, jg)
+    tin = [torch.as_tensor(np.ascontiguousarray(a)) for a in arrs]
+    f_pts, f_valid = tpred._forward_samples(PredictorConfig(), tin[0][:, 0],
+                                            tin[1][:, 0], tg)
+    assert 0 < int(f_valid.sum()) < f_valid.numel() // 2
+    mean, _ = tpred._masked_mean_var(f_pts[..., 0:2], f_valid.float())
+    assert bool(tocc.is_occupied(tg, torch.cat(
+        [mean[0], f_pts[0, 0, :, 2:3]], -1)).any())
+    for grid, S in ((tg, 1), (tocc.stack_grids([tg, tg]), 2)):
+        t = tpred.predict(PredictorConfig(),
+                          *(a[None].expand((S,) + a.shape) for a in tin),
+                          grid)
+        for s in range(S):
+            np.testing.assert_allclose(t.pos.numpy()[s], np.asarray(j.pos),
+                                       atol=ATOL)
+            np.testing.assert_allclose(t.size.numpy()[s], np.asarray(j.size),
+                                       atol=ATOL)
+            np.testing.assert_allclose(t.intent_prob.numpy()[s],
+                                       np.asarray(j.intent_prob), atol=ATOL)

@@ -13,7 +13,7 @@ once with ground-truth obstacle histories (models/detector.py) and once
 where the only obstacle information is depth frames rendered at the
 drone's pose (models/real_detector.py: render -> DBSCAN -> KF tracks ->
 classification -> predictor). The per-seed rows and aggregates land in
-<out>/summary.json with the JAX driver's layout: config, gt, real,
+<out>/summary.json with the JAX script's layout: config, gt, real,
 gt_rows, real_rows, and the real mode's perception aggregates.
 
 Two world modes:
@@ -26,7 +26,7 @@ Two world modes:
     (PlannerConfig.static_clustering); the predictor samples its rollouts
     against that map. GT mode keeps everything on the fake detector.
 
-The JAX driver runs one seed per episode; here all seeds of a mode are
+The JAX script runs one seed per episode; here all seeds of a mode are
 one batch on one device (the GPU unless --device names another), and a
 seed's row does not depend on its batch. `wall_s` of a row is its
 batch's wall time.
@@ -58,7 +58,7 @@ PERCEPTION_KEYS = ("track_pos_rmse", "missed_rate", "spurious_rate",
 
 
 def build_cfg(args) -> IntentMPCConfig:
-    """The GT-mode config of the flags (as the JAX driver builds it)."""
+    """The GT-mode config of the flags (as the JAX script builds it)."""
     cfg = IntentMPCConfig()
     rd = RealDetectorConfig(max_tracks=args.max_tracks,
                             max_detections=args.max_tracks)

@@ -1,6 +1,6 @@
 """Port parity: intent_mpc_torch.models.occupancy (the rasterized static
 map, the per-scenario grid query, the local static cloud) and the
-real-perception driver's prebuilt DYNUS map against the JAX package."""
+real_loop script's prebuilt DYNUS map against the JAX package."""
 
 import functools
 
@@ -39,7 +39,7 @@ def test_build_from_static_obstacles_matches_jax():
 
 def test_static_grid_for_matches_jax():
     """The prebuilt DYNUS map of a seed (fixed extents, 560 x 165 x 38 at
-    0.2 m), inflated and solid, equals the JAX driver's."""
+    0.2 m), inflated and solid, equals the JAX script's."""
     sc = jworld.generate_scenario(5, JWorld())
     w = generate_scenario_numpy(5, WorldConfig())
     for infl in ((0.3, 0.3, 0.2), (0.0, 0.0, 0.0)):

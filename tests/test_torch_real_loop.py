@@ -2,7 +2,7 @@
 rendered depth -> DBSCAN -> KF tracks -> predictor -> MPC) against the
 JAX package, per cycle from identical carries on a micro world and on a
 small DYNUS-style world with static clustering of a prebuilt map; batch
-independence, the real_loop driver's summary.json, a checkpointed resume,
+independence, the real_loop script's summary.json, a checkpointed resume,
 and (slow) per-seed outcomes at the DYNUS protocol configuration."""
 
 import dataclasses
@@ -36,7 +36,7 @@ torch.set_num_threads(1)
 def _config(m, world, fused=False):
     """The same small real-perception config from either package's config
     module: "micro" (four dynamic obstacles in a corridor, the real_loop
-    driver's default world) or "dynus" (24 obstacles, 65% dynamic, statics
+    script's default world) or "dynus" (24 obstacles, 65% dynamic, statics
     through a prebuilt map and per-cycle clustering rows, as real_loop
     --dynus)."""
     cfg = m.small_config(num_obstacles=24 if world == "dynus" else 4,
@@ -193,7 +193,7 @@ def test_checkpointed_resume_is_bit_exact_in_real_mode(tmp_path):
 
 
 def _jax_row_keys(world):
-    """The JAX driver's row keys, in its order: summarize's, then seed and
+    """The JAX script's row keys, in its order: summarize's, then seed and
     wall_s, then (real mode) tracks_dynamic and perception_summary's."""
     jcfg = _config(jconf, world)
     sc = jworld.generate_scenario(0, jcfg.world)
@@ -205,7 +205,7 @@ def _jax_row_keys(world):
 @pytest.mark.parametrize("world", ["micro", "dynus"])
 def test_real_loop_summary_matches_jax_layout(world, tmp_path):
     """python -m intent_mpc_torch.benchmark.real_loop on the CPU writes
-    summary.json with the JAX driver's layout: config, gt, real and the
+    summary.json with the JAX script's layout: config, gt, real and the
     per-seed rows, row keys in JAX's order, the harness aggregate keys and
     the real mode's perception averages."""
     argv = ["--device", "cpu", "--seeds", "0", "1", "--timeout", "0.2",
@@ -239,7 +239,7 @@ def test_real_dynus_seeds_match_jax():
     """The real_loop --dynus configuration (200 obstacles, 64 + 16 QP
     slots, 16 tracks) on seeds 0-3 at a 30 s timeout: the port on the CPU
     (the CLI's batched run) and the JAX package on the CPU (one episode
-    per seed, as its driver runs them) end each seed with the same goal
+    per seed, as its script runs them) end each seed with the same goal
     and collision outcome. Per-cycle states are not compared at this size
     (the infeasible DYNUS QPs amplify rounding, ROADMAP queue 3 item 5)."""
     import argparse

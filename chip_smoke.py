@@ -109,7 +109,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
                static slots), whose float32 iterate departs from the
                float64 one faster, after 10 iterations within twice the
                plain version's own distance from its float64 run
- 23. modules   neither jax nor the JAX package was imported
+ 23. goal_mode the DYNUS goal-mode protocol (ref_modes --dynus: 200
+               obstacles, each seed's prebuilt static map, RRT 2048
+               iterations, 12 waypoints, L = 384) at 8 scenarios, "global"
+               and "linspace": the first cycle (the build pass) and 6 MPC
+               cycles, ms per cycle, the build's stages (threefry, RRT and
+               shortcut, min-snap rounds, sampling and tail), kernel
+               launches of a build cycle and of an MPC cycle, ew_chain
+               exactly 100 per cycle (build cycles included), host reads
+               per cycle (1 composed, 0 linspace), peak memory, each
+               committed route's head, tail and largest step; "global" on
+               the fused path, fleet_admm exactly 1 per cycle; the wall
+               world in each ref_mode, card against CPU, held to 1e-4 m
+               with equal ref_len and stop_replans; utils/prng.py's bits
+               on the card equal to the CPU's
+ 24. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -1096,11 +1110,11 @@ class StageTimer:
     extraction, history rings and stats), clustering the static rows,
     predictor and plan their calls."""
 
-    def __init__(self):
+    def __init__(self, sites=None):
         from intent_mpc_torch.engine import closed_loop as cl
         from intent_mpc_torch.models import mpc, perception, predictor
         from intent_mpc_torch.models import real_detector, sensor
-        self.sites = [("render", sensor, "render_depth"),
+        self.sites = sites or [("render", sensor, "render_depth"),
                       ("render", perception, "project_depth"),
                       ("dbscan", real_detector, "dbscan"),
                       ("tracking", perception, "track_step"),
@@ -1217,6 +1231,157 @@ def check_real_perception(cfg, S, cycles, dev, stages):
             lambda: cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry,
                                     cycles, veto_occ=veto))
     return out
+
+
+def goal_build_sites():
+    """The goal-mode build's stages for StageTimer: threefry (every RRT
+    draw of the build, one batched hash), rrt (the RRT and its shortcut,
+    the draws included), minsnap (the corridor-shrink loop: 10 min-snap
+    solves and their collision samples) and build (the whole build pass,
+    its host read and commit included)."""
+    from intent_mpc_torch.engine import closed_loop as cl
+    from intent_mpc_torch.engine import ref_builder as rb
+    from intent_mpc_torch.models import global_planner as gp
+    from intent_mpc_torch.models import poly_planner as pp
+    return [("threefry", gp, "rrt_draws"), ("rrt", rb, "rrt_plan"),
+            ("minsnap", pp, "plan"), ("build", cl, "_build_ref")]
+
+
+def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
+                     count_build_launches=True):
+    """The DYNUS goal-mode protocol (benchmark/capture.goal_dynus, the
+    flags of `ref_modes --dynus`) at S scenarios: one warm-up cycle, then
+    from a fresh carry the first cycle (in the composed modes the build
+    pass) and `mpc_cycles` more, with the launch counts and the engine's
+    build-flag host reads set to 0 just before and read just after: ms
+    per cycle, device ms of the build's stages, the committed routes'
+    properties (head at the drone, end at the goal, steps under 1 m),
+    kernel launches of one MPC cycle and (with count_build_launches; the
+    profiler takes about a minute over a build's ~345k launches) of one
+    build cycle, peak memory."""
+    import torch
+    from intent_mpc_torch.benchmark import capture as C
+    from intent_mpc_torch.engine import closed_loop as cl
+    cfg, run = C.goal_dynus(ref_mode, S, dev, fused_solve)
+    composed = cl.composed(cfg)
+    C.goal_step(cfg, run, C.goal_init(cfg, run, dev), 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    cl.HOST_READS = 0
+    timer = StageTimer(goal_build_sites())
+    carry = C.goal_init(cfg, run, dev)
+    cycles = 1 + mpc_cycles
+    secs = []
+    with timer if composed else contextlib.nullcontext():
+        for i in range(cycles):
+            t0 = time.perf_counter()
+            carry, _ = C.goal_step(cfg, run, carry, i)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    reads = cl.HOST_READS
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == expected_launches(cfg, cycles),
+          ("goal_mode launches", ref_mode, launches))
+    check(reads == (cycles if composed else 0),
+          ("goal_mode host reads", ref_mode, reads))
+    check(finite_carry(carry), ("non-finite carry leaf (goal mode)",
+                                ref_mode))
+    check(int(carry.metrics.solve_successes.min()) > 0,
+          ("a scenario never solved (goal mode)", ref_mode))
+    out = dict(ref_mode=ref_mode, fused=fused_solve, scenarios=S,
+               cycles=cycles, launches=launches,
+               launches_per_cycle={k: v / cycles for k, v in launches.items()},
+               host_reads_per_cycle=reads / cycles,
+               first_cycle_ms=secs[0] * 1e3,
+               mpc_cycle_ms=sum(secs[1:]) / mpc_cycles * 1e3,
+               cycle_ms_each=[round(x * 1e3, 3) for x in secs],
+               peak_memory_gb=peak,
+               stop_replans=carry.metrics.stop_replans.tolist())
+    step1 = cycles
+    out["kernel_launches_mpc_cycle"] = kernel_launches(
+        lambda: C.goal_step(cfg, run, carry, step1))
+    if composed:
+        ms = timer.ms()
+        out["build_stage_ms"] = {
+            "threefry": ms["threefry"],
+            "rrt_and_shortcut": ms["rrt"] - ms["threefry"],
+            "minsnap_rounds": ms["minsnap"],
+            "sampling_and_tail": ms["build"] - ms["rrt"] - ms["minsnap"],
+            "build": ms["build"]}
+        check(not bool(carry.need_ref.any()), ("a route was not committed",
+                                               ref_mode))
+        start = torch.tensor(cfg.start, device=dev)
+        goal = torch.tensor(cfg.goal, device=dev)
+        n = carry.ref_len.long()
+        ref = carry.ref_traj
+        ar = torch.arange(S, device=dev)
+        head = torch.linalg.vector_norm(ref[:, 0] - start, dim=-1)
+        tail = torch.linalg.vector_norm(ref[ar, n - 1] - goal, dim=-1)
+        steps = torch.linalg.vector_norm(ref[:, 1:] - ref[:, :-1], dim=-1)
+        valid = torch.arange(ref.shape[1] - 1, device=dev) < (n - 1)[:, None]
+        max_step = torch.where(valid, steps, torch.zeros_like(steps)).amax(-1)
+        out["routes"] = dict(ref_len=n.tolist(),
+                             head_m=head.tolist(), tail_m=tail.tolist(),
+                             max_step_m=max_step.tolist())
+        check(float(head.max()) < 1e-3 and float(tail.max()) < 1e-3
+              and float(max_step.max()) < 1.0, ("route properties", out))
+        if count_build_launches:
+            out["kernel_launches_build_cycle"] = kernel_launches(
+                lambda: C.goal_step(cfg, run, C.rearm_build(carry), step1))
+    return out
+
+
+def check_goal_small(dev):
+    """The wall world in goal mode (benchmark/capture.goal_wall_loop, two
+    seeds from the test start: stop+replan at cycle 0, the composed
+    modes' build at cycle 1, their first two solves at cycles 2 and 3;
+    linspace solves from cycle 1) for 4 cycles at ref_poly_iters 20 (the
+    400-iteration float32 min-snap solve amplifies rounding to
+    centimetres, tests/test_torch_goal_mode.py), card against CPU:
+    positions within 1e-4 m, ref_len and stop_replans equal per cycle."""
+    from intent_mpc_torch.benchmark.capture import goal_wall_loop
+    lines = []
+    for mode in ("linspace", "minsnap", "global"):
+        cg, pg, ng = goal_wall_loop(mode, [0, 2], 4, dev, 20)
+        cc, pc, nc = goal_wall_loop(mode, [0, 2], 4, "cpu", 20)
+        diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
+        check(max(diffs) <= 1e-4, ("goal_small", mode, diffs))
+        same = all((a[0] is None or bool((a[0] == b[0]).all()))
+                   and bool((a[1] == b[1]).all()) for a, b in zip(ng, nc))
+        check(same, ("goal_small ref_len or stop_replans differ", mode))
+        check(finite_carry(cg) and finite_carry(cc), "non-finite carry")
+        lines.append(dict(config="goal_wall_small", ref_mode=mode,
+                          scenarios=2, cycles=4, tol=1e-4,
+                          max_pos_diff_per_cycle=diffs,
+                          ref_len=(None if ng[-1][0] is None
+                                   else ng[-1][0].tolist()),
+                          stop_replans=ng[-1][1].tolist(),
+                          counts_equal=same))
+    return lines
+
+
+def check_prng(dev):
+    """utils/prng.py on the card bit-equal to the CPU: the keys of 8
+    scenarios folded with cycle indices up to 2^31 - 1, each folded with
+    2048 RRT iterations, split, and drawn from with uniform(()) and
+    uniform((3,))."""
+    import torch
+    from intent_mpc_torch.utils import prng
+    out = {}
+    for where in (dev, "cpu"):
+        keys = prng.prng_key(torch.arange(1000, 1008), where)
+        k = prng.fold_in(keys[:, None], torch.tensor(
+            [0, 1, 77, 2 ** 31 - 1], device=where)[None])
+        it = prng.split(prng.fold_in(k[:, :, None],
+                                     torch.arange(2048, device=where)))
+        out[str(where)] = [k, it, prng.uniform(it[..., 0, :]),
+                           prng.uniform(it[..., 1, :], (3,))]
+    card, cpu = out[str(dev)], out["cpu"]
+    equal = all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    check(equal, "prng: card and CPU bits differ")
+    return dict(draws=int(cpu[3].numel() + cpu[2].numel()), bit_equal=equal)
 
 
 def check_real_small(dev):
@@ -1525,7 +1690,22 @@ def main():
           **fleet_81)
     phase("real_phases", seconds=time.perf_counter() - t_real)
 
-    # ---- 23. clean modules ----
+    # ---- 23. goal mode: the DYNUS goal-mode protocol at S = 8 (build
+    # cycle + 6 MPC cycles) for "global" and "linspace", "global" fused;
+    # card against CPU on the wall world; the generator's bits ----
+    t_goal = time.perf_counter()
+    goal = {m: check_goal_dynus(m, 8, 6, dev) for m in ("global", "linspace")}
+    for m in ("global", "linspace"):
+        phase("goal_mode", nvidia_smi=smi, **goal[m])
+    goal_f = check_goal_dynus("global", 8, 3, dev, fused_solve=True,
+                              count_build_launches=False)
+    phase("goal_mode", nvidia_smi=smi, **goal_f)
+    for line in check_goal_small(dev):
+        phase("card_vs_cpu", **line)
+    phase("prng", **check_prng(dev))
+    phase("goal_phases", seconds=time.perf_counter() - t_goal)
+
+    # ---- 24. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -1540,6 +1720,8 @@ def main():
         "launches": loop[128]["launches"],
         "launches_of_other_paths": {
             "real_perception_32": real["launches"]["ew_chain"],
+            "goal_global_8": goal["global"]["launches"]["ew_chain"],
+            "goal_linspace_8": goal["linspace"]["launches"]["ew_chain"],
             "truncation_osqp_128": osqp[128]["launches"]["ew_chain"],
             "truncation_osqp_32": osqp[32]["launches"]["ew_chain"],
             "per_candidate_adaptive_32": adaptive["launches"]["ew_chain"],
@@ -1561,6 +1743,7 @@ def main():
         "launches": loop_f[128]["launches"],
         "launches_of_other_paths": {
             "real_perception_fused_32": real_f["launches"]["fleet_admm"],
+            "goal_global_fused_8": goal_f["launches"]["fleet_admm"],
             "polish_fused_32": polished["fused"]["launches"]["fleet_admm"],
             **{"%s_fused_32" % o["option"]: o["launches"]["fleet_admm"]
                for o in options if o["solve"] == "fused"}},

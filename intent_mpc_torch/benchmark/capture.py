@@ -1,5 +1,6 @@
-"""Drive the DYNUS closed loop, capture the candidate QPs a cycle hands to
-its solver, and time device work with CUDA events.
+"""Drive the DYNUS closed loop (and its goal-mode protocols), capture the
+candidate QPs a cycle hands to its solver, and time device work with CUDA
+events.
 
 `chip_smoke.py`, `benchmark/fleet_phases.py` and the card tests share
 these; nothing here runs at import time.
@@ -10,14 +11,16 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
+from typing import NamedTuple
 
 import torch
 
-from intent_mpc_torch.benchmark import real_loop
+from intent_mpc_torch.benchmark import real_loop, ref_modes
 from intent_mpc_torch.engine import closed_loop as cl
 from intent_mpc_torch.models import mpc as mpclib
 from intent_mpc_torch.models.world import straight_line_ref_traj
 from intent_mpc_torch.parallel import sharding as sh
+from intent_mpc_torch.utils import prng
 from intent_mpc_torch.utils.config import RealDetectorConfig, small_config
 
 
@@ -186,3 +189,86 @@ def capture_default_qps(cfg, S, cycle, device):
     finally:
         mpclib.admm_solve = solve
     return seen[cycle]
+
+
+class GoalRun(NamedTuple):
+    """What a goal-mode episode_step call takes beyond the config."""
+    scen: object
+    occ: object
+    ref: torch.Tensor      # (L, 3): only its length, the allocation, is read
+    key: torch.Tensor      # (S, 2): PRNGKey(1000 + seed) per scenario
+
+
+def goal_keys(seeds, device):
+    return prng.prng_key(torch.tensor([1000 + int(s) for s in seeds]),
+                         device)
+
+
+def goal_dynus(ref_mode, S, device, fused_solve=False):
+    """The DYNUS goal-mode protocol of `ref_modes --dynus` (200 obstacles,
+    each seed's prebuilt static map, 105 m, L = 384) for seeds 0..S-1:
+    (config, GoalRun)."""
+    cfg = ref_modes.dynus_cfg(ref_mode, 200, 100.0)
+    cfg = fused(cfg) if fused_solve else cfg
+    seeds = list(range(S))
+    scen, occ = ref_modes.dynus_batch(cfg, seeds, device)
+    ref = torch.zeros((ref_modes.DYNUS_L, 3), device=device)
+    return cfg, GoalRun(scen, occ, ref, goal_keys(seeds, device))
+
+
+def goal_step(cfg, run: GoalRun, carry, i):
+    return cl.episode_step(cfg, run.scen, run.ref, run.ref.shape[0], run.occ,
+                           carry, i, ref_key=run.key)
+
+
+def goal_init(cfg, run: GoalRun, device):
+    return cl.init_carry(cfg, run.scen, device=device,
+                         ref_len=run.ref.shape[0])
+
+
+def rearm_build(carry):
+    """The carry with every scenario's input trajectory due for a rebuild,
+    as a stop+replan leaves it (composed goal modes)."""
+    return carry._replace(need_ref=torch.ones_like(carry.need_ref))
+
+
+def wall_start(carry, cfg):
+    """The wall world's goal-mode test start: 1.5 m before the wall at
+    x = 4, holding a committed trajectory straight through it, so the first
+    cycle stops and replans and the composed modes build on the second."""
+    H = cfg.planner.horizon
+    pos = torch.tensor([1.5, 0.0, 2.0], device=carry.pos.device
+                       ).expand_as(carry.pos).contiguous()
+    ss = carry.planner.states_sol.clone()
+    ss[:, :, 0] = 1.5 + 0.5 * torch.arange(H, dtype=torch.float32,
+                                           device=ss.device)
+    ss[:, :, 1] = 0.0
+    ss[:, :, 2] = 2.0
+    yes = torch.ones_like(carry.traj_ready)
+    return carry._replace(
+        pos=pos, stop_pos=pos.clone(), ref_anchor=pos.clone(),
+        quad=carry.quad._replace(pos=pos.clone()), traj_ready=yes,
+        planner=carry.planner._replace(states_sol=ss, has_solution=yes,
+                                       first_time=~yes))
+
+
+def goal_wall_loop(ref_mode, seeds, cycles, device, poly_iters):
+    """The wall world in goal mode from wall_start for `cycles` cycles at
+    ref_poly_iters `poly_iters`: (final carry, per-cycle positions on the
+    CPU, per-cycle (ref_len, stop_replans) on the CPU or None)."""
+    cfg = ref_modes.wall_cfg(ref_mode, 2.0)
+    cfg = cfg.replace(engine=dataclasses.replace(cfg.engine,
+                                                 ref_poly_iters=poly_iters))
+    scen, occ, _ = ref_modes.wall_batch(seeds, device)
+    L = ref_modes.WALL_L
+    run = GoalRun(scen, occ, torch.zeros((L, 3), device=device),
+                  goal_keys(seeds, device))
+    carry = wall_start(goal_init(cfg, run, device), cfg)
+    positions, counts = [], []
+    for i in range(cycles):
+        carry, pos = goal_step(cfg, run, carry, i)
+        positions.append(pos.detach().cpu())
+        counts.append((None if carry.ref_len is None
+                       else carry.ref_len.detach().cpu(),
+                       carry.metrics.stop_replans.detach().cpu()))
+    return carry, positions, counts

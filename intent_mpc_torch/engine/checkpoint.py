@@ -9,8 +9,9 @@ it continues the same trajectories.
 The carry is nested NamedTuples whose optional fields may be None (the
 planner's carried shared factor exists only with factor reuse, the real
 detector's track table, history rings and perception stats only with
-real perception). The static maps of a real-perception fleet are not
-state: like the scenarios they are rebuilt from the seeds
+real perception, the composed goal modes' input trajectory, its length
+and the build flag only there). The static maps of a real-perception
+fleet are not state: like the scenarios they are rebuilt from the seeds
 (benchmark/real_loop.static_maps). `flatten`
 lists the tensor leaves in field order and skips None; `unflatten` puts
 leaves back into a template built by `init_carry` from the config, so a
@@ -22,7 +23,7 @@ the run's device.
 from __future__ import annotations
 
 import os
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,10 +88,12 @@ def save_checkpoint(path: str, carry: cl.EngineCarry, cycle_idx: int,
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, cfg: IntentMPCConfig, device=None
+def load_checkpoint(path: str, cfg: IntentMPCConfig, device=None,
+                    ref_len: Optional[int] = None
                     ) -> Tuple[cl.EngineCarry, int, np.ndarray, Scenario]:
     """Restore (carry, cycle_idx, seeds, regenerated scenarios) on
-    `device` (the GPU by default).
+    `device` (the GPU by default). ref_len: the input-trajectory
+    allocation of the composed goal modes (as init_carry takes it).
 
     Scenarios are regenerated from the stored seeds (bit-exact MT19937
     world generation), so the checkpoint stays small."""
@@ -101,7 +104,7 @@ def load_checkpoint(path: str, cfg: IntentMPCConfig, device=None
         cycle_idx = int(z["cycle_idx"])
         seeds = z["seeds"]
     scen = sh.stack_scenarios(cfg, [int(s) for s in seeds], device=dev)
-    template = cl.init_carry(cfg, scen, device=dev)
+    template = cl.init_carry(cfg, scen, device=dev, ref_len=ref_len)
     t_leaves = flatten(template)
     if len(t_leaves) != n:
         raise ValueError(

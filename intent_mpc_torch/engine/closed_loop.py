@@ -1,6 +1,5 @@
 """Closed-loop simulation engine: world -> detector -> predictor -> MPC ->
-controller -> dynamics (port of intent_mpc_tpu/engine/closed_loop.py in
-predefined-goal mode).
+controller -> dynamics (port of intent_mpc_tpu/engine/closed_loop.py).
 
 A batch of S scenarios steps together:
 
@@ -19,7 +18,17 @@ engine options: the predictor or the constant-obstacle MPC, either plant
 or perfect tracking, the camera-FOV rows, the stale predictor history,
 the committed-trajectory monitor on or off, path repetition, look-ahead
 or velocity-heading yaw, and the goal-approach relaxation.
-`check_supported` raises for goal mode.
+
+Goal mode (EngineConfig.goal_mode, the interactive-goal navigation of
+mpcNavigation.cpp:239-290, 460-494) flies to the goal without a prebuilt
+path: the committed-trajectory monitor stops and replans, a statically
+occupied goal region stops the flight, and the MPC's input trajectory is
+either the straight line from the last replan anchor, rebuilt every cycle
+(ref_mode "linspace"), or a composed trajectory (engine/ref_builder.py:
+"minsnap", or "global" with an RRT route first) built once per
+stop+replan and kept per scenario in the carry. A composed build runs for
+the whole batch on the cycles where some scenario needs one; deciding
+that is the composed modes' one host read per cycle (`HOST_READS`).
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from intent_mpc_torch.engine.ref_builder import build_goal_ref, linspace
 from intent_mpc_torch.models import clustering as clus
 from intent_mpc_torch.models import detector as det
 from intent_mpc_torch.models import mpc as mpclib
@@ -43,8 +54,13 @@ from intent_mpc_torch.models.quad_plant import (QuadPlantConfig, QuadState,
                                                 quad_init, quad_step)
 from intent_mpc_torch.models.world import Scenario, obstacle_state
 from intent_mpc_torch.ops.admm import check_supported as check_solver
+from intent_mpc_torch.utils import prng
 from intent_mpc_torch.utils.config import IntentMPCConfig
 from intent_mpc_torch.utils.device import constant, resolve_device
+
+# host reads of the composed goal modes' "does any scenario build its input
+# trajectory this cycle" flag since the last reset (one per cycle)
+HOST_READS = 0
 
 
 class Metrics(NamedTuple):
@@ -70,7 +86,7 @@ class Metrics(NamedTuple):
     prim_res_sum: torch.Tensor     # accumulated chosen-candidate residuals
     prim_res_max: torch.Tensor
     traj_collision_cycles: torch.Tensor  # replanCheckCB monitor hits
-    stop_replans: torch.Tensor     # goal-mode stop+replan events (always 0 here)
+    stop_replans: torch.Tensor     # goal-mode stop+replan events (:474-480)
 
 
 def init_metrics(batch: int, device="cpu") -> Metrics:
@@ -107,11 +123,18 @@ class EngineCarry(NamedTuple):
     tracking_start: torch.Tensor  # time the current tracking round began
     yaw: torch.Tensor             # heading (look-ahead yaw, trajExeCB
                                   # :536-553); feeds the FOV rows
-    ref_anchor: torch.Tensor      # (S, 3) goal-mode reference start (unused here)
+    ref_anchor: torch.Tensor      # (S, 3) goal-mode reference start: reset
+                                  # to the held position on stop+replan
     quad: QuadState               # rigid-body plant state (used with
                                   # plant="quadrotor"; pos/vel mirror it)
     done: torch.Tensor            # monitor goal criterion met
     metrics: Metrics
+    # composed goal modes (ref_mode "minsnap" / "global"; None otherwise):
+    # the committed input trajectory, built on a refTrajReady_ = false pass
+    # (mpcNavigation.cpp:239-290) and kept until the next stop+replan
+    ref_traj: Optional[torch.Tensor] = None   # (S, L, 3)
+    ref_len: Optional[torch.Tensor] = None    # (S,) int32 valid waypoints
+    need_ref: Optional[torch.Tensor] = None   # (S,) bool (refTrajReady_ false)
     # real perception (use_fake_detector=False): the depth-camera track
     # table and per-track history rings; None on the GT path
     real_det: Optional[rdet.RealDetectorState] = None
@@ -127,8 +150,9 @@ def check_supported(cfg: IntentMPCConfig) -> None:
     if e.plant not in ("double_integrator", "quadrotor"):
         raise ValueError("plant must be 'double_integrator' or "
                          "'quadrotor', got %r" % (e.plant,))
-    if e.goal_mode:
-        raise NotImplementedError("engine options not ported: goal_mode")
+    if e.goal_mode and e.ref_mode not in ("linspace", "minsnap", "global"):
+        raise ValueError("ref_mode must be 'linspace', 'minsnap' or "
+                         "'global', got %r" % (e.ref_mode,))
     check_solver(p.solver)
 
 
@@ -142,11 +166,21 @@ def tree_where(cond: torch.Tensor, new, old):
     return torch.where(c, new, old)
 
 
+def composed(cfg: IntentMPCConfig) -> bool:
+    """Goal mode with a composed input trajectory (built, then kept)."""
+    return cfg.engine.goal_mode and cfg.engine.ref_mode != "linspace"
+
+
 def init_carry(cfg: IntentMPCConfig, scenario: Scenario,
-               device=None) -> EngineCarry:
+               device=None, ref_len: Optional[int] = None) -> EngineCarry:
     """Initial carry for a batch of scenarios (leading axis S). Runs on
-    the GPU unless `device` names another device."""
+    the GPU unless `device` names another device. ref_len: the input-
+    trajectory allocation L, which the composed goal modes need."""
     check_supported(cfg)
+    if composed(cfg) and ref_len is None:
+        raise ValueError("goal mode with ref_mode %r needs init_carry's "
+                         "ref_len (the input-trajectory array length)"
+                         % cfg.engine.ref_mode)
     dev = resolve_device(device)
     scenario = Scenario(*(a.to(dev) for a in scenario))
     S = scenario.origin.shape[0]
@@ -173,6 +207,12 @@ def init_carry(cfg: IntentMPCConfig, scenario: Scenario,
         quad=quad_init(start.clone()),
         done=torch.zeros((S,), dtype=torch.bool, device=dev),
         metrics=init_metrics(S, dev),
+        ref_traj=(torch.zeros((S, ref_len, 3), **kw) if composed(cfg)
+                  else None),
+        ref_len=(torch.full((S,), 2, dtype=torch.int32, device=dev)
+                 if composed(cfg) else None),
+        need_ref=(torch.ones((S,), dtype=torch.bool, device=dev)
+                  if composed(cfg) else None),
         real_det=(None if cfg.engine.use_fake_detector else
                   rdet.init_real_detector(cfg.real_detector, cfg.detector,
                                           S, dev)),
@@ -217,6 +257,48 @@ def committed_collision(cfg: IntentMPCConfig, planner: mpclib.PlannerState,
     dyn_hit = torch.any(inside & visible[:, None, :] & dyn_m[:, :, None],
                         dim=(-2, -1))
     return static_hit | dyn_hit
+
+
+# goalHasCollision's probe offsets: +-0.5 m at 0.1 m steps per axis
+_GOAL_OFF = np.arange(-0.5, 0.5 + 1e-6, 0.1, dtype=np.float32)
+_GOAL_PROBE = tuple(map(tuple, np.stack(
+    [a.ravel() for a in np.meshgrid(_GOAL_OFF, _GOAL_OFF, _GOAL_OFF,
+                                    indexing="ij")], axis=-1).tolist()))
+
+
+def goal_region_occupied(occ: OccupancyGrid, goal: torch.Tensor,
+                         batch: int) -> torch.Tensor:
+    """goalHasCollision (mpcNavigation.cpp:612-629): a dense +-0.5 m grid
+    at 0.1 m steps around the goal (3,) against the static inflated map
+    (shared or one per scenario). Returns (batch,) bool."""
+    pts = goal + constant(_GOAL_PROBE, goal.device)               # (P, 3)
+    return torch.any(is_occupied(occ, pts.expand(batch, *pts.shape)), dim=-1)
+
+
+def _build_ref(cfg: IntentMPCConfig, occ: OccupancyGrid, carry: EngineCarry,
+               goal: torch.Tensor, build: torch.Tensor, ref_key, cycle_idx):
+    """The composed goal modes' build pass (mpcNavigation.cpp:239-290):
+    where `build` (S,) holds, [RRT ->] corridor min-snap from the current
+    position to the goal, committed where the RRT found a route (a build
+    without one is retried next cycle with a fresh fold of the key).
+    Returns (ref_traj, ref_len, committed (S,) bool). The build runs for
+    the whole batch when any scenario needs it: that decision is a host
+    read (HOST_READS)."""
+    global HOST_READS
+    HOST_READS += 1
+    if not bool(torch.any(build)):
+        return carry.ref_traj, carry.ref_len, build
+    S, L = carry.ref_traj.shape[:2]
+    if ref_key is None:
+        # PRNGKey(0), as in JAX
+        ref_key = torch.zeros((S, 2), dtype=torch.int64,
+                              device=carry.pos.device)
+    key = prng.fold_in(ref_key, cycle_idx)
+    r, n, _, route_ok = build_goal_ref(cfg.engine, occ, carry.pos, goal, key,
+                                       L, dt=cfg.planner.ts)
+    committed = build & route_ok
+    return (tree_where(committed, r, carry.ref_traj),
+            torch.where(committed, n, carry.ref_len), committed)
 
 
 def _lookahead_yaw(cfg: IntentMPCConfig, planner: mpclib.PlannerState,
@@ -308,7 +390,8 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
                  ref_traj: torch.Tensor, traj_len: int,
                  occ: OccupancyGrid, carry: EngineCarry, cycle_idx: int,
                  solver_iters: Optional[int] = None,
-                 veto_occ: Optional[OccupancyGrid] = None
+                 veto_occ: Optional[OccupancyGrid] = None,
+                 ref_key: Optional[torch.Tensor] = None
                  ) -> Tuple[EngineCarry, torch.Tensor]:
     """One 10 Hz MPC cycle + its 10 control ticks for S scenarios.
 
@@ -316,8 +399,11 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     length; occ the static map, shared or one per scenario; cycle_idx
     the Python cycle counter. veto_occ: the grid of the real detector's
     static-map veto (RealDetectorConfig.static_map_veto), the solid
-    static volume; with the veto on and none given, occ. Returns (carry,
-    pos (S, 3))."""
+    static volume; with the veto on and none given, occ. In goal mode the
+    content of ref_traj is not read, only its length L (the allocation);
+    ref_key (S, 2): each scenario's key of the goal-mode RRT (ref_mode
+    "global"; utils/prng.prng_key(0) when None, as in JAX). Returns
+    (carry, pos (S, 3))."""
     ecfg = cfg.engine
     dev = carry.pos.device
     S = carry.pos.shape[0]
@@ -366,6 +452,32 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     else:
         traj_hit = torch.zeros((S,), dtype=torch.bool, device=dev)
     planner_in = carry.planner
+    ref_anchor = carry.ref_anchor
+    stop_replan = goal_invalid = build = committed = None
+    if ecfg.goal_mode:
+        # goal mode: a collision in the committed trajectory stops it,
+        # discards it and replans from hover (:474-480); a statically
+        # occupied goal region is an invalid goal, a permanent stop
+        # (:460-471)
+        stop_replan = traj_hit
+        goal_invalid = active & goal_region_occupied(occ, goal, S)
+        fresh = mpclib.init_planner_state(cfg.planner, S, dev)
+        planner_in = tree_where(stop_replan, fresh, planner_in)
+        ref_anchor = tree_where(stop_replan, carry.pos, carry.ref_anchor)
+        L = ref_traj.shape[0]
+        if ecfg.ref_mode == "linspace":
+            # the straight input trajectory from the anchor, rebuilt every
+            # cycle (valid only over an empty corridor)
+            ref_traj = linspace(ref_anchor, goal.expand(S, 3), L)
+            traj_len = torch.full((S,), L, dtype=torch.int32, device=dev)
+        else:
+            # stop pass -> build pass -> solve pass, like the reference's
+            # refTrajReady_ handshake: the build pass does not solve the
+            # MPC, and updatePath resets the planner's warm state
+            build = carry.need_ref & ~stop_replan & active
+            ref_traj, traj_len, committed = _build_ref(
+                cfg, occ, carry, goal, build, ref_key, cycle_idx)
+            planner_in = tree_where(committed, fresh, planner_in)
 
     static_obs = (_static_rows(cfg, occ, carry.pos)
                   if cfg.planner.static_clustering else None)
@@ -394,11 +506,31 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
             dyn_safety=dyn_safety)
 
     run_mpc = active & ~carry.stopping
+    traj_ready = carry.traj_ready
+    if ecfg.goal_mode:
+        # stop_replan and goal_invalid cycles hold position and commit no
+        # plan (stop() + mpcTrajectoryReady_ = false), nor does a build
+        run_mpc = run_mpc & ~stop_replan & ~goal_invalid
+        if build is not None:
+            run_mpc = run_mpc & ~build
+        traj_ready = traj_ready & ~stop_replan
     planner = tree_where(run_mpc, plan_out.state, planner_in)
     valid = plan_out.valid & run_mpc
-    traj_ready = carry.traj_ready | valid
+    traj_ready = traj_ready | valid
     traj_age = torch.where(valid, torch.zeros_like(carry.traj_age),
                            carry.traj_age + 1)
+
+    if ecfg.goal_mode and ecfg.replan_check:
+        # goal mode also vets the freshly committed plan: the reference's
+        # 100 Hz replanCheckCB fires within 10 ms of a commit (:474-480)
+        post_hit = valid & committed_collision(
+            cfg, planner, occ, torch.full((S,), dt, device=dev),
+            pos_h[:, :, 0], size_h[:, :, 0], visible)
+        planner = tree_where(post_hit, mpclib.init_planner_state(
+            cfg.planner, S, dev), planner)
+        traj_ready = traj_ready & ~post_hit
+        stop_replan = stop_replan | post_hit
+        traj_hit = traj_hit | post_hit
 
     best_prim = mpclib._rows(plan_out.prim_res, plan_out.best_idx)
     m = carry.metrics
@@ -411,12 +543,17 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
             run_mpc, torch.maximum(m.prim_res_max, best_prim), m.prim_res_max),
         traj_collision_cycles=m.traj_collision_cycles
         + traj_hit.to(torch.int32))
+    if ecfg.goal_mode:
+        metrics = metrics._replace(
+            stop_replans=m.stop_replans + stop_replan.to(torch.int32))
 
-    # ---- goal stop / path repeat (replanCheckCB :414-456), after 3 s of
-    # tracking ----
+    # ---- goal stop / path repeat (replanCheckCB :414-456): after 3 s of
+    # tracking in predefined-goal mode, on distance alone in goal mode
+    # (:482-494) ----
     near_goal = torch.linalg.vector_norm(carry.pos - goal, dim=-1) \
         <= ecfg.goal_stop_threshold
-    near_goal = near_goal & (t0 - carry.tracking_start >= 3.0)
+    if not ecfg.goal_mode:
+        near_goal = near_goal & (t0 - carry.tracking_start >= 3.0)
     stop_pos = tree_where(carry.stopping, carry.stop_pos, carry.pos)
     repeats_left, tracking_start = carry.repeats_left, carry.tracking_start
     if ecfg.repeat_path > 1:
@@ -433,6 +570,8 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         traj_ready = traj_ready & ~do_repeat
     else:
         stopping = carry.stopping | (near_goal & active)
+    if ecfg.goal_mode:
+        stopping = stopping | goal_invalid
 
     pos, vel = carry.pos, carry.vel
     quad = carry.quad
@@ -567,8 +706,20 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
         prev_target_acc=prev_acc, has_prev_target=has_prev,
         stopping=stopping, stop_pos=stop_pos, repeats_left=repeats_left,
         tracking_start=tracking_start, yaw=yaw,
-        ref_anchor=carry.ref_anchor, quad=quad, done=done, metrics=metrics,
+        ref_anchor=ref_anchor, quad=quad, done=done, metrics=metrics,
         real_det=rd, stall_cycles=stall_new)
+    if ecfg.goal_mode:
+        # after a stop+replan the next cycle's reference re-anchors at the
+        # held position (mpcCB :268-288)
+        new_carry = new_carry._replace(
+            ref_anchor=tree_where(stop_replan, pos, ref_anchor))
+    if committed is not None:
+        # the built trajectory is committed and refTrajReady_ flips true;
+        # any stop+replan this cycle (the post-commit vet included) re-arms
+        # the builder for the next cycle
+        new_carry = new_carry._replace(
+            ref_traj=ref_traj, ref_len=traj_len,
+            need_ref=(carry.need_ref & ~committed) | stop_replan)
     return new_carry, pos
 
 
@@ -579,21 +730,26 @@ def run_episode(cfg: IntentMPCConfig, scenario: Scenario,
                 num_cycles: Optional[int] = None,
                 record_path: bool = False,
                 device=None,
-                veto_occ: Optional[OccupancyGrid] = None):
+                veto_occ: Optional[OccupancyGrid] = None,
+                ref_key: Optional[torch.Tensor] = None):
     """Run a batch of episodes (scenario axis S) on `device` (the GPU by
-    default); occ and veto_occ as episode_step takes them. Returns (final
-    EngineCarry, path (S, C, 3) or None)."""
+    default); occ, veto_occ and ref_key (one key per scenario) as
+    episode_step takes them. Returns (final EngineCarry, path (S, C, 3)
+    or None)."""
     dev = resolve_device(device)
     scenario = Scenario(*(a.to(dev) for a in scenario))
     ref_traj = ref_traj.to(dev)
     occ = occ if occ is not None else empty_grid(dev)
     n = num_cycles if num_cycles is not None else cfg.engine.num_cycles
-    carry = init_carry(cfg, scenario, device=dev)
+    carry = init_carry(cfg, scenario, device=dev, ref_len=ref_traj.shape[0])
     traj_len = int(traj_len)
+    if ref_key is not None:
+        ref_key = ref_key.to(dev)
     paths = []
     for i in range(n):
         carry, p = episode_step(cfg, scenario, ref_traj, traj_len, occ, carry,
-                                i, solver_iters, veto_occ=veto_occ)
+                                i, solver_iters, veto_occ=veto_occ,
+                                ref_key=ref_key)
         if record_path:
             paths.append(p)
     return carry, (torch.stack(paths, dim=1) if record_path else None)

@@ -107,25 +107,40 @@ def init_planner_state(cfg: PlannerConfig, batch: int,
 
 
 def reference_window(cfg: PlannerConfig, input_traj: torch.Tensor,
-                     traj_len: int, curr_pos: torch.Tensor,
+                     traj_len, curr_pos: torch.Tensor,
                      last_start: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """getReferenceTraj (mpcPlanner.cpp:1199-1231): windowed nearest-point
     search <= 3 s ahead of the monotone last start index; pads with the
-    last waypoint. input_traj (L, 3) shared by the batch; curr_pos (S, 3);
-    last_start (S,). Returns (xref (S, H, 3), new_start (S,))."""
-    L = input_traj.shape[0]
+    last waypoint. input_traj (L, 3) shared by the batch with traj_len a
+    Python int, or (S, L, 3) one per scenario (goal mode) with traj_len
+    (S,) on the device; curr_pos (S, 3); last_start (S,). Returns
+    (xref (S, H, 3), new_start (S,))."""
+    L = input_traj.shape[-2]
     dev = curr_pos.device
     max_fwd = int(round(cfg.max_ref_forward_time / cfg.ts))
     idxs = last_start.to(torch.int64)[:, None] + torch.arange(max_fwd, device=dev)
+    shared = input_traj.dim() == 2
+    if not shared:
+        traj_len = traj_len.to(torch.int64)[:, None]
+
+    def take(i):
+        i = torch.clamp(i, 0, L - 1)
+        if shared:
+            return input_traj[i]
+        return torch.gather(input_traj, 1, i[..., None].expand(i.shape + (3,)))
+
     in_range = idxs < traj_len
-    pts = input_traj[torch.clamp(idxs, 0, L - 1)]               # (S, F, 3)
+    pts = take(idxs)                                             # (S, F, 3)
     d = torch.linalg.vector_norm(pts - curr_pos[:, None, :], dim=-1)
     d = torch.where(in_range, d, torch.full_like(d, float("inf")))
     start = last_start.to(torch.int64) + torch.argmin(d, dim=-1)
-    ref_idx = torch.clamp(start[:, None] + torch.arange(cfg.horizon, device=dev),
-                          0, traj_len - 1)
-    xref = input_traj[torch.clamp(ref_idx, 0, L - 1)]
+    ref_idx = start[:, None] + torch.arange(cfg.horizon, device=dev)
+    if shared:
+        ref_idx = torch.clamp(ref_idx, 0, traj_len - 1)
+    else:
+        ref_idx = torch.minimum(torch.clamp(ref_idx, min=0), traj_len - 1)
+    xref = take(ref_idx)
     return xref, start.to(torch.int32)
 
 
@@ -330,7 +345,7 @@ def _append_static(cfg: PlannerConfig, static_obs, use_obs, qpos, qsize,
 
 def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
                         curr_pos: torch.Tensor, curr_vel: torch.Tensor,
-                        input_traj: torch.Tensor, traj_len: int,
+                        input_traj: torch.Tensor, traj_len,
                         pred: Prediction, visible: torch.Tensor,
                         max_iter: Optional[int] = None,
                         cycle_idx: Optional[int] = None,
@@ -340,7 +355,8 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
     """One replanning cycle (mpcCB body + makePlanWithPred) for a batch
     of S scenarios; the 6 intent-combination QPs of each are one batch.
 
-    curr_pos/curr_vel (S, 3); input_traj (L, 3); pred over (S, O);
+    curr_pos/curr_vel (S, 3); input_traj and traj_len as
+    reference_window takes them; pred over (S, O);
     visible (S, O) bool; cycle_idx is the Python cycle counter that
     drives the shared-factor refresh.
     curr_yaw (S,): adds the two FOV half-space rows in two more slots
@@ -567,7 +583,7 @@ def _shared_factor(cfg: PlannerConfig, state: PlannerState,
 
 def make_plan(cfg: PlannerConfig, state: PlannerState,
               curr_pos: torch.Tensor, curr_vel: torch.Tensor,
-              input_traj: torch.Tensor, traj_len: int,
+              input_traj: torch.Tensor, traj_len,
               obs_pos: torch.Tensor, obs_vel: torch.Tensor,
               obs_size: torch.Tensor, visible: torch.Tensor,
               max_iter: Optional[int] = None,

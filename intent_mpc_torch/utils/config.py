@@ -358,8 +358,12 @@ class EngineConfig:
     replan_check: bool = True            # committed-trajectory collision
                                          # monitor each cycle (replanCheckCB
                                          # :631-700) (ported)
-    goal_mode: bool = False              # interactive-goal navigation (not
-                                         # ported)
+    goal_mode: bool = False              # interactive-goal navigation
+                                         # (usePredefinedGoal_=false): goal
+                                         # stop without the 3 s gate,
+                                         # invalid-goal stop, stop+replan
+                                         # on a committed-trajectory hit
+                                         # (ported)
     predictor_stale_hist: bool = False   # predictor reads the previous
                                          # cycle's history (ported)
     render_static_grid: bool = True      # the real detector's camera also
@@ -367,18 +371,26 @@ class EngineConfig:
     yaw_lookahead: float = 1.0           # trajExeCB :536-553 look-ahead yaw;
                                          # <= 0 uses the velocity heading
                                          # (both ported)
-    # ---- goal-mode MPC input-trajectory composition (not ported) ----
-    ref_mode: str = "linspace"
-    ref_vel: float = 1.0
-    ref_waypoints: int = 8
-    ref_rrt_iters: int = 512
-    ref_rrt_step: float = 0.5
-    ref_rrt_shortcut: float = 3.0
-    ref_bounds_margin: float = 2.0
-    ref_z_min: float = 0.3
-    ref_corridor_radius: float = 0.5
-    ref_poly_iters: int = 400
-    ref_angular_vel: float = 1.0
+    # ---- goal-mode MPC input-trajectory composition (engine/ref_builder;
+    # all three modes ported) ----
+    ref_mode: str = "linspace"           # "linspace": the straight segment
+                                         # from the replan anchor; "minsnap":
+                                         # 2-waypoint corridor min-snap
+                                         # (mpcNavigation.cpp:267-289);
+                                         # "global": RRT route first
+                                         # (:240-265)
+    ref_vel: float = 1.0                 # polyTraj desired velocity
+    ref_waypoints: int = 8               # RRT-route resample count
+    ref_rrt_iters: int = 512             # RRT iteration budget
+    ref_rrt_step: float = 0.5            # RRT incremental_dist
+    ref_rrt_shortcut: float = 3.0        # shortcutting max segment length
+    ref_bounds_margin: float = 2.0       # RRT sampling box beyond start/goal
+    ref_z_min: float = 0.3               # RRT sampling floor
+    ref_corridor_radius: float = 0.5     # poly_traj/initial_radius
+    ref_poly_iters: int = 400            # min-snap dense-ADMM iterations
+    ref_angular_vel: float = 1.0         # pwl-failsafe rotation rate; keep
+                                         # rotation holds shorter than the
+                                         # MPC window (horizon * ts)
     vel_limit: float = 5.0               # DYNUS Linf violation limits
     acc_limit: float = 20.0
     jerk_limit: float = 100.0

@@ -797,3 +797,80 @@ def test_real_path_waits_only_for_dbscan_flags(cuda_device):
     assert clus.HOST_READS >= 2 * per_cycle
     assert len(syncs) == clus.HOST_READS, [str(w.message) for w in syncs[:3]]
     assert bool(torch.isfinite(carry.pos).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["linspace", "minsnap", "global"])
+def test_goal_mode_waits_only_for_the_build_flag(cuda_device, mode):
+    """Goal mode on the DYNUS goal-mode protocol (benchmark/capture.
+    goal_dynus, 2 scenarios): under torch.cuda.set_sync_debug_mode("warn")
+    a factor-refresh cycle (4) with every input trajectory due for a
+    rebuild (the composed modes' build pass) and a reuse cycle (5), after
+    4 warm-up cycles, wait for the device exactly closed_loop.HOST_READS
+    times: once per cycle in the composed modes (the "does any scenario
+    build" flag), never with the straight input trajectory."""
+    import traceback
+    import warnings
+    from intent_mpc_torch.benchmark import capture as C
+    cfg, run = C.goal_dynus(mode, 2, "cuda")
+    carry = C.goal_init(cfg, run, "cuda")
+    for i in range(4):
+        carry, _ = C.goal_step(cfg, run, carry, i)
+    if mode != "linspace":
+        carry = C.rearm_build(carry)
+    torch.cuda.synchronize()
+    cl.HOST_READS = 0
+    syncs = []
+
+    def record(message, *args, **kw):
+        # where each wait happened: the Python frames of the warning
+        if "synchronizing CUDA" in str(message):
+            syncs.append(" <- ".join(
+                "%s:%d" % (os.path.basename(f.filename), f.lineno)
+                for f in traceback.extract_stack()[-6:-1][::-1]))
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for i in (4, 5):
+                carry, _ = C.goal_step(cfg, run, carry, i)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert cl.HOST_READS == (0 if mode == "linspace" else 2)
+    assert len(syncs) == cl.HOST_READS, sorted(set(syncs))
+    assert bool(torch.isfinite(carry.pos).all())
+    if mode != "linspace":
+        assert not bool(carry.need_ref.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["linspace", "global"])
+def test_goal_mode_checkpoint_resumes_bit_exactly_on_card(cuda_device, mode,
+                                                          tmp_path):
+    """The DYNUS goal-mode protocol at 2 scenarios on the card: 5 cycles
+    uninterrupted against 2 cycles, a checkpoint (engine/checkpoint.py;
+    the composed mode's input trajectory, its length and the build flag
+    among the leaves), load_checkpoint with the allocation, and 3 more
+    cycles: every leaf equal (the composed mode builds at cycle 0, and
+    again at cycle 2 after a re-arm in both runs)."""
+    from intent_mpc_torch.benchmark import capture as C
+    from intent_mpc_torch.engine import checkpoint as ckpt
+    cfg, run = C.goal_dynus(mode, 2, "cuda")
+
+    def steps(carry, cycles):
+        for i in cycles:
+            if i == 2 and mode != "linspace":
+                carry = C.rearm_build(carry)
+            carry, _ = C.goal_step(cfg, run, carry, i)
+        return carry
+    whole = steps(C.goal_init(cfg, run, "cuda"), range(5))
+    half = steps(C.goal_init(cfg, run, "cuda"), range(2))
+    path = str(tmp_path / "goal")
+    ckpt.save_checkpoint(path, half, 2, [0, 1])
+    loaded, cycle, _, _ = ckpt.load_checkpoint(path, cfg, device="cuda",
+                                               ref_len=run.ref.shape[0])
+    assert cycle == 2
+    resumed = steps(loaded, range(2, 5))
+    for a, b in zip(ckpt.flatten(whole), ckpt.flatten(resumed)):
+        assert torch.equal(a, b)

@@ -81,8 +81,7 @@ UNPORTED = {"woodbury_candidates": dict(woodbury_candidates=True),
             "block_refine": dict(block_refine=True),
             "folded_refine": dict(folded_refine=True),
             "minv_dtype": dict(minv_dtype="bf16"),
-            "shared_refine_warm_frac": dict(shared_refine_warm_frac=0.5),
-            "goal_mode": dict(goal_mode=True)}
+            "shared_refine_warm_frac": dict(shared_refine_warm_frac=0.5)}
 
 
 def _with_option(cfg, **kw):
@@ -113,6 +112,46 @@ def test_cli_refuses_unported_flags_before_any_work(flags, monkeypatch,
         with pytest.raises(NotImplementedError, match=flags):
             H.main(["--device", "cpu", "--trials", "1", "--out",
                     str(tmp_path)] + extra)
+    assert not os.listdir(tmp_path)
+
+
+def _goal_config(mode):
+    """The harness's DYNUS config at a small map in goal mode."""
+    cfg = H.config_from_args(H.parse_args(
+        ["--timeout", "0.3", "--obstacles", "6", "--max-obstacles", "6",
+         "--iters", "30"]))
+    return cfg.replace(engine=dataclasses.replace(cfg.engine, goal_mode=True,
+                                                  ref_mode=mode))
+
+
+def test_run_trials_flies_goal_mode_linspace():
+    """The harness runs goal mode with the straight input trajectory: one
+    trial of 3 cycles on the CPU writes its row with 3 solves and no
+    stop+replan on the open map."""
+    rows = H.run_trials(_goal_config("linspace"), [0], device="cpu")
+    assert len(rows) == 1 and rows[0]["mpc_solve_count"] == 3
+    assert rows[0]["mpc_solve_successes"] == 3
+
+
+@pytest.mark.parametrize("mode", ["minsnap", "global"])
+def test_checkpointed_harness_needs_ref_len_in_composed_goal_mode(
+        mode, tmp_path):
+    """A composed ref_mode reaches init_carry without the input-trajectory
+    allocation on the checkpointed path, as in the JAX harness (whose
+    run_trials_checkpointed builds its carries the same way): the same
+    ValueError as JAX's init_carry, before any cycle or file."""
+    from intent_mpc_tpu.models.world import generate_scenario
+    from intent_mpc_tpu.utils.config import IntentMPCConfig as JConfig
+    from intent_mpc_tpu.engine import closed_loop as jcl
+    jcfg = JConfig()
+    jcfg = jcfg.replace(engine=dataclasses.replace(
+        jcfg.engine, goal_mode=True, ref_mode=mode))
+    with pytest.raises(ValueError) as je:
+        jcl.init_carry(jcfg, generate_scenario(0, jcfg.world))
+    with pytest.raises(ValueError) as te:
+        H.run_trials_checkpointed(_goal_config(mode), [0],
+                                  str(tmp_path / "c.npz"), device="cpu")
+    assert str(te.value) == str(je.value)
     assert not os.listdir(tmp_path)
 
 

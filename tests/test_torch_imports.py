@@ -12,9 +12,14 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "intent_mpc_tpu")
-# the real-perception slice's modules, which both checks must reach
-REAL_PERCEPTION = ("models.clustering", "models.sensor", "models.perception",
-                   "models.real_detector", "benchmark.real_loop")
+# the real-perception and goal-mode slices' modules, which both checks
+# must reach
+SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
+                   "models.real_detector", "benchmark.real_loop",
+                   "utils.prng", "models.global_planner", "models.pwl_traj",
+                   "ops.dense_admm", "models.poly_traj",
+                   "models.poly_planner", "engine.ref_builder",
+                   "benchmark.ref_modes")
 
 torch.set_num_threads(1)
 
@@ -46,7 +51,7 @@ def _imported(path):
 def test_no_jax_imports_in_port_sources():
     files = _port_files()
     assert len(files) > 15
-    for m in REAL_PERCEPTION:
+    for m in SLICE_MODULES:
         assert os.path.join(ROOT, "intent_mpc_torch",
                             *m.split(".")) + ".py" in files, m
     bad = [(os.path.relpath(p, ROOT), n) for p in files for n in _imported(p)
@@ -65,7 +70,7 @@ def test_importing_port_loads_no_jax():
         "assert len(mods) > 15, mods\n"
         "missing = [m for m in %r if 'intent_mpc_torch.' + m not in mods]\n"
         "assert not missing, missing\n"
-        "assert not bad, bad\n" % (FORBIDDEN, REAL_PERCEPTION))
+        "assert not bad, bad\n" % (FORBIDDEN, SLICE_MODULES))
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -73,7 +78,7 @@ def test_importing_port_loads_no_jax():
 
 
 def _entry_calls(tmp_path):
-    from intent_mpc_torch.benchmark import harness, real_loop
+    from intent_mpc_torch.benchmark import harness, real_loop, ref_modes
     from intent_mpc_torch.engine import checkpoint, closed_loop as cl
     from intent_mpc_torch.models.world import (load_ref_traj,
                                                straight_line_ref_traj)
@@ -97,6 +102,8 @@ def _entry_calls(tmp_path):
         "load_ref_traj": lambda: load_ref_traj(str(tmp_path / "ref.txt")),
         "real_loop": lambda: real_loop.main(["--seeds", "0", "--out",
                                              str(tmp_path / "rl")]),
+        "ref_modes": lambda: ref_modes.run(ref_modes.parse_args(
+            ["--seeds", "0", "--out", str(tmp_path / "rm")])),
     }
 
 
@@ -104,7 +111,7 @@ def _entry_calls(tmp_path):
                                    "stack_scenarios", "batch_rollout",
                                    "run_trials", "run_trials_checkpointed",
                                    "load_checkpoint", "load_ref_traj",
-                                   "real_loop"])
+                                   "real_loop", "ref_modes"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a device argument an entry point runs on CUDA; with no CUDA
     device it raises instead of falling back to the CPU (before it reads

@@ -4,7 +4,7 @@ MPC, the stale predictor history, perfect tracking, path repetition, the
 monitor off, the velocity-heading yaw, the flat iteration, stationary
 refinement, the drift-aware factor refresh), per cycle against the JAX
 package on the `__graft_entry__` config from identical carries; and the
-engine's remaining unported options."""
+solver's remaining unported options."""
 
 import dataclasses
 import os
@@ -256,8 +256,9 @@ def test_fused_fov_upper_bound_is_inert():
 
 def test_check_supported_raises_for_exactly_the_options_left():
     """engine/closed_loop.check_supported accepts every option this port
-    runs, real perception and static clustering among them, and raises for
-    goal mode and the TPU-only solver knobs, each by name."""
+    runs, real perception, static clustering and goal mode with each of
+    its three input-trajectory modes among them, and raises for the
+    TPU-only solver knobs, each by name."""
     base = IntentMPCConfig()
     for opt in OPTIONS.values():
         tcl.check_supported(with_options(base, opt.get("engine"),
@@ -266,8 +267,13 @@ def test_check_supported_raises_for_exactly_the_options_left():
                                      None))
     tcl.check_supported(base.replace(planner=dataclasses.replace(
         base.planner, static_clustering=True)))
-    left = {"goal_mode": dict(engine=dict(goal_mode=True)),
-            "woodbury_candidates": dict(solver=dict(
+    for mode in ("linspace", "minsnap", "global"):
+        tcl.check_supported(with_options(
+            base, dict(goal_mode=True, ref_mode=mode), None))
+    with pytest.raises(ValueError, match="ref_mode"):
+        tcl.check_supported(with_options(
+            base, dict(goal_mode=True, ref_mode="spline"), None))
+    left = {"woodbury_candidates": dict(solver=dict(
                 woodbury_candidates=True)),
             "block_refine": dict(solver=dict(block_refine=True)),
             "folded_refine": dict(solver=dict(folded_refine=True)),

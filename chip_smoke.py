@@ -123,7 +123,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
                world in each ref_mode, card against CPU, held to 1e-4 m
                with equal ref_len and stop_replans; utils/prng.py's bits
                on the card equal to the CPU's
- 24. modules   neither jax nor the JAX package was imported
+ 24. mapping   the mapping stack at the DYNUS width (benchmark/capture.
+               dynus_frames: the real-perception camera flown 2 s at 5 m/s
+               along the start-to-goal line, 60 frames at 30 Hz, each
+               seed's obstacles at the frame's time) at 32 scenarios on
+               747 x 220 x 51 voxels at 0.15 m: device ms per frame of
+               integrate_cloud and its kernel launches, the inflation,
+               free_regions, octree builds (both unknown-space semantics),
+               the goal-mode RRT over each octree (2048 iterations, step
+               2.5, 20 m ahead), the ESDF of 4 seeds, peak memory (< 24 GB),
+               occupied and unknown voxels, RRT successes, the share of the
+               static solid volume in the swept range marked occupied; the
+               small world card against CPU: log-odds bit-equal, octree
+               answers equal, RRT paths within 1e-6 m
+ 25. perception_fusion the U-V detector, bird's-eye tracks, DBSCAN
+               detections, mutual-best fusion on the same frames, the YOLO
+               network on a seeded (32, 3, 352, 352) batch, decode,
+               person_rects and fuse_external_2d: ms per frame per stage,
+               ms per YOLO forward, live tracks, peak memory; small inputs
+               card against CPU: network outputs within 1e-4, decoded
+               boxes, track tables and fusion flags equal; the two phases'
+               seconds (none of the three kernels launches in them)
+ 26. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -1414,6 +1435,433 @@ def check_real_small(dev):
     return lines
 
 
+# the DYNUS map of the mapping phase: real_loop.static_grid_for's extents
+MAP_ORIGIN = (-2.0, -16.5, 0.0)
+MAP_SIZE = (112.0, 33.0, 7.6)
+
+
+def timed(fn):
+    """(fn()'s result, device-timeline ms between CUDA events around it)."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def swept_voxels(fr, m, rd, max_range):
+    """Voxels of map m (nx, ny, nz) whose centers some frame's camera saw:
+    inside its image, depth in (depth_min, max_range]. The frames' camera
+    path is the same for every scenario."""
+    import torch
+    dev = m.log_odds.device
+    axes = [m.origin[a] + (torch.arange(n, device=dev) + 0.5) * m.resolution
+            for a, n in enumerate(m.log_odds.shape[1:])]
+    c = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    seen = torch.zeros(c.shape[:3], dtype=torch.bool, device=dev)
+    for f in range(fr.cam_pos.shape[0]):
+        q = (c - fr.cam_pos[f, 0]) @ fr.rot[0]           # world -> optical
+        z = q[..., 2]
+        zs = torch.clamp(z, min=1e-6)
+        u = rd.fx * q[..., 0] / zs + rd.cx
+        v = rd.fy * q[..., 1] / zs + rd.cy
+        seen |= ((z > rd.depth_min) & (z <= max_range) & (u >= 0)
+                 & (u < rd.im_w) & (v >= 0) & (v < rd.im_h))
+    return seen
+
+
+def check_mapping(seeds, fr, dev):
+    """The mapping stack at the DYNUS width (S = len(seeds) maps of
+    MAP_SIZE at 0.15 m) on the camera frames fr (capture.dynus_frames):
+    every frame integrated into each scenario's log-odds map (device ms
+    per frame, kernel launches of one frame), then the inflated grids,
+    free_regions at the dynamic obstacles' boxes of the last frame, the
+    octrees (levels 4) in both unknown-space semantics, the goal-mode RRT
+    (2048 iterations, step 2.5) over each octree from the last camera
+    position to 20 m ahead, and the ESDF of 4 seeds' inflated grids; peak
+    memory, occupied and unknown voxels, RRT successes, and the share of
+    the static solid volume inside the camera's swept range that the map
+    marks occupied (reported, not gated)."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import real_dynus_config
+    from intent_mpc_torch.benchmark.real_loop import static_grid_for
+    from intent_mpc_torch.models import global_planner as gp
+    from intent_mpc_torch.models import mapping as mp
+    from intent_mpc_torch.models import octo
+    from intent_mpc_torch.models.world import generate_scenario_numpy
+    from intent_mpc_torch.utils import prng
+    rcfg_all = real_dynus_config()
+    rd = rcfg_all.real_detector
+    cfg = mp.MappingConfig()
+    F, S = fr.pts.shape[:2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = mp.init_map(MAP_ORIGIN, MAP_SIZE, cfg, batch=S, device=dev)
+    dims = tuple(m.log_odds.shape[1:])
+    mp.integrate_cloud(cfg, m, fr.cam_pos[0], fr.pts[0], fr.valid[0])
+    frame_ms = []
+    for f in range(F):
+        m, ms = timed(lambda m=m, f=f: mp.integrate_cloud(
+            cfg, m, fr.cam_pos[f], fr.pts[f], fr.valid[f]))
+        frame_ms.append(ms)
+    launches = kernel_launches(lambda: mp.integrate_cloud(
+        cfg, m, fr.cam_pos[-1], fr.pts[-1], fr.valid[-1]))
+    lo = m.log_odds
+    occupied = int((lo >= cfg.l_occ).sum())
+    unknown = int((lo == 0.0).sum())
+    check(occupied > 0 and bool(torch.isfinite(lo).all()),
+          ("mapping: no occupied voxel or a non-finite log-odds", occupied))
+
+    g, inflate_ms = timed(lambda: mp.to_occupancy_grid(cfg, m, inflated=True))
+    dyn = fr.dynamic[..., None]
+    inf = float("inf")
+    box_lo = torch.where(dyn, fr.obs_pos[-1] - fr.obs_size / 2,
+                         torch.full_like(fr.obs_size, inf))
+    box_hi = torch.where(dyn, fr.obs_pos[-1] + fr.obs_size / 2,
+                         torch.full_like(fr.obs_size, -inf))
+    freed, free_ms = timed(lambda: mp.free_regions(
+        g.grid, m.origin, m.resolution, box_lo, box_hi))
+    cleared = int(((g.grid > 0) & (freed == 0)).sum())
+    octos, octo_ms = {}, {}
+    for ign in (True, False):
+        octos[ign], octo_ms[ign] = timed(lambda ign=ign: octo.from_log_odds(
+            m, cfg, levels=4, ignore_unknown=ign))
+
+    start = fr.cam_pos[-1]
+    goal = start + torch.tensor([20.0, 0.0, 0.0], device=dev)
+    margin = rcfg_all.engine.ref_bounds_margin
+    b_lo = torch.minimum(start, goal) - margin
+    b_lo[:, 2] = torch.clamp(b_lo[:, 2], min=rcfg_all.engine.ref_z_min)
+    b_hi = torch.maximum(start, goal) + margin
+    rrt_cfg = gp.RRTConfig(max_iters=2048, incremental_dist=2.5,
+                           goal_reach_dist=2.5, max_shortcut_dist=12.0)
+    keys = prng.prng_key(torch.tensor([1000 + int(s) for s in seeds]), dev)
+    rrt_ms, successes = {}, {}
+    for ign in (True, False):
+        res, rrt_ms[ign] = timed(lambda ign=ign: gp.rrt_plan(
+            octos[ign], start, goal, b_lo, b_hi, keys, rrt_cfg))
+        check(bool(torch.isfinite(res.path).all()), "mapping: RRT path")
+        successes[ign] = int(res.success.sum())
+
+    n_esdf = min(4, S)
+    d, esdf_ms = timed(lambda: mp.esdf(g.grid[:n_esdf], m.resolution))
+    occ4 = g.grid[:n_esdf] > 0
+    check(bool(torch.isfinite(d).all()) and bool((d[occ4] <= 0).all())
+          and bool((d[~occ4] > 0).all()), "mapping: ESDF signs")
+
+    world = rcfg_all.world
+    solid = torch.stack([static_grid_for(
+        generate_scenario_numpy(int(s), world), resolution=cfg.resolution,
+        inflation=(0.0, 0.0, 0.0), device=dev).grid for s in seeds]) > 0
+    check(tuple(solid.shape[1:]) == dims, ("solid grid dims", solid.shape))
+    seen = swept_voxels(fr, m, rd, cfg.raycast_max_len)[None]
+    solid_seen = solid & seen
+    share = float(((lo >= cfg.l_occ) & solid_seen).sum()) \
+        / max(int(solid_seen.sum()), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 24.0, ("mapping peak memory", peak))
+    return dict(
+        scenarios=S, frames=F, map_dims=list(dims), resolution=m.resolution,
+        voxels_per_map=dims[0] * dims[1] * dims[2],
+        points_per_frame=fr.pts.shape[2],
+        valid_points_per_frame=float(fr.valid.float().sum(-1).mean()),
+        integrate_ms_per_frame=sum(frame_ms) / F,
+        integrate_ms_each=[round(x, 3) for x in frame_ms],
+        integrate_launches_per_frame=launches,
+        inflate_ms=inflate_ms, free_regions_ms=free_ms,
+        free_regions_cleared=cleared,
+        octree_ms={"ignore_unknown": octo_ms[True],
+                   "conservative": octo_ms[False]},
+        rrt_ms={"ignore_unknown": rrt_ms[True],
+                "conservative": rrt_ms[False]},
+        rrt_successes={"ignore_unknown": successes[True],
+                       "conservative": successes[False]},
+        esdf_ms=esdf_ms, esdf_maps=n_esdf,
+        occupied_voxels=occupied, unknown_voxels=unknown,
+        solid_voxels_in_swept_range=int(solid_seen.sum()),
+        solid_in_swept_range_occupied_share=share,
+        peak_memory_gb=peak)
+
+
+def check_mapping_small(dev):
+    """The mapping stack on the card against the CPU on the small world
+    (capture.small_frames: 2 scenarios, 5 boxes, a 10 x 6 x 3 m map at
+    0.2 m, 6 frames; the same projected points on both): log-odds
+    bit-equal, octree search / is_blocked / segment_free answers equal in
+    both semantics, the RRT over each octree within 1e-6 m with equal
+    lengths and successes."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import small_frames
+    from intent_mpc_torch.models import global_planner as gp
+    from intent_mpc_torch.models import mapping as mp
+    from intent_mpc_torch.models import octo
+    from intent_mpc_torch.utils import prng
+    fr = small_frames(device="cpu")
+    cfg = mp.MappingConfig(resolution=0.2)
+    g = torch.Generator().manual_seed(0)
+    q = torch.rand((2, 512, 3), generator=g) * torch.tensor([11.0, 7.0, 4.0]) \
+        - 0.5
+    a = torch.rand((2, 256, 3), generator=g) * torch.tensor([9.6, 5.6, 2.6]) \
+        + 0.2
+    b = torch.rand((2, 256, 3), generator=g) * torch.tensor([9.6, 5.6, 2.6]) \
+        + 0.2
+    start = torch.tensor([[2.0, 3.0, 1.5]] * 2)
+    goal = torch.tensor([[9.5, 3.0, 1.5]] * 2)
+    lo, hi = torch.tensor([[0.2, 0.2, 0.4]] * 2), torch.tensor([[9.8, 5.8, 2.6]] * 2)
+    rcfg = gp.RRTConfig(max_iters=600, incremental_dist=0.5)
+    out, succ = {}, []
+    for where in (dev, "cpu"):
+        m = mp.init_map((0.0, 0.0, 0.0), (10.0, 6.0, 3.0), cfg, batch=2,
+                        device=where)
+        for f in range(fr.pts.shape[0]):
+            m = mp.integrate_cloud(cfg, m, fr.cam_pos[f].to(where),
+                                   fr.pts[f].to(where), fr.valid[f].to(where))
+        exact, paths = [m.log_odds], []
+        for ign in (True, False):
+            o = octo.from_log_odds(m, cfg, levels=3, ignore_unknown=ign)
+            for lvl in range(3):
+                exact += list(octo.search(o, q.to(where), lvl))
+            exact += [octo.is_blocked(o, q.to(where)),
+                      octo.segment_free(o, a.to(where), b.to(where))]
+            r = gp.rrt_plan(o, start.to(where), goal.to(where), lo.to(where),
+                            hi.to(where), prng.prng_key(torch.tensor([3, 4]),
+                                                        where), rcfg)
+            exact += [r.length, r.success]
+            paths.append(r.path)
+            succ.append(int(r.success.sum()))
+        out[str(where)] = ([t.cpu() for t in exact], [t.cpu() for t in paths])
+    (card, card_p), (cpu, cpu_p) = out[str(dev)], out["cpu"]
+    equal = all(torch.equal(x, y) for x, y in zip(card, cpu))
+    path_diff = max(float((x - y).abs().max()) for x, y in zip(card_p, cpu_p))
+    check(equal, "mapping_small: log-odds or octree answers differ")
+    check(path_diff <= 1e-6, ("mapping_small: RRT paths", path_diff))
+    return dict(config="mapping_small", scenarios=2, frames=6,
+                log_odds_bit_equal=torch.equal(card[0], cpu[0]),
+                answers_equal=equal, rrt_path_max_diff_m=path_diff,
+                rrt_tol_m=1e-6,
+                rrt_successes={"ignore_unknown": succ[2],
+                               "conservative": succ[3]},
+                occupied_voxels=int((cpu[0] >= cfg.l_occ).sum()))
+
+
+def uv_world_boxes(rd, bird, uboxes, cam_pos, rot):
+    """Bird's-eye rects [x_left, y_near, w, d] (S, B, 4) in the camera's
+    ground frame and their U-map boxes -> world AABBs (pos, size) (S, B,
+    3): centered at the camera's height, as tall as the box's pixel height
+    at its depth."""
+    import torch
+    from intent_mpc_torch.utils.device import f32
+    from intent_mpc_torch.utils.rounding import matmul3
+    x = bird[..., 0] + bird[..., 2] / 2
+    z = bird[..., 1] + bird[..., 3] / 2
+    h = uboxes[..., 3] * uboxes[..., 2] / f32(rd.fy, bird.device)
+    c_opt = torch.stack([x, torch.zeros_like(x), z], dim=-1)
+    s_opt = torch.stack([bird[..., 2], h, bird[..., 3]], dim=-1)
+    # rounded alike on the card and the CPU (a matmul is not)
+    pos = cam_pos[:, None] + matmul3(c_opt, rot.transpose(-1, -2))
+    size = matmul3(s_opt, rot.abs().transpose(-1, -2))
+    return pos, size
+
+
+def check_perception_fusion(fr, dev, max_tracks=16, yolo_conf=0.15):
+    """The perception-fusion stack at S scenarios on the camera frames fr:
+    per frame u_map_detect, bird_view_boxes, bird_track_step, the DBSCAN
+    detection stage of models/real_detector and fuse_mutual_best of the
+    U-V boxes (as world boxes) against its detections; the YOLO network
+    on a seeded (S, 3, 352, 352) batch with seeded parameters, decode and
+    person_rects; project_box_to_image and fuse_external_2d of the last
+    frame's fused boxes against the person rects. Device ms per frame of
+    each stage and kernel launches of one frame's, ms per YOLO forward of
+    the batch, live bird's-eye tracks, peak memory."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import (cuda_time_ms,
+                                                    real_dynus_config)
+    from intent_mpc_torch.models import perception as pc
+    from intent_mpc_torch.models import real_detector as rdet
+    from intent_mpc_torch.models import yolo
+    from intent_mpc_torch.models.clustering import dbscan
+    from intent_mpc_torch.utils.convert import yolo_state_dict
+    rd = real_dynus_config().real_detector
+    intr = rdet.intrinsics(rd)
+    F, S = fr.pts.shape[:2]
+    dt = 1.0 / 30.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tracks = pc.init_bird_tracks(S, max_tracks, dev)
+
+    def run_frame(f, tracks, clock):
+        """Frame f's stages in order, each run as clock(stage, fn)."""
+        u = clock("u_map", lambda: pc.u_map_detect(intr, fr.depth[f]))
+        bv = clock("bird_view", lambda: pc.bird_view_boxes(intr, *u))
+        tracks = clock("bird_track", lambda: pc.bird_track_step(
+            tracks, bv, u[1], dt))
+        db = clock("dbscan_detect", lambda: rdet.extract_detections(
+            rd, fr.pts[f], dbscan(fr.pts[f], fr.valid[f], eps=rd.dbscan_eps,
+                                  min_pts=rd.dbscan_min_pts)))
+        fused = clock("fuse_mutual_best", lambda: pc.fuse_mutual_best(
+            *uv_world_boxes(rd, bv, u[0], fr.cam_pos[f], fr.rot), u[1], *db))
+        return tracks, db, fused
+
+    ms = {}
+
+    def timing(stage, fn):
+        out, t = timed(fn)
+        ms[stage] = ms.get(stage, 0.0) + t
+        return out
+
+    launches = {}
+
+    def counting(stage, fn):
+        out = []
+        launches[stage] = kernel_launches(lambda: out.append(fn()))
+        return out[0]
+
+    run_frame(0, tracks, lambda stage, fn: fn())     # warm-up, not timed
+    for f in range(F):
+        tracks, db, fused = run_frame(f, tracks, timing)
+    run_frame(F - 1, tracks, counting)
+    live = int(tracks.live.sum())
+    check(bool(torch.isfinite(tracks.box).all())
+          and bool(torch.isfinite(tracks.vel).all()), "bird tracks finite")
+
+    params = yolo.random_params(0)
+    # the seeded stand-in for the checkpoint, with the person class's
+    # logit raised so the person branch has detections to fuse
+    params["detect_head.cls_layers.conv5x5.4.bias"][yolo.PERSON_CLASS] += 3.0
+    net = yolo.build_detector(yolo_state_dict(params), device=dev)
+    gen = torch.Generator().manual_seed(0)
+    img = torch.rand((S, 3, yolo.INPUT_SIZE, yolo.INPUT_SIZE),
+                     generator=gen).to(dev)
+    with torch.no_grad():
+        preds = net(img)
+        yolo_ms = cuda_time_ms(lambda: net(img), reps=10)
+    check(tuple(preds.shape) == (S, 85, 22, 22)
+          and bool(torch.isfinite(preds).all()), ("yolo preds", preds.shape))
+    pos, size, fvalid = fused
+    yolo.decode(preds, conf_thresh=yolo_conf)       # warm-ups, not timed
+    pc.fuse_external_2d(intr, pos, size, fvalid, fr.cam_pos[-1], fr.rot,
+                        *yolo.person_rects(yolo.decode(preds), rd.im_w,
+                                           rd.im_h))
+    det, decode_ms = timed(lambda: yolo.decode(preds, conf_thresh=yolo_conf))
+    (rects, ok), rect_ms = timed(lambda: yolo.person_rects(det, rd.im_w,
+                                                           rd.im_h))
+    check(bool(det.valid.any()), "yolo: no valid detection")
+    (dyn, human), ext_ms = timed(lambda: pc.fuse_external_2d(
+        intr, pos, size, fvalid, fr.cam_pos[-1], fr.rot, rects, ok))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return dict(
+        scenarios=S, frames=F, max_tracks=max_tracks,
+        stage_ms_per_frame={k: v / F for k, v in ms.items()},
+        stage_launches_one_frame=launches,
+        live_bird_tracks=live,
+        bird_track_age_max=int(tracks.age.max()),
+        fused_boxes_last_frame=int(fvalid.sum()),
+        dbscan_detections_last_frame=int(db[2].sum()),
+        yolo_batch=list(img.shape), yolo_forward_ms=yolo_ms,
+        yolo_decode_ms=decode_ms, person_rects_ms=rect_ms,
+        yolo_conf_thresh=yolo_conf,
+        yolo_valid_detections=int(det.valid.sum()),
+        person_detections=int(ok.sum()),
+        fuse_external_2d_ms=ext_ms, dynamic_flags=int(dyn.sum()),
+        peak_memory_gb=peak)
+
+
+def check_fusion_small(dev):
+    """The perception-fusion stack on the card against the CPU on small
+    inputs: the U-V branch and bird's-eye tracker over the small world's 6
+    frames (capture.small_frames, depth from the CPU on both) with equal
+    track tables and U-map boxes; fuse_mutual_best against the DBSCAN
+    detections with equal flags and boxes; the YOLO network at (2, 3, 352,
+    352) with seeded parameters within 1e-4 of the CPU (TF32 off, through
+    resolve_device); decode of the CPU's predictions on both devices with
+    equal valid flags and classes and boxes within 1e-6; fuse_external_2d
+    flags equal."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import small_frames
+    from intent_mpc_torch.models import perception as pc
+    from intent_mpc_torch.models import real_detector as rdet
+    from intent_mpc_torch.models import yolo
+    from intent_mpc_torch.models.clustering import dbscan
+    from intent_mpc_torch.utils.config import RealDetectorConfig
+    from intent_mpc_torch.utils.convert import yolo_state_dict
+    from intent_mpc_torch.utils.device import resolve_device
+    resolve_device(dev)
+    fr = small_frames(device="cpu")
+    rd = RealDetectorConfig()
+    intr = rdet.intrinsics(rd)
+    sd = yolo_state_dict(yolo.random_params(1))
+    img = torch.rand((2, 3, yolo.INPUT_SIZE, yolo.INPUT_SIZE),
+                     generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where in (dev, "cpu"):
+        tr = pc.init_bird_tracks(2, 4, where)
+        umaps = []
+        for f in range(fr.depth.shape[0]):
+            u = pc.u_map_detect(intr, fr.depth[f].to(where), min_hits=4)
+            bv = pc.bird_view_boxes(intr, *u)
+            tr = pc.bird_track_step(tr, bv, u[1], 1.0 / 30.0)
+            umaps += list(u)
+            pts, valid = fr.pts[f].to(where), fr.valid[f].to(where)
+            db = rdet.extract_detections(rd, pts, dbscan(
+                pts, valid, eps=rd.dbscan_eps, min_pts=rd.dbscan_min_pts))
+            fused = pc.fuse_mutual_best(
+                *uv_world_boxes(rd, bv, u[0], fr.cam_pos[f].to(where),
+                                fr.rot.to(where)), u[1], *db,
+                iou_thresh=0.1)
+        net = yolo.build_detector(sd, device=where)
+        with torch.no_grad():
+            preds = net(img.to(where))
+        out[str(where)] = dict(tracks=[t.cpu() for t in tr],
+                               umaps=[t.cpu() for t in umaps],
+                               db=[t.cpu() for t in db],
+                               fused=[t.cpu() for t in fused],
+                               preds=preds.cpu())
+    card, cpu = out[str(dev)], out["cpu"]
+    tracks_equal = all(torch.equal(a, b)
+                       for a, b in zip(card["tracks"], cpu["tracks"]))
+    umap_equal = all(torch.equal(a, b)
+                     for a, b in zip(card["umaps"], cpu["umaps"]))
+    db_equal = all(torch.equal(a, b) for a, b in zip(card["db"], cpu["db"]))
+    fused_equal = all(torch.equal(a, b)
+                      for a, b in zip(card["fused"], cpu["fused"]))
+    net_diff = float((card["preds"] - cpu["preds"]).abs().max())
+    check(tracks_equal and umap_equal, "fusion_small: U-V tables differ")
+    check(db_equal, "fusion_small: DBSCAN detections differ")
+    check(fused_equal, "fusion_small: fused boxes or flags differ")
+    check(net_diff <= 1e-4, ("fusion_small: yolo outputs", net_diff))
+    dets = {}
+    for where in (dev, "cpu"):
+        d = yolo.decode(cpu["preds"].to(where), conf_thresh=0.12)
+        r, _ = yolo.person_rects(d, rd.im_w, rd.im_h)
+        c = torch.tensor([[[0.0, 0.0, 3.0], [1.0, 0.2, 4.0],
+                           [-1.0, -0.3, 2.5]]] * 2, device=where)
+        s = torch.full_like(c, 0.8)
+        flags = pc.fuse_external_2d(intr, c, s, torch.ones(
+            (2, 3), dtype=torch.bool, device=where), torch.zeros(
+            (2, 3), device=where), torch.eye(3, device=where).expand(2, 3, 3),
+            r, d.valid, iou_thresh=0.05)[0]
+        dets[str(where)] = [t.cpu() for t in (d.valid, d.classes, d.boxes,
+                                              flags)]
+    dc, dp = dets[str(dev)], dets["cpu"]
+    decode_equal = torch.equal(dc[0], dp[0]) and torch.equal(dc[1], dp[1]) \
+        and torch.equal(dc[3], dp[3])
+    box_diff = float((dc[2] - dp[2]).abs().max())
+    check(decode_equal and box_diff <= 1e-6,
+          ("fusion_small: decode or fuse_external_2d", box_diff))
+    return dict(config="fusion_small", scenarios=2, frames=6,
+                tracks_equal=tracks_equal, umap_equal=umap_equal,
+                detections_equal=db_equal, fused_equal=fused_equal,
+                fused_boxes=int(cpu["fused"][2].sum()),
+                live_tracks=int(cpu["tracks"][3].sum()),
+                yolo_max_abs_diff=net_diff, yolo_tol=1e-4,
+                decode_equal=decode_equal, decode_box_max_diff=box_diff,
+                decode_valid=int(dp[0].sum()),
+                external_flags=int(dp[3].sum()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1705,7 +2153,27 @@ def main():
     phase("prng", **check_prng(dev))
     phase("goal_phases", seconds=time.perf_counter() - t_goal)
 
-    # ---- 24. clean modules ----
+    # ---- 24-25. mapping and perception fusion at the DYNUS width: S = 32
+    # scenarios on 60 camera frames; card against CPU on the small world;
+    # none of the three kernels runs here ----
+    t_map = time.perf_counter()
+    from intent_mpc_torch.benchmark.capture import dynus_frames
+    reset_launch_counts()
+    map_seeds = list(range(32))
+    frames = dynus_frames(map_seeds, 60, dev)
+    mapping = check_mapping(map_seeds, frames, dev)
+    phase("mapping", nvidia_smi=smi, **mapping)
+    phase("card_vs_cpu", **check_mapping_small(dev))
+    fusion = check_perception_fusion(frames, dev)
+    phase("perception_fusion", nvidia_smi=smi, **fusion)
+    phase("card_vs_cpu", **check_fusion_small(dev))
+    map_launches = launch_counts()
+    check(not any(map_launches.values()),
+          ("mapping phases launched a kernel", map_launches))
+    phase("mapping_phases", seconds=time.perf_counter() - t_map,
+          launches=map_launches)
+
+    # ---- 26. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -1726,6 +2194,7 @@ def main():
             "truncation_osqp_32": osqp[32]["launches"]["ew_chain"],
             "per_candidate_adaptive_32": adaptive["launches"]["ew_chain"],
             "polish_32": polished["default"]["launches"]["ew_chain"],
+            "mapping_perception_fusion_32": map_launches["ew_chain"],
             **{"%s_32" % o["option"]: o["launches"]["ew_chain"]
                for o in options if o["solve"] == "default"}},
         "max_abs_err": max_err,
@@ -1745,6 +2214,7 @@ def main():
             "real_perception_fused_32": real_f["launches"]["fleet_admm"],
             "goal_global_fused_8": goal_f["launches"]["fleet_admm"],
             "polish_fused_32": polished["fused"]["launches"]["fleet_admm"],
+            "mapping_perception_fusion_32": map_launches["fleet_admm"],
             **{"%s_fused_32" % o["option"]: o["launches"]["fleet_admm"]
                for o in options if o["solve"] == "fused"}},
         "max_abs_err": fleet[128]["max_abs_err"],
@@ -1765,6 +2235,8 @@ def main():
         "replaces": "intent_mpc_tpu/ops/pallas_admm.py:70 (_kernel)",
         "launches": dense_launches,
         "launches_of": "one admm_solve_dense call (no closed-loop path)",
+        "launches_of_other_paths": {
+            "mapping_perception_fusion_32": map_launches["dense_loop"]},
         "max_abs_err": dense[128]["max_abs_err"],
         "max_abs_diff": dense[128]["max_abs_err"],
         "max_abs_err_of": "unscaled candidate states after 10 iterations",

@@ -1,5 +1,6 @@
 """Drive the DYNUS closed loop (and its goal-mode protocols), capture the
-candidate QPs a cycle hands to its solver, and time device work with CUDA
+candidate QPs a cycle hands to its solver, render the camera frames the
+mapping and perception-fusion stages read, and time device work with CUDA
 events.
 
 `chip_smoke.py`, `benchmark/fleet_phases.py` and the card tests share
@@ -13,15 +14,19 @@ import statistics
 import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from intent_mpc_torch.benchmark import real_loop, ref_modes
 from intent_mpc_torch.engine import closed_loop as cl
 from intent_mpc_torch.models import mpc as mpclib
-from intent_mpc_torch.models.world import straight_line_ref_traj
+from intent_mpc_torch.models import perception, real_detector, sensor
+from intent_mpc_torch.models.world import (obstacle_state,
+                                           straight_line_ref_traj)
 from intent_mpc_torch.parallel import sharding as sh
 from intent_mpc_torch.utils import prng
 from intent_mpc_torch.utils.config import RealDetectorConfig, small_config
+from intent_mpc_torch.utils.device import resolve_device
 
 
 def cuda_time_ms(fn, reps=50):
@@ -272,3 +277,82 @@ def goal_wall_loop(ref_mode, seeds, cycles, device, poly_iters):
                        else carry.ref_len.detach().cpu(),
                        carry.metrics.stop_replans.detach().cpu()))
     return carry, positions, counts
+
+
+class CameraFrames(NamedTuple):
+    """F depth frames of S scenarios from a level camera facing +x."""
+    cam_pos: torch.Tensor    # (F, S, 3)
+    rot: torch.Tensor        # (S, 3, 3) optical -> world
+    depth: torch.Tensor      # (F, S, H, W) raw depth
+    pts: torch.Tensor        # (F, S, P, 3) world points
+    valid: torch.Tensor      # (F, S, P)
+    obs_pos: torch.Tensor    # (F, S, O, 3) box centers at each frame
+    obs_size: torch.Tensor   # (S, O, 3)
+    dynamic: torch.Tensor    # (S, O) bool
+
+
+def render_frames(rd: RealDetectorConfig, cam_pos: torch.Tensor,
+                  obs_pos: torch.Tensor, obs_size: torch.Tensor,
+                  dynamic: torch.Tensor) -> CameraFrames:
+    """Render and project the frames of cameras at cam_pos (F, S, 3)
+    facing +x, seeing boxes at obs_pos (F, S, O, 3) of sizes (S, O, 3)."""
+    intr = real_detector.intrinsics(rd)
+    F, S, _ = cam_pos.shape
+    rot = sensor.yaw_camera_rotation(torch.zeros((S,), device=cam_pos.device))
+    active = torch.ones(obs_size.shape[:2], dtype=torch.bool,
+                        device=cam_pos.device)
+    depth, pts, valid = [], [], []
+    for f in range(F):
+        d = sensor.render_depth(intr, rd.im_h, rd.im_w, cam_pos[f], rot,
+                                obs_pos[f], obs_size, active,
+                                max_depth=rd.depth_max)
+        p, v = perception.project_depth(intr, d, cam_pos[f], rot)
+        depth.append(d)
+        pts.append(p)
+        valid.append(v)
+    return CameraFrames(cam_pos, rot, torch.stack(depth), torch.stack(pts),
+                        torch.stack(valid), obs_pos, obs_size, dynamic)
+
+
+def dynus_frames(seeds, frames: int, device, speed: float = 5.0,
+                 rate: float = 30.0) -> CameraFrames:
+    """The real-perception camera (real_dynus_config) flown at `speed` m/s
+    along the DYNUS start-to-goal line, facing +x, `frames` frames at
+    `rate` Hz; each seed's 200 obstacles placed at the frame's time
+    (models/world.obstacle_state)."""
+    cfg = real_dynus_config()
+    scen = sh.stack_scenarios(cfg, seeds, device=device)
+    S = len(seeds)
+    start = torch.tensor(cfg.start, dtype=torch.float32, device=device)
+    goal = torch.tensor(cfg.goal, dtype=torch.float32, device=device)
+    heading = (goal - start) / torch.linalg.vector_norm(goal - start)
+    cams, obs = [], []
+    for f in range(frames):
+        t = f / rate
+        cams.append((start + heading * (speed * t)).expand(S, 3))
+        obs.append(obstacle_state(scen, torch.tensor(t, device=device))[0])
+    return render_frames(cfg.real_detector, torch.stack(cams),
+                         torch.stack(obs), scen.bbox, ~scen.is_static)
+
+
+def small_frames(seeds=(0, 1), frames: int = 6, boxes: int = 5,
+                 device=None) -> CameraFrames:
+    """A small world per seed for card-against-CPU checks: `boxes` seeded
+    static boxes in front of a camera stepping 0.3 m along x at (0.5, 3,
+    1.5), inside a 10 x 6 x 3 m map at the origin."""
+    rd = RealDetectorConfig()
+    device = resolve_device(device)
+    cen, size = [], []
+    for s in seeds:
+        rng = np.random.default_rng(int(s))
+        cen.append(rng.uniform([4.0, 0.5, 0.5], [9.0, 5.5, 2.5], (boxes, 3)))
+        size.append(rng.uniform(0.4, 1.2, (boxes, 3)))
+    S = len(seeds)
+    cen = torch.tensor(np.array(cen), dtype=torch.float32, device=device)
+    size = torch.tensor(np.array(size), dtype=torch.float32, device=device)
+    cams = torch.tensor([[[0.5 + 0.3 * f, 3.0, 1.5]] * S
+                         for f in range(frames)], dtype=torch.float32,
+                        device=device)
+    return render_frames(rd, cams, cen.expand(frames, S, boxes, 3), size,
+                         torch.zeros((S, boxes), dtype=torch.bool,
+                                     device=device))

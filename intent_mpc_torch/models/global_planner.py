@@ -15,9 +15,10 @@ folded with the iteration, split in two, and drawn from with `uniform`. The
 draws do not depend on the tree, so all of a build's draws come from three
 batched hash calls before the loop.
 
-The JAX package's RRT* (`rrt_star_plan`), PRM (`prm_plan`) and grid
-wavefront (`grid_wavefront`) are not ported, and `occupied_at` reads the
-occupancy grid only: the octree map of models/octo.py is not ported.
+The planners take either map backend through `occupied_at`: an
+OccupancyGrid (rrtOccMap) or an OctoMap of models/octo.py (rrtOctomap, with
+unknown-space semantics). The JAX package's RRT* (`rrt_star_plan`), PRM
+(`prm_plan`) and grid wavefront (`grid_wavefront`) are not ported.
 
 Config mirrors global_planner yaml: incremental_distance 0.5,
 goal_reach_distance 0.4, connect_goal_ratio 0.2, max_shortcut_dist 3.
@@ -30,17 +31,18 @@ from typing import NamedTuple
 import torch
 
 from intent_mpc_torch.models.occupancy import OccupancyGrid, is_occupied
+from intent_mpc_torch.models.octo import OctoMap, is_blocked
 from intent_mpc_torch.utils import prng
 from intent_mpc_torch.utils.rounding import fma
 
 
 def occupied_at(m, p: torch.Tensor) -> torch.Tensor:
-    """Point-collision test of the planners: p (S, ..., 3) -> bool (S, ...)
-    against an occupancy grid (shared, or one per scenario)."""
-    if not isinstance(m, OccupancyGrid):
-        raise NotImplementedError(
-            "occupied_at reads an OccupancyGrid only: the octree map "
-            "(models/octo.py) is not ported, got %s" % type(m).__name__)
+    """Point-collision dispatch of the planners: p (S, ..., 3) -> bool
+    (S, ...) against an OccupancyGrid (shared, or one per scenario; the
+    rrtOccMap backend) or an OctoMap (the rrtOctomap / rrtStarOctomap
+    backend with unknown-space semantics)."""
+    if isinstance(m, OctoMap):
+        return is_blocked(m, p)
     return is_occupied(m, p)
 
 

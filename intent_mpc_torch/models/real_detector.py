@@ -36,7 +36,7 @@ from intent_mpc_torch.models.occupancy import (OccupancyGrid, is_empty,
                                                is_occupied)
 from intent_mpc_torch.utils.config import DetectorConfig, RealDetectorConfig
 from intent_mpc_torch.utils.device import constant
-from intent_mpc_torch.utils.rounding import fma, matmul3, norm3
+from intent_mpc_torch.utils.rounding import matmul3, norm2, norm3
 
 
 class PerceptionStats(NamedTuple):
@@ -164,11 +164,6 @@ def _dyn_with_veto(rd: RealDetectorConfig, tracks: pc.Tracks,
     return dyn
 
 
-def _norm2(d: torch.Tensor) -> torch.Tensor:
-    """The planar norm of d (..., 2), rounded as JAX's CPU program does."""
-    return torch.sqrt(fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
-
-
 def _update_stats(rd: RealDetectorConfig, det: DetectorConfig,
                   stats: PerceptionStats, tracks: pc.Tracks,
                   fresh: torch.Tensor, cam_pos: torch.Tensor,
@@ -182,7 +177,7 @@ def _update_stats(rd: RealDetectorConfig, det: DetectorConfig,
     big = torch.full_like(d, 1e9)
     nearest_any = torch.amin(d, dim=2)
     matched = live & (nearest_any < 2.0)
-    in_rng = _norm2(obs_pos[..., 0:2] - drone_pos[:, None, 0:2]) \
+    in_rng = norm2(obs_pos[..., 0:2] - drone_pos[:, None, 0:2]) \
         <= det.sensor_range
     gt_vis = obs_dynamic & in_rng & _in_frustum(rd, cam_pos, cam_rot,
                                                 obs_pos)
@@ -289,7 +284,7 @@ def query_history(rd: RealDetectorConfig, det: DetectorConfig,
     vel = torch.cat([state.vel_hist[..., 0:2],
                      torch.zeros_like(state.vel_hist[..., 2:3])], dim=-1)
     acc = torch.zeros_like(vel)   # the const-vel KF publishes no acceleration
-    d2 = _norm2(state.pos_hist[:, :, 0, 0:2] - robot_pos[:, None, 0:2])
+    d2 = norm2(state.pos_hist[:, :, 0, 0:2] - robot_pos[:, None, 0:2])
     dyn = _dyn_with_veto(rd, tr, static_occ)
     visible = dyn & (d2 <= det.sensor_range) & (state.hist_len > 0)
     return state.pos_hist, vel, acc, size, state.hist_len, visible

@@ -11,6 +11,9 @@ track table; `grid_from_numpy` carries static occupancy maps. `fleet_problem_fro
 and `fleet_outputs_to_lanes` carry the fleet solve's packed problem and
 its outputs between the TPU lane layout and the port's layout;
 `dense_problem_from_numpy` carries the dense-A path's problem.
+`map_from_numpy` and `octo_from_numpy` carry log-odds maps and octree
+pyramids, and `yolo_state_dict` turns the person detector's parameters in
+the JAX package's layout into the port module's state_dict.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ import torch
 from intent_mpc_torch.engine.closed_loop import EngineCarry, Metrics
 from intent_mpc_torch.models.controller import ControllerState
 from intent_mpc_torch.models.detector import DetectorState
+from intent_mpc_torch.models.mapping import LogOddsMap
 from intent_mpc_torch.models.mpc import PlannerState
 from intent_mpc_torch.models.occupancy import OccupancyGrid
+from intent_mpc_torch.models.octo import OctoMap
 from intent_mpc_torch.models.perception import Tracks
 from intent_mpc_torch.models.quad_plant import PIDState, QuadState
 from intent_mpc_torch.models.real_detector import (PerceptionStats,
@@ -155,3 +160,61 @@ def dense_problem_from_numpy(tree, device="cpu") -> DenseScaledProblem:
             v = v[..., 0]
         return torch.as_tensor(np.array(v, order="C"), device=device)
     return DenseScaledProblem(*(leaf(f) for f in DenseScaledProblem._fields))
+
+
+def _same_frame(trees):
+    """A list of trees from one tree or a list, and the first's origin and
+    resolution, which every tree must share."""
+    if hasattr(trees, "origin"):
+        trees = [trees]
+    origin = np.array(trees[0].origin, np.float32)
+    res = np.float32(trees[0].resolution)
+    for t in trees[1:]:
+        if (not np.array_equal(np.asarray(t.origin), origin)
+                or np.float32(t.resolution) != res):
+            raise ValueError("maps of one origin and resolution only")
+    return trees, origin, float(res)
+
+
+def map_from_numpy(maps, device="cpu") -> LogOddsMap:
+    """The port's LogOddsMap (S, nx, ny, nz) from S maps with numpy leaves
+    (log_odds (nx, ny, nz), origin, resolution), such as the JAX package's
+    LogOddsMap after mapping np.asarray over it; one map gives S = 1."""
+    maps, origin, res = _same_frame(maps)
+    return LogOddsMap(
+        log_odds=torch.as_tensor(np.stack([np.asarray(m.log_odds, np.float32)
+                                           for m in maps]), device=device),
+        origin=torch.as_tensor(origin, device=device), resolution=res)
+
+
+def octo_from_numpy(octos, device="cpu") -> OctoMap:
+    """The port's OctoMap (levels (S, ...)) from S octree pyramids with
+    numpy leaves of one shape, origin, resolution and ignore_unknown, such
+    as the JAX package's OctoMap after mapping np.asarray over its arrays."""
+    octos, origin, res = _same_frame(octos)
+
+    def levels(field):
+        n = len(getattr(octos[0], field))
+        return tuple(torch.as_tensor(np.stack([np.asarray(getattr(o, field)[l])
+                                               for o in octos]),
+                                     device=device) for l in range(n))
+    return OctoMap(levels_occ=levels("levels_occ"),
+                   levels_unk=levels("levels_unk"),
+                   origin=torch.as_tensor(origin, device=device),
+                   resolution=res,
+                   ignore_unknown=bool(octos[0].ignore_unknown))
+
+
+def yolo_state_dict(params) -> dict:
+    """The port's FastestDet state_dict from the person detector's
+    parameters in the JAX package's layout (the reference checkpoint's key
+    names with numpy values, num_batches_tracked dropped, as
+    params_from_torch_state_dict makes them): each batch norm gets its
+    num_batches_tracked back as 0 (eval mode does not read it)."""
+    sd = {}
+    for k, v in params.items():
+        sd[k] = torch.as_tensor(np.array(v, np.float32, copy=True))
+        if k.endswith(".running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0, dtype=torch.int64)
+    return sd

@@ -37,3 +37,10 @@ def constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
     from the host and synchronize the stream on every call. Callers must
     not modify the returned tensor in place."""
     return torch.tensor(values, dtype=dtype).to(torch.device(device))
+
+
+def f32(value: float, device) -> torch.Tensor:
+    """A float32 scalar constant (0-dim) on `device`, built once: a divisor
+    given as a tensor on the card divides exactly, where a Python float
+    divisor would become a multiplication by its reciprocal there."""
+    return constant((float(value),), device)[0]

@@ -14,6 +14,7 @@ so that its decisions follow JAX's and the card's follow the CPU's.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -41,6 +42,11 @@ def norm3(d: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(sq_norm3(d))
 
 
+def norm2(d: torch.Tensor) -> torch.Tensor:
+    """The planar norm of d (..., 2): sqrt(fma(d1, d1, d0 * d0))."""
+    return torch.sqrt(fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
+
+
 def matmul3(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """v @ m for v (..., N, 3) and m (..., 3, 3) as the chain
     fma(v2, m[2], fma(v1, m[1], v0 * m[0])) per output column."""
@@ -48,3 +54,9 @@ def matmul3(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     m = m[..., None, :, :]                                  # (..., 1, 3, 3)
     return fma(v[..., 2, :], m[..., 2, :],
                fma(v[..., 1, :], m[..., 1, :], v[..., 0, :] * m[..., 0, :]))
+
+
+def recip32(c: float) -> float:
+    """1 / c in float32: XLA folds a division by a constant c into a
+    multiplication by this."""
+    return float(np.float32(1.0) / np.float32(c))

@@ -18,7 +18,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import accepted, small_fleet_qps  # noqa: E402
+from chip_smoke import (accepted, check_fusion_small,  # noqa: E402
+                        check_mapping_small, small_fleet_qps)
 from intent_mpc_torch.benchmark import bench  # noqa: E402
 from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
@@ -874,3 +875,72 @@ def test_goal_mode_checkpoint_resumes_bit_exactly_on_card(cuda_device, mode,
     resumed = steps(loaded, range(2, 5))
     for a, b in zip(ckpt.flatten(whole), ckpt.flatten(resumed)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mapping_on_card_matches_cpu(cuda_device):
+    """The small world's 6 frames on the card and on the CPU (the same
+    projected points): log-odds bit-equal, octree search / is_blocked /
+    segment_free answers equal in both unknown-space semantics, the RRT
+    over each octree within 1e-6 m (chip_smoke.check_mapping_small)."""
+    out = check_mapping_small(cuda_device)
+    assert out["log_odds_bit_equal"] and out["answers_equal"]
+    assert out["occupied_voxels"] > 0
+
+
+@pytest.mark.cuda
+def test_perception_fusion_on_card_matches_cpu(cuda_device):
+    """U-map boxes, bird's-eye track tables and mutual-best fusion equal on
+    the card and the CPU over the small world's frames; the YOLO network
+    within 1e-4 of the CPU; decode and fuse_external_2d equal
+    (chip_smoke.check_fusion_small)."""
+    out = check_fusion_small(cuda_device)
+    assert out["tracks_equal"] and out["fused_equal"] and out["decode_equal"]
+    assert out["yolo_max_abs_diff"] <= 1e-4
+
+
+@pytest.mark.cuda
+def test_esdf_and_inflation_on_card_match_cpu(cuda_device):
+    """The ESDF (exact min-plus passes, with a chunk small enough to split
+    every axis) and the inflation of seeded grids equal the CPU's."""
+    from intent_mpc_torch.models import mapping as mp
+    g = torch.Generator().manual_seed(0)
+    occ = (torch.rand((2, 40, 31, 17), generator=g) > 0.93).to(torch.int8)
+    cfg = mp.MappingConfig()
+    want = mp.esdf(occ, 0.15)
+    got = mp.esdf(occ.to(cuda_device), 0.15).cpu()
+    assert torch.equal(got, want)
+    assert torch.equal(mp.inflate(cfg, occ.to(cuda_device), 0.15).cpu(),
+                       mp.inflate(cfg, occ, 0.15))
+
+
+@pytest.mark.cuda
+def test_mapping_frame_does_not_synchronize(cuda_device):
+    """One frame of integrate_cloud + to_occupancy_grid + octo.from_log_odds
+    + segment_free runs under torch.cuda.set_sync_debug_mode("error")
+    after a warm-up frame has built the cached constants: nothing on the
+    mapping path waits for the device."""
+    from intent_mpc_torch.benchmark.capture import small_frames
+    from intent_mpc_torch.models import mapping as mp
+    from intent_mpc_torch.models import octo
+    fr = small_frames(device=cuda_device)
+    cfg = mp.MappingConfig(resolution=0.2)
+    m = mp.init_map((0.0, 0.0, 0.0), (10.0, 6.0, 3.0), cfg, batch=2,
+                    device=cuda_device)
+    a = fr.cam_pos[0][:, None].expand(2, 16, 3).contiguous()
+    b = fr.obs_pos[0][:, :4].repeat(1, 4, 1)
+
+    def frame(m, f):
+        m = mp.integrate_cloud(cfg, m, fr.cam_pos[f], fr.pts[f], fr.valid[f])
+        g = mp.to_occupancy_grid(cfg, m)
+        o = octo.from_log_odds(m, cfg, levels=3, ignore_unknown=False)
+        return m, g, octo.segment_free(o, a, b)
+    m, _, _ = frame(m, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m, g, free = frame(m, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert g.grid.shape == m.log_odds.shape and free.shape == (2, 16)
+    assert not bool(free.all())

@@ -131,8 +131,18 @@ def test_rrt_nodes_and_shortcut_match_jax(walled_map):
 
 
 def test_occupied_at_refuses_an_octree():
-    with pytest.raises(NotImplementedError, match="octo"):
-        tgp.occupied_at(object(), torch.zeros((1, 3)))
+    """occupied_at takes an octree now (it no longer refuses one): an
+    OctoMap goes to octo.is_blocked, whose out-of-map answer (blocked for a
+    conservative map) differs from the OccupancyGrid's (free)."""
+    from intent_mpc_torch.models import octo
+    from intent_mpc_torch.models.occupancy import OccupancyGrid
+    grid = OccupancyGrid(grid=torch.zeros((4, 4, 4), dtype=torch.int8),
+                         origin=torch.zeros(3), resolution=torch.tensor(0.5))
+    o = octo.from_occupancy_grid(grid, levels=2)._replace(
+        ignore_unknown=False)
+    p = torch.tensor([[[1.0, 1.0, 1.0], [-3.0, 1.0, 1.0]]])
+    assert tgp.occupied_at(o, p)[0].tolist() == [False, True]
+    assert tgp.occupied_at(grid, p[0]).tolist() == [False, False]
 
 
 def test_pwl_plan_and_sample_match_jax():

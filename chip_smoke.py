@@ -131,11 +131,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
                integrate_cloud and its kernel launches, the inflation,
                free_regions, octree builds (both unknown-space semantics),
                the goal-mode RRT over each octree (2048 iterations, step
-               2.5, 20 m ahead), the ESDF of 4 seeds, peak memory (< 24 GB),
-               occupied and unknown voxels, RRT successes, the share of the
-               static solid volume in the swept range marked occupied; the
-               small world card against CPU: log-odds bit-equal, octree
-               answers equal, RRT paths within 1e-6 m
+               2.5, 20 m ahead; its launch-bound ms and the launches of
+               one build per semantics), the ESDF of 4 seeds, peak memory
+               (< 24 GB), occupied and unknown voxels, RRT successes, the
+               share of the static solid volume in the swept range marked
+               occupied; the small world card against CPU: log-odds
+               bit-equal, octree answers equal, RRT paths within 1e-6 m
  25. perception_fusion the U-V detector, bird's-eye tracks, DBSCAN
                detections, mutual-best fusion on the same frames, the YOLO
                network on a seeded (32, 3, 352, 352) batch, decode,
@@ -1173,14 +1174,16 @@ class StageTimer:
 
 
 def kernel_launches(fn):
-    """CUDA kernels fn() launches, counted by torch.profiler."""
+    """CUDA kernels fn() launches, counted by torch.profiler (on its raw
+    device events: building its event tree takes a minute over ~300k)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(1 for e in prof.events() if e.device_type == cuda)
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda)
 
 
 def check_real_perception(cfg, S, cycles, dev, stages):
@@ -1482,7 +1485,10 @@ def check_mapping(seeds, fr, dev):
     octrees (levels 4) in both unknown-space semantics, the goal-mode RRT
     (2048 iterations, step 2.5) over each octree from the last camera
     position to 20 m ahead, and the ESDF of 4 seeds' inflated grids; peak
-    memory, occupied and unknown voxels, RRT successes, and the share of
+    memory, occupied and unknown voxels, RRT successes and the kernel
+    launches of one RRT build per semantics (its CUDA-event interval is
+    the host's launch time of an eager loop, so it is reported as
+    rrt_launch_bound_ms, not as device-busy time), and the share of
     the static solid volume inside the camera's swept range that the map
     marks occupied (reported, not gated)."""
     import torch
@@ -1539,12 +1545,15 @@ def check_mapping(seeds, fr, dev):
     rrt_cfg = gp.RRTConfig(max_iters=2048, incremental_dist=2.5,
                            goal_reach_dist=2.5, max_shortcut_dist=12.0)
     keys = prng.prng_key(torch.tensor([1000 + int(s) for s in seeds]), dev)
-    rrt_ms, successes = {}, {}
+    rrt_ms, rrt_launches, successes = {}, {}, {}
     for ign in (True, False):
-        res, rrt_ms[ign] = timed(lambda ign=ign: gp.rrt_plan(
-            octos[ign], start, goal, b_lo, b_hi, keys, rrt_cfg))
+        def build(ign=ign):
+            return gp.rrt_plan(octos[ign], start, goal, b_lo, b_hi, keys,
+                               rrt_cfg)
+        res, rrt_ms[ign] = timed(build)
         check(bool(torch.isfinite(res.path).all()), "mapping: RRT path")
         successes[ign] = int(res.success.sum())
+        rrt_launches[ign] = kernel_launches(build)
 
     n_esdf = min(4, S)
     d, esdf_ms = timed(lambda: mp.esdf(g.grid[:n_esdf], m.resolution))
@@ -1575,8 +1584,10 @@ def check_mapping(seeds, fr, dev):
         free_regions_cleared=cleared,
         octree_ms={"ignore_unknown": octo_ms[True],
                    "conservative": octo_ms[False]},
-        rrt_ms={"ignore_unknown": rrt_ms[True],
-                "conservative": rrt_ms[False]},
+        rrt_launch_bound_ms={"ignore_unknown": rrt_ms[True],
+                             "conservative": rrt_ms[False]},
+        rrt_launches={"ignore_unknown": rrt_launches[True],
+                      "conservative": rrt_launches[False]},
         rrt_successes={"ignore_unknown": successes[True],
                        "conservative": successes[False]},
         esdf_ms=esdf_ms, esdf_maps=n_esdf,
@@ -1666,7 +1677,11 @@ def uv_world_boxes(rd, bird, uboxes, cam_pos, rot):
     return pos, size
 
 
-def check_perception_fusion(fr, dev, max_tracks=16, yolo_conf=0.15):
+BIRD_TRACKS = 16        # bird's-eye track slots per scenario
+YOLO_CONF = 0.15        # decode threshold under the seeded parameters
+
+
+def check_perception_fusion(fr, dev):
     """The perception-fusion stack at S scenarios on the camera frames fr:
     per frame u_map_detect, bird_view_boxes, bird_track_step, the DBSCAN
     detection stage of models/real_detector and fuse_mutual_best of the
@@ -1690,7 +1705,7 @@ def check_perception_fusion(fr, dev, max_tracks=16, yolo_conf=0.15):
     dt = 1.0 / 30.0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tracks = pc.init_bird_tracks(S, max_tracks, dev)
+    tracks = pc.init_bird_tracks(S, BIRD_TRACKS, dev)
 
     def run_frame(f, tracks, clock):
         """Frame f's stages in order, each run as clock(stage, fn)."""
@@ -1741,11 +1756,11 @@ def check_perception_fusion(fr, dev, max_tracks=16, yolo_conf=0.15):
     check(tuple(preds.shape) == (S, 85, 22, 22)
           and bool(torch.isfinite(preds).all()), ("yolo preds", preds.shape))
     pos, size, fvalid = fused
-    yolo.decode(preds, conf_thresh=yolo_conf)       # warm-ups, not timed
+    yolo.decode(preds, conf_thresh=YOLO_CONF)       # warm-ups, not timed
     pc.fuse_external_2d(intr, pos, size, fvalid, fr.cam_pos[-1], fr.rot,
                         *yolo.person_rects(yolo.decode(preds), rd.im_w,
                                            rd.im_h))
-    det, decode_ms = timed(lambda: yolo.decode(preds, conf_thresh=yolo_conf))
+    det, decode_ms = timed(lambda: yolo.decode(preds, conf_thresh=YOLO_CONF))
     (rects, ok), rect_ms = timed(lambda: yolo.person_rects(det, rd.im_w,
                                                            rd.im_h))
     check(bool(det.valid.any()), "yolo: no valid detection")
@@ -1753,7 +1768,7 @@ def check_perception_fusion(fr, dev, max_tracks=16, yolo_conf=0.15):
         intr, pos, size, fvalid, fr.cam_pos[-1], fr.rot, rects, ok))
     peak = torch.cuda.max_memory_allocated() / 1e9
     return dict(
-        scenarios=S, frames=F, max_tracks=max_tracks,
+        scenarios=S, frames=F, max_tracks=BIRD_TRACKS,
         stage_ms_per_frame={k: v / F for k, v in ms.items()},
         stage_launches_one_frame=launches,
         live_bird_tracks=live,
@@ -1762,7 +1777,7 @@ def check_perception_fusion(fr, dev, max_tracks=16, yolo_conf=0.15):
         dbscan_detections_last_frame=int(db[2].sum()),
         yolo_batch=list(img.shape), yolo_forward_ms=yolo_ms,
         yolo_decode_ms=decode_ms, person_rects_ms=rect_ms,
-        yolo_conf_thresh=yolo_conf,
+        yolo_conf_thresh=YOLO_CONF,
         yolo_valid_detections=int(det.valid.sum()),
         person_detections=int(ok.sum()),
         fuse_external_2d_ms=ext_ms, dynamic_flags=int(dyn.sum()),

@@ -314,11 +314,17 @@ def render_frames(rd: RealDetectorConfig, cam_pos: torch.Tensor,
                         torch.stack(valid), obs_pos, obs_size, dynamic)
 
 
-def dynus_frames(seeds, frames: int, device, speed: float = 5.0,
-                 rate: float = 30.0) -> CameraFrames:
-    """The real-perception camera (real_dynus_config) flown at `speed` m/s
+CAMERA_SPEED = 5.0      # m/s along the start-to-goal line (ref_vel)
+CAMERA_RATE = 30.0      # frames per second
+SMALL_SEEDS = (0, 1)
+SMALL_FRAMES = 6
+SMALL_BOXES = 5
+
+
+def dynus_frames(seeds, frames: int, device) -> CameraFrames:
+    """The real-perception camera (real_dynus_config) flown at CAMERA_SPEED
     along the DYNUS start-to-goal line, facing +x, `frames` frames at
-    `rate` Hz; each seed's 200 obstacles placed at the frame's time
+    CAMERA_RATE; each seed's 200 obstacles placed at the frame's time
     (models/world.obstacle_state)."""
     cfg = real_dynus_config()
     scen = sh.stack_scenarios(cfg, seeds, device=device)
@@ -328,31 +334,29 @@ def dynus_frames(seeds, frames: int, device, speed: float = 5.0,
     heading = (goal - start) / torch.linalg.vector_norm(goal - start)
     cams, obs = [], []
     for f in range(frames):
-        t = f / rate
-        cams.append((start + heading * (speed * t)).expand(S, 3))
+        t = f / CAMERA_RATE
+        cams.append((start + heading * (CAMERA_SPEED * t)).expand(S, 3))
         obs.append(obstacle_state(scen, torch.tensor(t, device=device))[0])
     return render_frames(cfg.real_detector, torch.stack(cams),
                          torch.stack(obs), scen.bbox, ~scen.is_static)
 
 
-def small_frames(seeds=(0, 1), frames: int = 6, boxes: int = 5,
-                 device=None) -> CameraFrames:
-    """A small world per seed for card-against-CPU checks: `boxes` seeded
-    static boxes in front of a camera stepping 0.3 m along x at (0.5, 3,
-    1.5), inside a 10 x 6 x 3 m map at the origin."""
+def small_frames(device=None) -> CameraFrames:
+    """A small world per seed of SMALL_SEEDS for card-against-CPU checks:
+    SMALL_BOXES seeded static boxes in front of a camera stepping 0.3 m
+    along x from (0.5, 3, 1.5) for SMALL_FRAMES frames, inside a
+    10 x 6 x 3 m map at the origin."""
     rd = RealDetectorConfig()
     device = resolve_device(device)
+    S, F, B = len(SMALL_SEEDS), SMALL_FRAMES, SMALL_BOXES
     cen, size = [], []
-    for s in seeds:
-        rng = np.random.default_rng(int(s))
-        cen.append(rng.uniform([4.0, 0.5, 0.5], [9.0, 5.5, 2.5], (boxes, 3)))
-        size.append(rng.uniform(0.4, 1.2, (boxes, 3)))
-    S = len(seeds)
+    for s in SMALL_SEEDS:
+        rng = np.random.default_rng(s)
+        cen.append(rng.uniform([4.0, 0.5, 0.5], [9.0, 5.5, 2.5], (B, 3)))
+        size.append(rng.uniform(0.4, 1.2, (B, 3)))
     cen = torch.tensor(np.array(cen), dtype=torch.float32, device=device)
     size = torch.tensor(np.array(size), dtype=torch.float32, device=device)
-    cams = torch.tensor([[[0.5 + 0.3 * f, 3.0, 1.5]] * S
-                         for f in range(frames)], dtype=torch.float32,
-                        device=device)
-    return render_frames(rd, cams, cen.expand(frames, S, boxes, 3), size,
-                         torch.zeros((S, boxes), dtype=torch.bool,
-                                     device=device))
+    cams = torch.tensor([[[0.5 + 0.3 * f, 3.0, 1.5]] * S for f in range(F)],
+                        dtype=torch.float32, device=device)
+    return render_frames(rd, cams, cen.expand(F, S, B, 3), size,
+                         torch.zeros((S, B), dtype=torch.bool, device=device))

@@ -7,8 +7,9 @@ Rebuild of map_manager (map_manager/include/map_manager/):
     reference walks each ray with Amanatides-Woo traversal and a per-frame
     hit/miss cache so every voxel updates at most once per frame
     (raycastUpdate :810-977). Here rays are sampled at sub-voxel fixed
-    steps and deduplicated with scatter-max visit masks (one flat mask per
-    scenario, with a sentinel slot for masked samples): the same
+    steps and deduplicated with a scatter-max of visit codes (one flat
+    uint8 code per voxel, 1 missed and 2 hit, with a sentinel slot per
+    scenario for masked samples): the same
     once-per-frame semantics, vectorised over scenarios x rays x steps.
   * inflateLocalMap (:1030+): robot-size box inflation == a max-pool of
     the occupancy grid with odd windows and SAME padding.
@@ -162,20 +163,16 @@ def integrate_cloud(cfg: MappingConfig, m: LogOddsMap,
     miss_flat = torch.where(miss_valid, base[..., None] + _flat_idx(dims, idx),
                             sentinel[..., None])                 # (S,P,K)
 
-    one = f32(1.0, dev)
-    visit_miss = torch.zeros(S * (nflat + 1), dtype=torch.float32,
-                             device=dev).scatter_reduce_(
-        0, miss_flat.reshape(-1), one.expand(miss_flat.numel()), "amax")
-    visit_hit = torch.zeros(S * (nflat + 1), dtype=torch.float32,
-                            device=dev).scatter_reduce_(
-        0, hit_flat.reshape(-1), one.expand(hit_flat.numel()), "amax")
-    # a voxel hit by any ray is a hit, not a miss (reference hit priority)
-    hit = visit_hit.reshape(S, nflat + 1)[:, :nflat].reshape(m.log_odds.shape)
-    miss = visit_miss.reshape(S, nflat + 1)[:, :nflat].reshape(
-        m.log_odds.shape) > 0
+    # one visit code per voxel: 1 missed, 2 hit; the max keeps a voxel hit
+    # by any ray a hit, not a miss (reference hit priority)
+    code = torch.zeros(S * (nflat + 1), dtype=torch.uint8, device=dev)
+    for flat, c in ((miss_flat, 1), (hit_flat, 2)):
+        code.scatter_reduce_(0, flat.reshape(-1), torch.full(
+            (flat.numel(),), c, dtype=torch.uint8, device=dev), "amax")
+    code = code.reshape(S, nflat + 1)[:, :nflat].reshape(m.log_odds.shape)
     zero = f32(0.0, dev)
-    delta = torch.where(hit > 0, f32(cfg.l_hit, dev),
-                        torch.where(miss, f32(cfg.l_miss, dev), zero))
+    delta = torch.where(code == 2, f32(cfg.l_hit, dev),
+                        torch.where(code == 1, f32(cfg.l_miss, dev), zero))
     lo = torch.clamp(m.log_odds + delta, f32(cfg.l_min, dev),
                      f32(cfg.l_max, dev))
     return m._replace(log_odds=lo)

@@ -131,9 +131,11 @@ def test_rrt_nodes_and_shortcut_match_jax(walled_map):
 
 
 def test_occupied_at_refuses_an_octree():
-    """occupied_at takes an octree now (it no longer refuses one): an
+    """Despite its name, this pins that occupied_at ACCEPTS an octree: an
     OctoMap goes to octo.is_blocked, whose out-of-map answer (blocked for a
-    conservative map) differs from the OccupancyGrid's (free)."""
+    conservative map) differs from the OccupancyGrid's (free). The name is
+    kept from when occupied_at refused an octree, so that the test's id
+    stays the same across the change that replaced the refusal."""
     from intent_mpc_torch.models import octo
     from intent_mpc_torch.models.occupancy import OccupancyGrid
     grid = OccupancyGrid(grid=torch.zeros((4, 4, 4), dtype=torch.int8),

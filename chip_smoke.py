@@ -145,7 +145,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
                card against CPU: network outputs within 1e-4, decoded
                boxes, track tables and fusion flags equal; the two phases'
                seconds (none of the three kernels launches in them)
- 26. modules   neither jax nor the JAX package was imported
+ 26. exploration the exploration and trajectory-optimisation stack on the
+               mapping phase's 32 maps (747 x 220 x 51 at 0.15 m): 3 DEP
+               cycles at DEPConfig() (device ms per stage: sampling,
+               prune, gains, bellman_ford, scoring; live nodes,
+               successes, launches of a cycle), the next-best view with
+               its PRM path, RRT* (1024 iterations, step 2.5) and the PRM
+               on the inflated grids to 20 m ahead (successes, launches,
+               launch-bound ms), the grid wavefront on 8 grids (integer
+               costs and 1e9), the ESDF of the 32 inflated grids, 100
+               B-spline Adam steps from each RRT* path with the ESDF and
+               the dynamic obstacles of the last 30 frames, each spline
+               sampled every 0.1 s, divided into braking zones and
+               time-parameterized at the planner's max_vel and max_acc
+               (sampled speeds within the limits), peak memory; card
+               against CPU on the small maps (DEP half-explored and
+               walled, RRT*, PRM, wavefront, B-spline, divider, TOPP)
+               and at full width for 2 scenarios (one dep_step's gains
+               equal, one TOPP within 1e-5); none of the three kernels
+               launches
+ 27. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -1490,7 +1509,8 @@ def check_mapping(seeds, fr, dev):
     the host's launch time of an eager loop, so it is reported as
     rrt_launch_bound_ms, not as device-busy time), and the share of
     the static solid volume inside the camera's swept range that the map
-    marks occupied (reported, not gated)."""
+    marks occupied (reported, not gated). Returns (the phase's fields, the
+    log-odds maps, the inflated grids)."""
     import torch
     from intent_mpc_torch.benchmark.capture import real_dynus_config
     from intent_mpc_torch.benchmark.real_loop import static_grid_for
@@ -1538,10 +1558,7 @@ def check_mapping(seeds, fr, dev):
 
     start = fr.cam_pos[-1]
     goal = start + torch.tensor([20.0, 0.0, 0.0], device=dev)
-    margin = rcfg_all.engine.ref_bounds_margin
-    b_lo = torch.minimum(start, goal) - margin
-    b_lo[:, 2] = torch.clamp(b_lo[:, 2], min=rcfg_all.engine.ref_z_min)
-    b_hi = torch.maximum(start, goal) + margin
+    b_lo, b_hi = route_bounds(start, goal)
     rrt_cfg = gp.RRTConfig(max_iters=2048, incremental_dist=2.5,
                            goal_reach_dist=2.5, max_shortcut_dist=12.0)
     keys = prng.prng_key(torch.tensor([1000 + int(s) for s in seeds]), dev)
@@ -1594,7 +1611,7 @@ def check_mapping(seeds, fr, dev):
         occupied_voxels=occupied, unknown_voxels=unknown,
         solid_voxels_in_swept_range=int(solid_seen.sum()),
         solid_in_swept_range_occupied_share=share,
-        peak_memory_gb=peak)
+        peak_memory_gb=peak), m, g
 
 
 def check_mapping_small(dev):
@@ -1875,6 +1892,412 @@ def check_fusion_small(dev):
                 decode_equal=decode_equal, decode_box_max_diff=box_diff,
                 decode_valid=int(dp[0].sum()),
                 external_flags=int(dp[3].sum()))
+
+
+# the exploration phase: DEP cycles, the RRT* of the routes, the wavefront
+# maps and iterations, the dynamic obstacles' frames of the B-spline cost,
+# the samples of each spline for the divider and TOPP
+EXPLORE_CYCLES = 3
+RRT_STAR = dict(max_iters=1024, incremental_dist=2.5, neighborhood_radius=3.0,
+                goal_reach_dist=2.5)
+WAVEFRONT_MAPS = 8
+WAVEFRONT_ITERS = 200
+OBSTACLE_FRAMES = 30
+SPLINE_SAMPLE_DT = 0.1
+FAR = 1e4      # where a static obstacle is put out of the dynamic term
+
+
+def route_bounds(start, goal):
+    """The goal-mode RRT's sampling box of the routes start -> goal (S, 3):
+    the real-perception config's margin beyond both, floored at its z."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import real_dynus_config
+    e = real_dynus_config().engine
+    b_lo = torch.minimum(start, goal) - e.ref_bounds_margin
+    b_lo[:, 2] = torch.clamp(b_lo[:, 2], min=e.ref_z_min)
+    return b_lo, torch.maximum(start, goal) + e.ref_bounds_margin
+
+
+def dep_stage_sites():
+    """dep_step's stages for StageTimer: sampling (frontier and free-voxel
+    draws, spacing, insertion), prune, gains (the windowed per-yaw
+    counts), bellman_ford (adjacency with line-of-sight edges and the
+    relaxations) and scoring (candidates, path walks, findBestPath)."""
+    from intent_mpc_torch.models import dep
+    return [("sampling", dep, "grow_roadmap"), ("prune", dep, "prune"),
+            ("gains", dep, "node_gains"),
+            ("bellman_ford", dep, "roadmap_paths"),
+            ("scoring", dep, "score_views")]
+
+
+def chord_speeds_within(path, res, vlim, tol=1.05):
+    """TOPP's per-axis limits held on its samples as tests/
+    test_traj_divider.py holds them: each chord's per-axis velocity within
+    tol x the larger of its two samples' limits, plus 1e-3. Returns (all
+    held, the largest ratio of a chord's velocity to that limit)."""
+    import torch
+    dt = torch.diff(res.times, dim=1)
+    vel = torch.abs(torch.diff(path, dim=1)) \
+        / torch.clamp(dt, min=1e-9)[..., None]
+    lim = torch.maximum(vlim[:, :-1], vlim[:, 1:])[..., None]
+    ok = bool((vel <= lim * tol + 1e-3).all())
+    return ok, float((vel / lim).max())
+
+
+def check_exploration(seeds, fr, m, g, dev):
+    """The exploration and trajectory-optimisation stack at the DYNUS width
+    on the mapping phase's S maps (log-odds m, inflated grids g), from
+    each scenario's last camera position: EXPLORE_CYCLES dep_step cycles
+    at DEPConfig() (device ms per stage, live nodes, successes, launches of
+    one more cycle), plan_next_view at ExplorationConfig() and
+    PRMConfig(), RRT* (RRT_STAR) and the PRM on the inflated grids to 20 m
+    ahead (successes, launches, their CUDA-event interval: the host's
+    launch time of eager loops), the grid wavefront on WAVEFRONT_MAPS grids
+    toward the voxel 20 m ahead (integer costs and 1e9), the ESDF of every
+    inflated grid, the B-spline optimiser from each RRT* path (100 Adam
+    steps with the ESDF and the dynamic obstacles of the last
+    OBSTACLE_FRAMES frames), each spline sampled every SPLINE_SAMPLE_DT s,
+    divided against the inflated grid and time-parameterized at the
+    planner's max_vel and max_acc (sampled speeds within the limits); peak
+    memory. Returns (the phase's fields, the last roadmap and the inputs
+    the full-width card-against-CPU check reuses)."""
+    import torch
+    from intent_mpc_torch.models import bspline_traj as bs
+    from intent_mpc_torch.models import dep
+    from intent_mpc_torch.models import exploration as ex
+    from intent_mpc_torch.models import global_planner as gp
+    from intent_mpc_torch.models import mapping as mp
+    from intent_mpc_torch.models import time_optimizer as to
+    from intent_mpc_torch.models import traj_divider as td
+    from intent_mpc_torch.utils import prng
+    from intent_mpc_torch.utils.config import PlannerConfig
+    S = len(seeds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lo, origin, res = m.log_odds, m.origin, m.resolution
+    start = fr.cam_pos[-1]
+    yaw = torch.zeros((S,), device=dev)
+    keys = prng.prng_key(torch.tensor([2000 + int(s) for s in seeds]), dev)
+    cfg = dep.DEPConfig()
+
+    # ---- DEP: the persistent roadmap over EXPLORE_CYCLES cycles ----
+    st = dep.dep_init(cfg, start, device=dev)
+    cycle_ms = []
+    with StageTimer(dep_stage_sites()) as timer:
+        for c in range(EXPLORE_CYCLES):
+            (st, plan), ms = timed(lambda st=st, c=c: dep.dep_step(
+                cfg, lo, origin, res, st, start, yaw, prng.fold_in(keys, c)))
+            cycle_ms.append(ms)
+    stage_ms = {k: v / EXPLORE_CYCLES for k, v in timer.ms().items()}
+    dep_launches = kernel_launches(lambda: dep.dep_step(
+        cfg, lo, origin, res, st, start, yaw,
+        prng.fold_in(keys, EXPLORE_CYCLES)))
+    check(bool(torch.isfinite(plan.path).all())
+          and bool(torch.isfinite(st.gain).all()), "exploration: DEP plan")
+    live = st.valid.sum(dim=-1)
+
+    # ---- the next-best view and its PRM path ----
+    goal = start + torch.tensor([20.0, 0.0, 0.0], device=dev)
+    b_lo, b_hi = route_bounds(start, goal)
+    view, view_ms = timed(lambda: ex.plan_next_view(
+        lo, origin, res, start, b_lo, b_hi, keys))
+    check(bool(torch.isfinite(view.path).all()), "exploration: view path")
+
+    # ---- RRT* and PRM on the inflated grids ----
+    star_cfg = gp.RRTStarConfig(**RRT_STAR)
+    star, star_ms = timed(lambda: gp.rrt_star_plan(g, start, goal, b_lo, b_hi,
+                                                   keys, star_cfg))
+    star_launches = kernel_launches(lambda: gp.rrt_star_plan(
+        g, start, goal, b_lo, b_hi, keys, star_cfg))
+    prm, prm_ms = timed(lambda: gp.prm_plan(g, start, goal, b_lo, b_hi, keys))
+    prm_launches = kernel_launches(lambda: gp.prm_plan(
+        g, start, goal, b_lo, b_hi, keys))
+    check(bool(torch.isfinite(star.path).all())
+          and bool(torch.isfinite(prm.path).all()), "exploration: routes")
+
+    # ---- the grid wavefront toward the voxel 20 m ahead ----
+    W = min(WAVEFRONT_MAPS, S)
+    dims = torch.tensor(lo.shape[1:], device=dev)
+    gv = torch.clamp(torch.floor((goal[:W] - origin) / g.resolution).long(),
+                     torch.zeros_like(dims), dims - 1)
+    cost, wave_ms = timed(lambda: gp.grid_wavefront(g.grid[:W], gv,
+                                                    WAVEFRONT_ITERS))
+    ar = torch.arange(W, device=dev)
+    check(bool(((cost == 1e9) | ((cost == torch.round(cost))
+                                & (cost <= WAVEFRONT_ITERS))).all())
+          and bool((cost[ar, gv[:, 0], gv[:, 1], gv[:, 2]] == 0).all()),
+          "exploration: wavefront costs are not integers and 1e9")
+    sv = torch.floor((start[:W] - origin) / g.resolution).long()
+    start_cost = cost[ar, sv[:, 0], sv[:, 1], sv[:, 2]]
+
+    # ---- the B-spline optimiser from each RRT* path ----
+    esdf, esdf_ms = timed(lambda: mp.esdf(g.grid, res))
+    ctrl0 = bs.fit_control_points(star.path)
+    obs = fr.obs_pos[-OBSTACLE_FRAMES:].permute(1, 2, 0, 3)      # (S, O, P, 3)
+    obs = torch.where(fr.dynamic[:, :, None, None], obs,
+                      torch.full_like(obs, FAR))
+    size = fr.obs_size[:, :, None].expand(obs.shape).contiguous()
+    bcfg = bs.BsplineConfig()
+    traj, bs_ms = timed(lambda: bs.optimize(bcfg, ctrl0, esdf, origin, res,
+                                            obs, size))
+    bs_launches = kernel_launches(lambda: bs.optimize(
+        bcfg, ctrl0, esdf, origin, res, obs, size))
+    check(bool(torch.isfinite(traj.ctrl).all())
+          and torch.equal(traj.ctrl[:, :3], ctrl0[:, :3])
+          and torch.equal(traj.ctrl[:, -3:], ctrl0[:, -3:]),
+          "exploration: B-spline control points or pinned ends")
+
+    # ---- the divider and TOPP on the splines' samples ----
+    M = traj.ctrl.shape[1]
+    n_t = int(round((M - 3) * bcfg.dt / SPLINE_SAMPLE_DT)) + 1
+    t = (torch.arange(n_t, device=dev) * SPLINE_SAMPLE_DT).expand(S, n_t)
+    t = t.contiguous()
+    path = bs.evaluate(traj, t)
+    params = td.DividerParams()
+    div, div_ms = timed(lambda: td.divide(path, t, g, params))
+    pc = PlannerConfig()
+    vlim = td.zone_velocity_limits(div, pc.max_vel, params.safe_dist)
+    topp, topp_ms = timed(lambda: to.parameterize(path, vlim, pc.max_acc))
+    topp_launches = kernel_launches(lambda: to.parameterize(path, vlim,
+                                                            pc.max_acc))
+    held, ratio = chord_speeds_within(path, topp, vlim)
+    check(held and bool(torch.isfinite(topp.times).all()),
+          ("exploration: TOPP speeds beyond the limits", ratio))
+    pos_s, vel_s = to.sample_state(path, topp, topp.total_time * 0.5)
+    check(bool(torch.isfinite(pos_s).all() and torch.isfinite(vel_s).all()),
+          "exploration: sampled state")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(peak < 40.0, ("exploration peak memory", peak))
+    out = dict(
+        scenarios=S, map_dims=list(lo.shape[1:]), resolution=res,
+        dep_cycles=EXPLORE_CYCLES, dep_ms_each=[round(x, 3) for x in cycle_ms],
+        dep_ms_per_cycle=sum(cycle_ms) / EXPLORE_CYCLES,
+        dep_stage_ms_per_cycle=stage_ms, dep_launches_one_cycle=dep_launches,
+        dep_live_nodes_mean=float(live.float().mean()),
+        dep_live_nodes_max=int(live.max()),
+        dep_successes=int(plan.success.sum()),
+        dep_path_len_mean=float(plan.path_len.float().mean()),
+        view_ms=view_ms, view_successes=int(view.success.sum()),
+        view_gain_mean=float(view.gain.mean()),
+        rrt_star_launch_bound_ms=star_ms, rrt_star_launches=star_launches,
+        rrt_star_successes=int(star.success.sum()),
+        rrt_star_iters=star_cfg.max_iters,
+        prm_launch_bound_ms=prm_ms, prm_launches=prm_launches,
+        prm_successes=int(prm.success.sum()),
+        wavefront_maps=W, wavefront_iters=WAVEFRONT_ITERS,
+        wavefront_ms=wave_ms,
+        wavefront_reached_voxels=int((cost < 1e9).sum()),
+        wavefront_start_cost=[float(x) for x in start_cost],
+        esdf_ms=esdf_ms, esdf_maps=S,
+        bspline_ms=bs_ms, bspline_launches=bs_launches,
+        bspline_iters=bcfg.iters,
+        bspline_cost_mean=float(traj.cost.mean()),
+        spline_samples=n_t, divider_ms=div_ms,
+        zones=int(div.zone_valid.sum()),
+        samples_in_zones=int(div.in_zone.sum()),
+        topp_ms=topp_ms, topp_launches=topp_launches,
+        total_time_s=[round(float(x), 4) for x in topp.total_time],
+        chord_speed_over_limit_max=ratio,
+        peak_memory_gb=peak)
+    return out, dict(state=st, start=start, yaw=yaw, keys=keys, path=path,
+                     vlim=vlim)
+
+
+def _dep_small_map(dims=(24, 16, 6), wall=False):
+    """tests/test_dep.py's half-explored map at 0.5 m: x below half
+    observed free, the rest unobserved; with `wall` an occupied slab at
+    x in [4.5, 5.5) m."""
+    import torch
+    lo = torch.zeros(dims)
+    lo[: dims[0] // 2] = -2.0
+    if wall:
+        lo[9:11, 2:12, :4] = 3.0
+    return lo
+
+
+def _small_cfg(**kw):
+    """tests/test_dep.py's small DEPConfig."""
+    from intent_mpc_torch.models import dep
+    base = dict(capacity=48, samples_per_step=12, dist_thresh=0.6,
+                sensor_range=3.0, connect_radius=3.0, max_path_len=10,
+                max_candidates=4, yaw_bins=16)
+    base.update(kw)
+    return dep.DEPConfig(**base)
+
+
+def exploration_small(where):
+    """The exploration stack on small inputs on one device: 4 dep_step
+    cycles of two explorers on the half-explored map and one with
+    los_samples=3 on it with a wall; plan_next_view on
+    tests/test_exploration.py's half-observed map; RRT* (128 iterations,
+    step 1.5) and the PRM on tests/test_global_planner.py's walled map
+    (0.25 m) for three keys; the grid wavefront there; 30 B-spline Adam
+    steps from seeded paths with an ESDF and a dynamic obstacle; the
+    divider and TOPP on a pass by a pillar (0.1 m). Returns {name: (exact
+    tensors, tensors held absolutely, tensors held relatively)} on the
+    CPU."""
+    import numpy as np
+    import torch
+    from intent_mpc_torch.models import bspline_traj as bs
+    from intent_mpc_torch.models import dep
+    from intent_mpc_torch.models import exploration as ex
+    from intent_mpc_torch.models import global_planner as gp
+    from intent_mpc_torch.models import mapping as mp
+    from intent_mpc_torch.models import time_optimizer as to
+    from intent_mpc_torch.models import traj_divider as td
+    from intent_mpc_torch.models.occupancy import build_from_static_obstacles
+    from intent_mpc_torch.utils import prng
+    out = {}
+
+    def cpu(ts):
+        return [t.detach().cpu() for t in ts]
+
+    start = torch.tensor([[1.0, 4.0, 1.5], [2.0, 6.0, 1.0]], device=where)
+    keys = prng.prng_key(torch.tensor([0, 5]), where)
+    for name, cfg, wall, cycles in (("dep", _small_cfg(), False, 4),
+                                    ("dep_los", _small_cfg(los_samples=3),
+                                     True, 1)):
+        lo = _dep_small_map(wall=wall)[None].expand(2, -1, -1, -1).to(where)
+        st = dep.dep_init(cfg, start, device=where)
+        for c in range(cycles):
+            st, plan = dep.dep_step(cfg, lo, (0.0, 0.0, 0.0), 0.5, st, start,
+                                    torch.zeros(2, device=where),
+                                    prng.fold_in(keys, c))
+        out[name] = (cpu([st.valid, st.gain, st.yaw_gain, plan.path_len,
+                          plan.success]),
+                     cpu([st.pos, plan.path, plan.viewpoint]),
+                     cpu([plan.score]))
+
+    lo = torch.zeros((2, 24, 24, 8), device=where)
+    lo[:, :12] = -1.0
+    view = ex.plan_next_view(
+        lo, (0.0, 0.0, 0.0), 0.5, torch.tensor([[1.0, 6.0, 2.0]] * 2,
+                                               device=where),
+        torch.tensor([[0.5] * 3] * 2, device=where),
+        torch.tensor([[11.5, 11.5, 3.5]] * 2, device=where), keys,
+        ex.ExplorationConfig(sensor_range=2.0, num_candidates=256))
+    out["view"] = (cpu([view.path_len, view.success, view.gain]),
+                   cpu([view.viewpoint, view.path]), [])
+
+    g = build_from_static_obstacles(
+        (0, 0, 0), (10, 10, 3), 0.25, [[5.0, 3.5, 1.5]], [[0.5, 7.0, 3.0]],
+        [0.2, 0.2, 0.2], device=where)
+    rows = lambda v: torch.tensor([v] * 3, device=where)   # noqa: E731
+    args = (g, rows([1.0, 2.0, 1.5]), rows([9.0, 2.0, 1.5]),
+            rows([0.3, 0.3, 0.5]), rows([9.7, 9.7, 2.5]),
+            prng.prng_key(torch.tensor([0, 1, 3]), where))
+    for name, r in (("rrt_star", gp.rrt_star_plan(*args, gp.RRTStarConfig(
+            max_iters=128, incremental_dist=1.5, neighborhood_radius=2.5,
+            goal_reach_dist=1.0))), ("prm", gp.prm_plan(*args))):
+        out[name] = (cpu([r.length, r.success]), cpu([r.path]), [])
+    goal_vox = torch.tensor([[36, 8, 6]] * 2, device=where)
+    out["wavefront"] = (cpu([gp.grid_wavefront(
+        g.grid[None].expand(2, -1, -1, -1), goal_vox, 120)]), [], [])
+
+    rng = np.random.default_rng(0)
+    xs = np.linspace(0, 8, 20)
+    base = np.stack([xs, np.full(20, 0.1), np.full(20, 1.5)], -1)
+    paths = torch.tensor(np.stack([base + rng.normal(0, 0.3, base.shape)
+                                   for _ in range(2)]), dtype=torch.float32,
+                         device=where)
+    ctrl0 = bs.fit_control_points(paths)
+    P = ctrl0.shape[1]
+    gb = build_from_static_obstacles(
+        (-1, -3, 0), (10, 6, 3), 0.2, [[4.0, 0.0, 1.5]], [[1.0, 1.0, 3.0]],
+        [0.2, 0.2, 0.2], device=where)
+    esdf = mp.esdf(gb.grid[None].expand(2, -1, -1, -1), 0.2)
+    obs = torch.tensor([4.0, 0.0, 1.5], device=where).expand(2, 1, P, 3)
+    traj = bs.optimize(bs.BsplineConfig(iters=30, clearance=0.6), ctrl0,
+                       esdf, (-1.0, -3.0, 0.0), 0.2, obs,
+                       torch.ones_like(obs))
+    out["bspline"] = ([], cpu([traj.ctrl]), cpu([traj.cost]))
+
+    ts = torch.linspace(0.0, 6.0, 120, device=where)
+    traj = torch.stack([ts * 2.0, torch.zeros_like(ts), torch.ones_like(ts)],
+                       dim=-1)
+    gp_ = build_from_static_obstacles(
+        (-1.0, -4.0, 0.0), (14.0, 8.0, 4.0), 0.1, [[6.0, 0.6, 1.0]],
+        [[0.4, 0.4, 3.0]], 0.3, device=where)
+    div = td.divide(traj[None], ts[None], gp_)
+    vlim = td.zone_velocity_limits(div, 5.0, 1.0)
+    topp = to.parameterize(traj[None], vlim, 10.0)
+    out["divider_topp"] = (cpu([div.in_zone, div.zone_valid]),
+                           cpu([div.t_lo, div.t_hi]),
+                           cpu([topp.b, topp.times]))
+    return out
+
+
+def check_exploration_small(dev):
+    """exploration_small on the card against the CPU: masks, counts,
+    lengths and successes equal; positions, paths, B-spline control points
+    and zone times within 1e-5 (m, s; DEP node positions 1e-6 m); scores,
+    B-spline costs and TOPP's b and times within 1e-5 relative."""
+    import torch
+    card, cpu = exploration_small(dev), exploration_small("cpu")
+
+    def worst(xs, ys, rel):
+        """The largest difference; equal values (infinite scores of no
+        view included) differ by 0."""
+        return max([float(torch.where(a == b, 0.0, (a - b).abs() / (
+            b.abs().clamp(min=1e-6) if rel else 1.0)).max())
+            for a, b in zip(xs, ys)] or [0.0])
+    equal, diffs, rel_diffs = True, {}, {}
+    for name in cpu:
+        (ec, ac, rc), (ep, ap, rp) = card[name], cpu[name]
+        equal = equal and all(torch.equal(a, b) for a, b in zip(ec, ep))
+        diffs[name] = worst(ac, ap, False)
+        rel_diffs[name] = worst(rc, rp, True)
+    check(equal, "exploration_small: masks, counts or lengths differ")
+    check(diffs["dep"] <= 1e-5 and diffs["dep_los"] <= 1e-5
+          and float((card["dep"][1][0] - cpu["dep"][1][0]).abs().max())
+          <= 1e-6 and max(diffs.values()) <= 1e-5
+          and max(rel_diffs.values()) <= 1e-5,
+          ("exploration_small: card against CPU", diffs, rel_diffs))
+    return dict(config="exploration_small", exact_equal=equal,
+                max_abs_diff=diffs, max_rel_diff=rel_diffs, tol=1e-5,
+                dep_pos_tol=1e-6)
+
+
+def check_exploration_full(ctx, m, dev, n=2):
+    """The full-width DYNUS maps of the first n scenarios on the card
+    against the CPU: one dep_step from the phase's last roadmap (node
+    positions within 1e-6 m, valid, gains and per-yaw gains equal) and one
+    TOPP on the phase's spline samples (b and times within 1e-5
+    relative)."""
+    import torch
+    from intent_mpc_torch.models import dep
+    from intent_mpc_torch.models import time_optimizer as to
+    from intent_mpc_torch.utils import prng
+    from intent_mpc_torch.utils.config import PlannerConfig
+    cfg = dep.DEPConfig()
+    key = prng.fold_in(ctx["keys"][:n], EXPLORE_CYCLES + 1)
+    runs = {}
+    for where in (dev, "cpu"):
+        st = dep.RoadmapState(*(t[:n].to(where) for t in ctx["state"]))
+        t0 = time.perf_counter()
+        st2, plan = dep.dep_step(cfg, m.log_odds[:n].to(where),
+                                 m.origin.to(where), m.resolution, st,
+                                 ctx["start"][:n].to(where),
+                                 ctx["yaw"][:n].to(where), key.to(where))
+        topp = to.parameterize(ctx["path"][:n].to(where),
+                               ctx["vlim"][:n].to(where),
+                               PlannerConfig().max_acc)
+        runs[str(where)] = ([t.cpu() for t in st2] + [plan.success.cpu()],
+                            [topp.b.cpu(), topp.times.cpu()],
+                            time.perf_counter() - t0)
+    (c_st, c_tp, c_s), (p_st, p_tp, p_s) = runs[str(dev)], runs["cpu"]
+    pos_diff = float((c_st[0] - p_st[0]).abs().max())
+    counts_equal = all(torch.equal(a, b) for a, b in zip(c_st[1:], p_st[1:]))
+    rel = max(float(torch.where(a == b, 0.0, (a - b).abs()
+                                / b.abs().clamp(min=1e-6)).max())
+              for a, b in zip(c_tp, p_tp))
+    check(counts_equal and pos_diff <= 1e-6,
+          ("exploration_full: DEP card against CPU", pos_diff))
+    check(rel <= 1e-5, ("exploration_full: TOPP card against CPU", rel))
+    return dict(config="exploration_full", scenarios=n,
+                dep_counts_equal=counts_equal, dep_pos_max_diff=pos_diff,
+                gains_sum=float(p_st[2].sum()), topp_rel_diff=rel,
+                tol_rel=1e-5, cpu_s=p_s, card_s=c_s)
 
 
 def main():
@@ -2176,7 +2599,7 @@ def main():
     reset_launch_counts()
     map_seeds = list(range(32))
     frames = dynus_frames(map_seeds, 60, dev)
-    mapping = check_mapping(map_seeds, frames, dev)
+    mapping, maps, grids = check_mapping(map_seeds, frames, dev)
     phase("mapping", nvidia_smi=smi, **mapping)
     phase("card_vs_cpu", **check_mapping_small(dev))
     fusion = check_perception_fusion(frames, dev)
@@ -2188,7 +2611,24 @@ def main():
     phase("mapping_phases", seconds=time.perf_counter() - t_map,
           launches=map_launches)
 
-    # ---- 26. clean modules ----
+    # ---- 26. exploration and trajectory optimisation on the mapping
+    # phase's 32 maps; card against CPU on small inputs and at full width
+    # for 2 scenarios; none of the three kernels runs here ----
+    t_exp = time.perf_counter()
+    reset_launch_counts()
+    explore, ctx = check_exploration(map_seeds, frames, maps, grids, dev)
+    exp_launches = launch_counts()
+    check(not any(exp_launches.values()),
+          ("exploration phase launched a kernel", exp_launches))
+    phase("exploration", nvidia_smi=smi, launches=exp_launches, **explore)
+    phase("card_vs_cpu", **check_exploration_small(dev))
+    phase("card_vs_cpu", **check_exploration_full(ctx, maps, dev))
+    phase("exploration_phases", seconds=time.perf_counter() - t_exp,
+          launches=exp_launches)
+    del ctx, maps, grids, frames
+    torch.cuda.empty_cache()
+
+    # ---- 27. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -2210,6 +2650,7 @@ def main():
             "per_candidate_adaptive_32": adaptive["launches"]["ew_chain"],
             "polish_32": polished["default"]["launches"]["ew_chain"],
             "mapping_perception_fusion_32": map_launches["ew_chain"],
+            "exploration_32": exp_launches["ew_chain"],
             **{"%s_32" % o["option"]: o["launches"]["ew_chain"]
                for o in options if o["solve"] == "default"}},
         "max_abs_err": max_err,
@@ -2230,6 +2671,7 @@ def main():
             "goal_global_fused_8": goal_f["launches"]["fleet_admm"],
             "polish_fused_32": polished["fused"]["launches"]["fleet_admm"],
             "mapping_perception_fusion_32": map_launches["fleet_admm"],
+            "exploration_32": exp_launches["fleet_admm"],
             **{"%s_fused_32" % o["option"]: o["launches"]["fleet_admm"]
                for o in options if o["solve"] == "fused"}},
         "max_abs_err": fleet[128]["max_abs_err"],
@@ -2251,7 +2693,8 @@ def main():
         "launches": dense_launches,
         "launches_of": "one admm_solve_dense call (no closed-loop path)",
         "launches_of_other_paths": {
-            "mapping_perception_fusion_32": map_launches["dense_loop"]},
+            "mapping_perception_fusion_32": map_launches["dense_loop"],
+            "exploration_32": exp_launches["dense_loop"]},
         "max_abs_err": dense[128]["max_abs_err"],
         "max_abs_diff": dense[128]["max_abs_err"],
         "max_abs_err_of": "unscaled candidate states after 10 iterations",

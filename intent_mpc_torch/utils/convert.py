@@ -12,7 +12,8 @@ and `fleet_outputs_to_lanes` carry the fleet solve's packed problem and
 its outputs between the TPU lane layout and the port's layout;
 `dense_problem_from_numpy` carries the dense-A path's problem.
 `map_from_numpy` and `octo_from_numpy` carry log-odds maps and octree
-pyramids, and `yolo_state_dict` turns the person detector's parameters in
+pyramids, `roadmap_from_numpy` the exploration planner's persistent
+roadmap, and `yolo_state_dict` turns the person detector's parameters in
 the JAX package's layout into the port module's state_dict.
 """
 
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from intent_mpc_torch.engine.closed_loop import EngineCarry, Metrics
+from intent_mpc_torch.models.dep import RoadmapState
 from intent_mpc_torch.models.controller import ControllerState
 from intent_mpc_torch.models.detector import DetectorState
 from intent_mpc_torch.models.mapping import LogOddsMap
@@ -36,6 +38,7 @@ from intent_mpc_torch.models.world import Scenario
 from intent_mpc_torch.ops.dense_loop import DenseScaledProblem
 from intent_mpc_torch.ops.fleet import LANES, FleetProblem
 from intent_mpc_torch.ops.qp import ConVec, QPData
+from intent_mpc_torch.utils.device import resolve_device
 
 # NamedTuple fields that hold another NamedTuple
 _NESTED = {
@@ -203,6 +206,19 @@ def octo_from_numpy(octos, device="cpu") -> OctoMap:
                    origin=torch.as_tensor(origin, device=device),
                    resolution=res,
                    ignore_unknown=bool(octos[0].ignore_unknown))
+
+
+def roadmap_from_numpy(tree, device=None) -> RoadmapState:
+    """The port's RoadmapState (S, N, ...) from a roadmap with numpy leaves
+    (pos, valid, gain, yaw_gain), such as the JAX package's RoadmapState
+    after mapping np.asarray over it; a roadmap without the scenario axis
+    (pos (N, 3)) gives S = 1. On the card unless `device` names another."""
+    dev = resolve_device(device)
+    one = np.ndim(tree.pos) == 2
+    return RoadmapState(*(
+        torch.as_tensor(np.array(getattr(tree, f))[None] if one
+                        else np.array(getattr(tree, f)), device=dev)
+        for f in RoadmapState._fields))
 
 
 def yolo_state_dict(params) -> dict:

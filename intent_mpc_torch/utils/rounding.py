@@ -56,6 +56,14 @@ def matmul3(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
                fma(v[..., 1, :], m[..., 1, :], v[..., 0, :] * m[..., 0, :]))
 
 
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA's CPU program and
+    the card take it: PyTorch's float32 sqrt on the CPU (a vectorized
+    approximation) misses it by an ulp for about 0.6% of inputs. The
+    float64 root rounded once to float32 is the correctly rounded one."""
+    return torch.sqrt(x.double()).float()
+
+
 def recip32(c: float) -> float:
     """1 / c in float32: XLA folds a division by a constant c into a
     multiplication by this."""

@@ -18,8 +18,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (accepted, check_fusion_small,  # noqa: E402
-                        check_mapping_small, small_fleet_qps)
+from chip_smoke import (accepted, check_exploration_small,  # noqa: E402
+                        check_fusion_small, check_mapping_small,
+                        small_fleet_qps)
 from intent_mpc_torch.benchmark import bench  # noqa: E402
 from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
@@ -944,3 +945,41 @@ def test_mapping_frame_does_not_synchronize(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     assert g.grid.shape == m.log_odds.shape and free.shape == (2, 16)
     assert not bool(free.all())
+
+
+@pytest.mark.cuda
+def test_exploration_on_card_matches_cpu(cuda_device):
+    """The exploration stack's small inputs on the card against the CPU
+    (chip_smoke.check_exploration_small): 4 DEP cycles and one with
+    line-of-sight gains, the next-best view, RRT*, the PRM, the wavefront,
+    30 B-spline steps, the divider and TOPP; masks and counts equal,
+    positions within 1e-5 m, TOPP within 1e-5 relative."""
+    out = check_exploration_small(cuda_device)
+    assert out["exact_equal"]
+
+
+@pytest.mark.cuda
+def test_dep_step_does_not_synchronize(cuda_device):
+    """One dep_step at tests/test_dep.py's size (two explorers) runs under
+    torch.cuda.set_sync_debug_mode("error") after a warm-up step has built
+    the cached constants: no data-dependent host read."""
+    from chip_smoke import _dep_small_map, _small_cfg
+    from intent_mpc_torch.models import dep
+    from intent_mpc_torch.utils import prng
+    cfg = _small_cfg()
+    lo = _dep_small_map()[None].expand(2, -1, -1, -1).to(cuda_device)
+    start = torch.tensor([[1.0, 4.0, 1.5], [2.0, 6.0, 1.0]],
+                         device=cuda_device)
+    yaw = torch.zeros(2, device=cuda_device)
+    keys = prng.prng_key(torch.tensor([0, 5]), cuda_device)
+    st = dep.dep_init(cfg, start, device=cuda_device)
+    st, _ = dep.dep_step(cfg, lo, (0.0, 0.0, 0.0), 0.5, st, start, yaw,
+                         prng.fold_in(keys, 0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, plan = dep.dep_step(cfg, lo, (0.0, 0.0, 0.0), 0.5, st, start,
+                                yaw, prng.fold_in(keys, 1))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(plan.success.all()) and int(st.valid.sum()) > 2

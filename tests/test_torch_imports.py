@@ -12,14 +12,16 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "intent_mpc_tpu")
-# the real-perception and goal-mode slices' modules, which both checks
-# must reach
+# the real-perception, goal-mode and exploration slices' modules, which
+# both checks must reach
 SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "models.real_detector", "benchmark.real_loop",
                    "utils.prng", "models.global_planner", "models.pwl_traj",
                    "ops.dense_admm", "models.poly_traj",
                    "models.poly_planner", "engine.ref_builder",
-                   "benchmark.ref_modes")
+                   "benchmark.ref_modes", "models.exploration",
+                   "models.dep", "models.bspline_traj",
+                   "models.time_optimizer", "models.traj_divider")
 
 torch.set_num_threads(1)
 

@@ -174,6 +174,7 @@ Exits non-zero without a result when no CUDA device is present.
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -194,6 +195,13 @@ def check(ok, what):
     it survives python -O)."""
     if not ok:
         raise RuntimeError("chip_smoke check failed: %s" % (what,))
+
+
+def nan_max(xs):
+    """The largest of the floats xs (0.0 for none), NaN if any is NaN:
+    Python's max passes over a NaN that does not come first."""
+    xs = list(xs)
+    return math.nan if any(map(math.isnan, xs)) else max(xs, default=0.0)
 
 
 def production_ew_inputs(S, cfg, device):
@@ -1130,7 +1138,7 @@ def check_small_options(tiny, dev):
         cc, _, pg = run_loop(c, 2, 4, dev, start)
         cc_cpu, _, pc = run_loop(c, 2, 4, "cpu", start)
         diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
-        check(max(diffs) <= 1e-4, (name, solve, diffs))
+        check(nan_max(diffs) <= 1e-4, (name, solve, diffs))
         check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
         check(torch.equal(cc.metrics.solve_successes.cpu(),
                           cc_cpu.metrics.solve_successes),
@@ -1390,7 +1398,7 @@ def check_goal_small(dev):
         cg, pg, ng = goal_wall_loop(mode, [0, 2], 4, dev, 20)
         cc, pc, nc = goal_wall_loop(mode, [0, 2], 4, "cpu", 20)
         diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
-        check(max(diffs) <= 1e-4, ("goal_small", mode, diffs))
+        check(nan_max(diffs) <= 1e-4, ("goal_small", mode, diffs))
         same = all((a[0] is None or bool((a[0] == b[0]).all()))
                    and bool((a[1] == b[1]).all()) for a, b in zip(ng, nc))
         check(same, ("goal_small ref_len or stop_replans differ", mode))
@@ -1440,7 +1448,7 @@ def check_real_small(dev):
         cc, _, pg = run_loop(c, 2, 3, dev)
         cc_cpu, _, pc = run_loop(c, 2, 3, "cpu")
         diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
-        check(max(diffs) <= 1e-4, ("real_small", world, diffs))
+        check(nan_max(diffs) <= 1e-4, ("real_small", world, diffs))
         check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
         check(torch.equal(cc.metrics.solve_successes.cpu(),
                           cc_cpu.metrics.solve_successes),
@@ -1903,6 +1911,13 @@ RRT_STAR = dict(max_iters=1024, incremental_dist=2.5, neighborhood_radius=3.0,
 WAVEFRONT_MAPS = 8
 WAVEFRONT_ITERS = 200
 OBSTACLE_FRAMES = 30
+# TOPP's chord speeds may exceed the larger limit of their two samples by
+# this factor (tests/test_traj_divider.py's margin)
+CHORD_SPEED_TOL = 1.05
+# the card-against-CPU checks: tests/test_dep.py's small map, and the
+# DYNUS scenarios held at full width
+DEP_SMALL_DIMS = (24, 16, 6)
+FULL_CHECK_SCENARIOS = 2
 SPLINE_SAMPLE_DT = 0.1
 FAR = 1e4      # where a static obstacle is put out of the dynamic term
 
@@ -1930,17 +1945,18 @@ def dep_stage_sites():
             ("scoring", dep, "score_views")]
 
 
-def chord_speeds_within(path, res, vlim, tol=1.05):
+def chord_speeds_within(path, res, vlim):
     """TOPP's per-axis limits held on its samples as tests/
     test_traj_divider.py holds them: each chord's per-axis velocity within
-    tol x the larger of its two samples' limits, plus 1e-3. Returns (all
-    held, the largest ratio of a chord's velocity to that limit)."""
+    CHORD_SPEED_TOL x the larger of its two samples' limits, plus 1e-3.
+    Returns (all held, the largest ratio of a chord's velocity to that
+    limit)."""
     import torch
     dt = torch.diff(res.times, dim=1)
     vel = torch.abs(torch.diff(path, dim=1)) \
         / torch.clamp(dt, min=1e-9)[..., None]
     lim = torch.maximum(vlim[:, :-1], vlim[:, 1:])[..., None]
-    ok = bool((vel <= lim * tol + 1e-3).all())
+    ok = bool((vel <= lim * CHORD_SPEED_TOL + 1e-3).all())
     return ok, float((vel / lim).max())
 
 
@@ -2103,13 +2119,13 @@ def check_exploration(seeds, fr, m, g, dev):
                      vlim=vlim)
 
 
-def _dep_small_map(dims=(24, 16, 6), wall=False):
+def _dep_small_map(wall=False):
     """tests/test_dep.py's half-explored map at 0.5 m: x below half
     observed free, the rest unobserved; with `wall` an occupied slab at
     x in [4.5, 5.5) m."""
     import torch
-    lo = torch.zeros(dims)
-    lo[: dims[0] // 2] = -2.0
+    lo = torch.zeros(DEP_SMALL_DIMS)
+    lo[: DEP_SMALL_DIMS[0] // 2] = -2.0
     if wall:
         lo[9:11, 2:12, :4] = 3.0
     return lo
@@ -2157,7 +2173,7 @@ def exploration_small(where):
     for name, cfg, wall, cycles in (("dep", _small_cfg(), False, 4),
                                     ("dep_los", _small_cfg(los_samples=3),
                                      True, 1)):
-        lo = _dep_small_map(wall=wall)[None].expand(2, -1, -1, -1).to(where)
+        lo = _dep_small_map(wall)[None].expand(2, -1, -1, -1).to(where)
         st = dep.dep_init(cfg, start, device=where)
         for c in range(cycles):
             st, plan = dep.dep_step(cfg, lo, (0.0, 0.0, 0.0), 0.5, st, start,
@@ -2236,11 +2252,11 @@ def check_exploration_small(dev):
     card, cpu = exploration_small(dev), exploration_small("cpu")
 
     def worst(xs, ys, rel):
-        """The largest difference; equal values (infinite scores of no
-        view included) differ by 0."""
-        return max([float(torch.where(a == b, 0.0, (a - b).abs() / (
+        """The largest difference, NaN if any is NaN; equal values
+        (infinite scores of no view included) differ by 0."""
+        return nan_max(float(torch.where(a == b, 0.0, (a - b).abs() / (
             b.abs().clamp(min=1e-6) if rel else 1.0)).max())
-            for a, b in zip(xs, ys)] or [0.0])
+            for a, b in zip(xs, ys))
     equal, diffs, rel_diffs = True, {}, {}
     for name in cpu:
         (ec, ac, rc), (ep, ap, rp) = card[name], cpu[name]
@@ -2248,27 +2264,28 @@ def check_exploration_small(dev):
         diffs[name] = worst(ac, ap, False)
         rel_diffs[name] = worst(rc, rp, True)
     check(equal, "exploration_small: masks, counts or lengths differ")
-    check(diffs["dep"] <= 1e-5 and diffs["dep_los"] <= 1e-5
-          and float((card["dep"][1][0] - cpu["dep"][1][0]).abs().max())
-          <= 1e-6 and max(diffs.values()) <= 1e-5
-          and max(rel_diffs.values()) <= 1e-5,
-          ("exploration_small: card against CPU", diffs, rel_diffs))
+    pos_diff = float((card["dep"][1][0] - cpu["dep"][1][0]).abs().max())
+    check(pos_diff <= 1e-6 and all(v <= 1e-5 for v in diffs.values())
+          and all(v <= 1e-5 for v in rel_diffs.values()),
+          ("exploration_small: card against CPU", pos_diff, diffs,
+           rel_diffs))
     return dict(config="exploration_small", exact_equal=equal,
                 max_abs_diff=diffs, max_rel_diff=rel_diffs, tol=1e-5,
                 dep_pos_tol=1e-6)
 
 
-def check_exploration_full(ctx, m, dev, n=2):
-    """The full-width DYNUS maps of the first n scenarios on the card
-    against the CPU: one dep_step from the phase's last roadmap (node
-    positions within 1e-6 m, valid, gains and per-yaw gains equal) and one
-    TOPP on the phase's spline samples (b and times within 1e-5
-    relative)."""
+def check_exploration_full(ctx, m, dev):
+    """The full-width DYNUS maps of the first FULL_CHECK_SCENARIOS
+    scenarios on the card against the CPU: one dep_step from the phase's
+    last roadmap (node positions within 1e-6 m, valid, gains and per-yaw
+    gains equal) and one TOPP on the phase's spline samples (b and times
+    within 1e-5 relative)."""
     import torch
     from intent_mpc_torch.models import dep
     from intent_mpc_torch.models import time_optimizer as to
     from intent_mpc_torch.utils import prng
     from intent_mpc_torch.utils.config import PlannerConfig
+    n = FULL_CHECK_SCENARIOS
     cfg = dep.DEPConfig()
     key = prng.fold_in(ctx["keys"][:n], EXPLORE_CYCLES + 1)
     runs = {}
@@ -2288,9 +2305,9 @@ def check_exploration_full(ctx, m, dev, n=2):
     (c_st, c_tp, c_s), (p_st, p_tp, p_s) = runs[str(dev)], runs["cpu"]
     pos_diff = float((c_st[0] - p_st[0]).abs().max())
     counts_equal = all(torch.equal(a, b) for a, b in zip(c_st[1:], p_st[1:]))
-    rel = max(float(torch.where(a == b, 0.0, (a - b).abs()
-                                / b.abs().clamp(min=1e-6)).max())
-              for a, b in zip(c_tp, p_tp))
+    rel = nan_max(float(torch.where(a == b, 0.0, (a - b).abs()
+                                    / b.abs().clamp(min=1e-6)).max())
+                  for a, b in zip(c_tp, p_tp))
     check(counts_equal and pos_diff <= 1e-6,
           ("exploration_full: DEP card against CPU", pos_diff))
     check(rel <= 1e-5, ("exploration_full: TOPP card against CPU", rel))
@@ -2403,7 +2420,7 @@ def main():
         cc, _, pg = run_loop(c, 2, 4, dev)
         cc_cpu, _, pc = run_loop(c, 2, 4, "cpu")
         diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
-        check(max(diffs[:held]) <= 1e-3, (name, diffs))
+        check(nan_max(diffs[:held]) <= 1e-3, (name, diffs))
         check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
         check(torch.equal(cc.metrics.solve_successes.cpu(),
                           cc_cpu.metrics.solve_successes),
@@ -2449,7 +2466,7 @@ def main():
     cc, _, pg = run_loop(fused(tiny), 2, 4, dev)
     cc_cpu, _, pc = run_loop(fused(tiny), 2, 4, "cpu")
     diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
-    check(max(diffs) <= 1e-3, ("fused small", diffs))
+    check(nan_max(diffs) <= 1e-3, ("fused small", diffs))
     check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
     check(torch.equal(cc.metrics.solve_successes.cpu(),
                       cc_cpu.metrics.solve_successes),
@@ -2531,7 +2548,7 @@ def main():
         cc, _, pg = run_loop(c, 2, 4, dev)
         cc_cpu, _, pc = run_loop(c, 2, 4, "cpu")
         diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
-        check(max(diffs) <= 1e-4, (name, diffs))
+        check(nan_max(diffs) <= 1e-4, (name, diffs))
         check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
         check(torch.equal(cc.metrics.solve_successes.cpu(),
                           cc_cpu.metrics.solve_successes),

@@ -32,8 +32,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from intent_mpc_torch.models.exploration import as_origin
 from intent_mpc_torch.utils.device import constant, f32
+from intent_mpc_torch.utils.grid import as_origin
 from intent_mpc_torch.utils.rounding import fma, recip32, sqrt32
 
 _M4 = (

@@ -46,13 +46,12 @@ import numpy as np
 import torch
 
 from intent_mpc_torch.models.exploration import (ExplorationConfig,
-                                                 WIN_X, WIN_Y, WIN_Z,
-                                                 as_origin, classify,
-                                                 frontiers, grid_lookup,
-                                                 scenario_chunks, window_axes,
-                                                 window_radius)
+                                                 classify, frontiers)
 from intent_mpc_torch.utils import prng
 from intent_mpc_torch.utils.device import constant, f32, resolve_device
+from intent_mpc_torch.utils.grid import (WIN_X, WIN_Y, WIN_Z, as_origin,
+                                         grid_lookup, scenario_chunks,
+                                         window_axes, window_radius)
 from intent_mpc_torch.utils.rounding import fma, recip32, sq_sum3, sqrt32
 
 _PI = float(np.float32(np.pi))

@@ -29,9 +29,9 @@ from typing import NamedTuple
 
 import torch
 
-from intent_mpc_torch.models.exploration import WIN_X, WIN_Y, WIN_Z
 from intent_mpc_torch.models.occupancy import OccupancyGrid, _per_scenario
 from intent_mpc_torch.utils.device import f32
+from intent_mpc_torch.utils.grid import WIN_X, WIN_Y, WIN_Z
 from intent_mpc_torch.utils.rounding import sq_norm3, sqrt32
 
 

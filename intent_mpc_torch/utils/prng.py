@@ -106,10 +106,12 @@ def uniform(key: torch.Tensor, shape: Sequence[int] = (),
     """`jax.random.uniform(key, shape, minval=minval, maxval=maxval)` in
     float32: (..., *shape), `max(minval, floats * (maxval - minval) +
     minval)` with floats on [0, 1) and the product and sum as one FMA (the
-    contraction of JAX's jitted `_uniform` on the CPU)."""
+    contraction of JAX's jitted `_uniform` on the CPU). Only the tests pass
+    `minval` and `maxval` today; the port's draws are on [0, 1)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
+        # the same bits as _scale's +0.0 and clamp at 0, two launches fewer
         return floats
     return _scale(floats, minval, maxval)
 

@@ -7,6 +7,8 @@ plan_next_view runs eagerly in JAX, as tests/test_exploration.py runs it,
 and its viewpoint and path agree within 1e-5 m, its gain, path length and
 success are equal."""
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -135,3 +137,16 @@ def test_uniform_in_a_range_equals_jax():
                 prng.uniform(prng.prng_key(s), (5, 400), lo, hi).numpy(),
                 np.asarray(jax.random.uniform(jax.random.PRNGKey(s), (5, 400),
                                               minval=lo, maxval=hi)))
+
+
+@pytest.mark.parametrize("values", [[0.0, math.nan], [math.nan, 0.0],
+                                    [1e-7, math.nan, 2e-7]])
+def test_card_checks_see_a_nan_in_any_place(values):
+    """chip_smoke's card-against-CPU checks reduce their differences with
+    nan_max: a NaN anywhere fails the tolerance, where Python's max passes
+    over one that does not come first."""
+    from chip_smoke import nan_max
+    assert math.isnan(nan_max(values))
+    assert not nan_max(values) <= 1e-5
+    assert nan_max([1e-7, 3e-6, 2e-7]) == 3e-6
+    assert nan_max([]) == 0.0

@@ -21,7 +21,8 @@ SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "models.poly_planner", "engine.ref_builder",
                    "benchmark.ref_modes", "models.exploration",
                    "models.dep", "models.bspline_traj",
-                   "models.time_optimizer", "models.traj_divider")
+                   "models.time_optimizer", "models.traj_divider",
+                   "utils.grid")
 
 torch.set_num_threads(1)
 

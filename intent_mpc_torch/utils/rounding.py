@@ -38,13 +38,19 @@ def sq_norm3(d: torch.Tensor) -> torch.Tensor:
     return sq_sum3(d[..., 0], d[..., 1], d[..., 2])
 
 
+def root32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 root: the card's own sqrt, sqrt32 on
+    the CPU."""
+    return torch.sqrt(x) if x.is_cuda else sqrt32(x)
+
+
 def norm3(d: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(sq_norm3(d))
+    return root32(sq_norm3(d))
 
 
 def norm2(d: torch.Tensor) -> torch.Tensor:
     """The planar norm of d (..., 2): sqrt(fma(d1, d1, d0 * d0))."""
-    return torch.sqrt(fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
+    return root32(fma(d[..., 1], d[..., 1], d[..., 0] * d[..., 0]))
 
 
 def matmul3(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

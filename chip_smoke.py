@@ -164,7 +164,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
                and at full width for 2 scenarios (one dep_step's gains
                equal, one TOPP within 1e-5); none of the three kernels
                launches
- 27. modules   neither jax nor the JAX package was imported
+ 28. tools     the port's tools: entry() on the card against
+               entry("cpu") (1e-4 m and m/s, exactly 10 ew_chain
+               launches); benchmark/stage_profile at 32 scenarios of the
+               production config (wall ms, device-busy ms and launches
+               per stage); benchmark/roofline at 128 and 32 scenarios
+               against phase 4's cycles (GFLOP, MB, the inverse apply
+               against its HBM read, the L2 verdict, no share above 1);
+               the f64 oracle in the loop (benchmark/oracle_loop, 32 QP
+               slots) for 5 cycles of 2 scenarios, card against CPU (see
+               ORACLE_TOL), no kernel launches, host round-trip ms per
+               cycle; benchmark/demo.run_demo(seed=0) for 2 s of the
+               production world (summarize's keys, finite values)
+ 29. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
 
@@ -181,9 +193,10 @@ import subprocess
 import sys
 import time
 
+from intent_mpc_torch.benchmark.roofline import H100, PEAKS
+
 HERE = os.path.dirname(os.path.abspath(__file__))
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-PEAK_FP32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
+PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = PEAKS[H100]
 
 
 def phase(name, **fields):
@@ -2317,6 +2330,167 @@ def check_exploration_full(ctx, m, dev):
                 tol_rel=1e-5, cpu_s=p_s, card_s=c_s)
 
 
+# ---- the port's tools (phase 28) ----
+SUMMARY_KEYS = HARNESS_KEYS[4:] + ["traj_collision_cycles", "stop_replans"]
+ORACLE_SEEDS = (0, 1)
+ORACLE_CYCLES = 5
+# Oracle loop, card against CPU. Cycle 0 has no obstacle rows (a feasible
+# QP the oracle converges on): 1e-4 m. Later cycles: the infeasible DYNUS
+# QPs make the 150-iteration f64 oracle amplify its inputs' rounding: a
+# relative 2^-24 nudge of A, l, u and q parts the positions by up to
+# 0.233 m within 5 cycles (`python -m intent_mpc_torch.benchmark.
+# sensitivity --oracle --device cpu`, 4 seeded nudges), so 1.0 m.
+ORACLE_TOL_FIRST = 1e-4
+ORACLE_TOL = 1.0
+DEMO_TIMEOUT = 2.0
+
+
+def check_entry(dev):
+    """entry()'s cycle on the card against entry("cpu"), held to 1e-4 m
+    and m/s; exactly SOLVER_ITERS ew_chain launches."""
+    import torch
+    from intent_mpc_torch.entry import SOLVER_ITERS, entry
+    fn, args = entry()
+    reset_launch_counts()
+    pos, vel = fn(*args)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts == {"ew_chain": SOLVER_ITERS, "fleet_admm": 0,
+                     "dense_loop": 0}, ("entry launches", counts))
+    fn_c, args_c = entry("cpu")
+    pos_c, vel_c = fn_c(*args_c)
+    dp = float((pos.cpu() - pos_c).abs().max())
+    dv = float((vel.cpu() - vel_c).abs().max())
+    check(dp <= 1e-4 and dv <= 1e-4, ("entry: card against CPU", dp, dv))
+    return dict(fn="entry", scenarios=1, solver_iters=SOLVER_ITERS,
+                launches=counts, pos_max_diff=dp, vel_max_diff=dv, tol=1e-4)
+
+
+def check_stage_profile(dev):
+    """benchmark/stage_profile at 32 scenarios of the production config,
+    5 reps: every stage finite with positive wall ms, busy ms and
+    launches."""
+    from intent_mpc_torch.benchmark.stage_profile import profile_stages
+    from intent_mpc_torch.utils.config import IntentMPCConfig
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = profile_stages(IntentMPCConfig(), 32, None, 5, dev)
+    r["seconds"] = time.perf_counter() - t0
+    r["launches"] = launch_counts()
+    *timed, refine = r["stages"]
+    for st in timed:
+        check(math.isfinite(st["wall_ms"]) and st["wall_ms"] > 0
+              and st["busy_ms"] > 0 and st["launches"] > 0,
+              ("stage_profile", st))
+    check(math.isfinite(refine["wall_ms"]), ("stage_profile", refine))
+    return r
+
+
+def check_roofline(cfg, loop, dev):
+    """benchmark/roofline at 128 and 32 scenarios against phase 4's cycle
+    times: no stated share above 1."""
+    from intent_mpc_torch.benchmark import roofline
+    out = []
+    for S in (128, 32):
+        reset_launch_counts()
+        r = roofline.analyze(cfg, S, cfg.planner.solver.max_iter,
+                             loop[S]["cycle_ms"] / 1e3, dev)
+        r["launches"] = launch_counts()
+        shares = [r[k] for k in ("apply_hbm_share", "fp32_share",
+                                 "hbm_share") if r[k] is not None]
+        check(math.isfinite(r["apply_us"]) and r["apply_us"] > 0
+              and all(0 < x <= 1 for x in shares), ("roofline", r))
+        out.append(r)
+    return out
+
+
+def check_oracle(dev):
+    """The oracle loop (benchmark/oracle_loop: the CLI's config, 32 QP
+    slots) for ORACLE_CYCLES cycles of ORACLE_SEEDS on the card and on the
+    CPU: no kernel launches on the card, the host round trip's ms per
+    cycle (timed after a synchronize), positions held to ORACLE_TOL_FIRST
+    at cycle 0 and ORACLE_TOL after, equal solve counts."""
+    import torch
+    from intent_mpc_torch.benchmark import oracle_loop as ol
+    from intent_mpc_torch.engine import closed_loop as cl
+    from intent_mpc_torch.models.occupancy import empty_grid
+    from intent_mpc_torch.models.world import straight_line_ref_traj
+    from intent_mpc_torch.parallel import sharding as sh
+    cfg = ol.build_cfg(ol.parse_args([]))
+
+    def fly(where):
+        scen = sh.stack_scenarios(cfg, list(ORACLE_SEEDS), device=where)
+        ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device=where)
+        occ = empty_grid(where)
+        over = ol.make_oracle_override(cfg.planner)
+        host_ms = []
+
+        def timed(qps, warm6):
+            if qps.q.is_cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = over(qps, warm6)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+        carry = cl.init_carry(cfg, scen, device=where)
+        pos = []
+        for i in range(ORACLE_CYCLES):
+            carry, p = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                       carry, i, solve_override=timed)
+            pos.append(p.cpu())
+        return carry, pos, host_ms
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cg, pg, host_ms = fly(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(not any(counts.values()), ("oracle cycles launched a kernel",
+                                     counts))
+    t0 = time.perf_counter()
+    cc, pc, _ = fly("cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
+    check(diffs[0] <= ORACLE_TOL_FIRST and nan_max(diffs[1:]) <= ORACLE_TOL,
+          ("oracle loop: card against CPU", diffs))
+    check(finite_carry(cg) and finite_carry(cc), "oracle: non-finite carry")
+    for f in ("solve_attempts", "solve_successes"):
+        check(torch.equal(getattr(cg.metrics, f).cpu(),
+                          getattr(cc.metrics, f)), ("oracle: differ", f))
+    return dict(config="oracle_loop", scenarios=len(ORACLE_SEEDS),
+                cycles=ORACLE_CYCLES, max_obstacles=cfg.planner.max_obstacles,
+                launches=counts, host_ms_per_cycle=host_ms,
+                card_s=card_s, cpu_s=cpu_s, max_pos_diff_per_cycle=diffs,
+                tol_first=ORACLE_TOL_FIRST, tol=ORACLE_TOL,
+                solve_successes=cg.metrics.solve_successes.cpu().tolist())
+
+
+def check_demo(dev):
+    """benchmark/demo.run_demo(seed=0) on the production DYNUS world for
+    DEMO_TIMEOUT s: summarize's keys, finite values, a finite (C, 3) path,
+    and the default path's launches."""
+    import torch
+    from intent_mpc_torch.benchmark.demo import run_demo
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    d = run_demo(seed=0, timeout=DEMO_TIMEOUT, device=dev,
+                 out=os.path.join(HERE, "build", "chip_smoke", "demo"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    cycles = d.cfg.engine.num_cycles
+    check(counts == expected_launches(d.cfg, cycles), ("demo launches",
+                                                       counts))
+    check(list(d.row) == SUMMARY_KEYS, ("demo row keys", list(d.row)))
+    check(all(math.isfinite(float(v)) for v in d.row.values()),
+          ("demo row", d.row))
+    check(tuple(d.path.shape) == (cycles, 3)
+          and bool(torch.isfinite(d.path).all()), "demo path")
+    return dict(seed=0, cycles=cycles, launches=counts, seconds=seconds,
+                ms_per_cycle=seconds / cycles * 1e3, row=d.row)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2645,7 +2819,26 @@ def main():
     del ctx, maps, grids, frames
     torch.cuda.empty_cache()
 
-    # ---- 27. clean modules ----
+    # ---- 28. the port's tools: the entry, the stage profile and the
+    # roofline, the f64 oracle in the loop, the demo ----
+    t_tools = time.perf_counter()
+    tools = {}
+    for name, fn in (("entry", lambda: check_entry(dev)),
+                     ("stage_profile", lambda: check_stage_profile(dev)),
+                     ("roofline", lambda: check_roofline(cfg, loop, dev)),
+                     ("oracle", lambda: check_oracle(dev)),
+                     ("demo", lambda: check_demo(dev))):
+        tools[name] = fn()
+        phase("tools", tool=name, nvidia_smi=smi, result=tools[name])
+    tool_launches = {k: sum(r["launches"][k] for r in
+                            [tools["entry"], tools["stage_profile"],
+                             tools["oracle"], tools["demo"]]
+                            + tools["roofline"])
+                     for k in ("ew_chain", "fleet_admm", "dense_loop")}
+    phase("tools_phases", seconds=time.perf_counter() - t_tools,
+          launches=tool_launches)
+
+    # ---- 29. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("intent_mpc_tpu")]
@@ -2668,6 +2861,11 @@ def main():
             "polish_32": polished["default"]["launches"]["ew_chain"],
             "mapping_perception_fusion_32": map_launches["ew_chain"],
             "exploration_32": exp_launches["ew_chain"],
+            "tools_entry_1": tools["entry"]["launches"]["ew_chain"],
+            "tools_stage_profile_32":
+                tools["stage_profile"]["launches"]["ew_chain"],
+            "tools_oracle_loop_2": tools["oracle"]["launches"]["ew_chain"],
+            "tools_demo_1": tools["demo"]["launches"]["ew_chain"],
             **{"%s_32" % o["option"]: o["launches"]["ew_chain"]
                for o in options if o["solve"] == "default"}},
         "max_abs_err": max_err,
@@ -2689,6 +2887,7 @@ def main():
             "polish_fused_32": polished["fused"]["launches"]["fleet_admm"],
             "mapping_perception_fusion_32": map_launches["fleet_admm"],
             "exploration_32": exp_launches["fleet_admm"],
+            "tools": tool_launches["fleet_admm"],
             **{"%s_fused_32" % o["option"]: o["launches"]["fleet_admm"]
                for o in options if o["solve"] == "fused"}},
         "max_abs_err": fleet[128]["max_abs_err"],
@@ -2711,7 +2910,8 @@ def main():
         "launches_of": "one admm_solve_dense call (no closed-loop path)",
         "launches_of_other_paths": {
             "mapping_perception_fusion_32": map_launches["dense_loop"],
-            "exploration_32": exp_launches["dense_loop"]},
+            "exploration_32": exp_launches["dense_loop"],
+            "tools": tool_launches["dense_loop"]},
         "max_abs_err": dense[128]["max_abs_err"],
         "max_abs_diff": dense[128]["max_abs_err"],
         "max_abs_err_of": "unscaled candidate states after 10 iterations",

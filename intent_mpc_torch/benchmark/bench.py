@@ -34,12 +34,12 @@ are stopped when it ends.
 
 The solver-variant flags of bench.py run as there (--refine,
 --refine-mode, --refine-x0, --factor-reuse, --drift-refresh, --flat-iter,
---per-candidate-factor). Not ported from bench.py: the XLA-only options
-(--platform, the compilation cache, cliff padding of the batch and
---no-pad, the XLA cost-analysis --roofline, the jax --profile trace; for
-a profile see benchmark/profile_cycle.py), --ew-kernel (on by default
-here) and the solver variants the port does not run (--folded-refine,
---minv-bf16).
+--per-candidate-factor). `--roofline` prints the timed cycles against the
+card's peaks (benchmark/roofline.report). Not ported from bench.py: the
+XLA-only options (--platform, the compilation cache, cliff padding of the
+batch and --no-pad, the jax --profile trace; for a profile see
+benchmark/profile_cycle.py), --ew-kernel (on by default here) and the
+solver variants the port does not run (--folded-refine, --minv-bf16).
 """
 
 from __future__ import annotations
@@ -266,6 +266,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--latency", action="store_true",
                     help="also measure per-cycle latency, blocking and "
                          "pipelined depth-1 (100 ms replan budget)")
+    ap.add_argument("--roofline", action="store_true",
+                    help="also print the cycle against the card's peaks "
+                         "(benchmark/roofline.py)")
     ap.add_argument("--load", type=int, default=0,
                     help="co-located CPU burner processes for the run")
     ap.add_argument("--refine", type=int, default=None,
@@ -314,6 +317,11 @@ def report(args):
           f"elapsed={r['elapsed']:.3f}s "
           f"cycle={r['elapsed'] / args.cycles * 1e3:.1f}ms "
           f"warmup={r['warmup']:.1f}s device={r['device']}", file=sys.stderr)
+    if args.roofline:
+        from intent_mpc_torch.benchmark.roofline import report as roofline
+        cfg = bench_config(args.obstacles, args.fused, solver)
+        roofline(cfg, args.batch, args.cycles, r["elapsed"],
+                 args.iters or cfg.planner.solver.max_iter)
     if args.latency:
         lat = latency(args.batch, obstacles=args.obstacles, iters=args.iters,
                       fused=args.fused, solver=solver)

@@ -51,12 +51,13 @@ def _dev_time(e):      # the attribute was renamed across torch versions
     return t if t is not None else getattr(e, "cuda_time_total", 0.0)
 
 
-def profiled(step, carry, cycles):
+def profiled(step, carry, cycles,
+             activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA)):
     """Run `step(carry, i)` for the cycle indices `cycles` under
     torch.profiler: (carry, wall s, {kernel: (count, device us)},
-    launches)."""
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    launches). The kernels are the CUDA activity's; without the CPU
+    activity the profiler records no host op and costs less."""
+    with profile(activities=list(activities)) as prof:
         t0 = time.perf_counter()
         for i in cycles:
             carry = step(carry, i)

@@ -391,7 +391,8 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
                  occ: OccupancyGrid, carry: EngineCarry, cycle_idx: int,
                  solver_iters: Optional[int] = None,
                  veto_occ: Optional[OccupancyGrid] = None,
-                 ref_key: Optional[torch.Tensor] = None
+                 ref_key: Optional[torch.Tensor] = None,
+                 solve_override=None
                  ) -> Tuple[EngineCarry, torch.Tensor]:
     """One 10 Hz MPC cycle + its 10 control ticks for S scenarios.
 
@@ -402,8 +403,10 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     static volume; with the veto on and none given, occ. In goal mode the
     content of ref_traj is not read, only its length L (the allocation);
     ref_key (S, 2): each scenario's key of the goal-mode RRT (ref_mode
-    "global"; utils/prng.prng_key(0) when None, as in JAX). Returns
-    (carry, pos (S, 3))."""
+    "global"; utils/prng.prng_key(0) when None, as in JAX).
+    solve_override: `(qps, warm6) -> ADMMResult` in place of the batched
+    ADMM of the predictor path's plan (models/mpc.make_plan_with_pred;
+    oracle-in-the-loop runs). Returns (carry, pos (S, 3))."""
     ecfg = cfg.engine
     dev = carry.pos.device
     S = carry.pos.shape[0]
@@ -494,7 +497,8 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
             cfg.planner, planner_in, carry.pos, carry.vel, ref_traj, traj_len,
             prediction, visible, solver_iters, cycle_idx=cycle_idx,
             curr_yaw=carry.yaw if ecfg.use_fov else None,
-            dyn_safety=dyn_safety, static_obs=static_obs)
+            dyn_safety=dyn_safety, static_obs=static_obs,
+            solve_override=solve_override)
     else:
         # use_predictor=false: obstacles held constant over the horizon
         # (mpcNavigation.cpp:301-311 + updateDynamicObstacles); as in JAX
@@ -731,11 +735,12 @@ def run_episode(cfg: IntentMPCConfig, scenario: Scenario,
                 record_path: bool = False,
                 device=None,
                 veto_occ: Optional[OccupancyGrid] = None,
-                ref_key: Optional[torch.Tensor] = None):
+                ref_key: Optional[torch.Tensor] = None,
+                solve_override=None):
     """Run a batch of episodes (scenario axis S) on `device` (the GPU by
-    default); occ, veto_occ and ref_key (one key per scenario) as
-    episode_step takes them. Returns (final EngineCarry, path (S, C, 3)
-    or None)."""
+    default); occ, veto_occ, ref_key (one key per scenario) and
+    solve_override as episode_step takes them. Returns (final EngineCarry,
+    path (S, C, 3) or None)."""
     dev = resolve_device(device)
     scenario = Scenario(*(a.to(dev) for a in scenario))
     ref_traj = ref_traj.to(dev)
@@ -749,7 +754,8 @@ def run_episode(cfg: IntentMPCConfig, scenario: Scenario,
     for i in range(n):
         carry, p = episode_step(cfg, scenario, ref_traj, traj_len, occ, carry,
                                 i, solver_iters, veto_occ=veto_occ,
-                                ref_key=ref_key)
+                                ref_key=ref_key,
+                                solve_override=solve_override)
         if record_path:
             paths.append(p)
     return carry, (torch.stack(paths, dim=1) if record_path else None)

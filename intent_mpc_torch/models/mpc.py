@@ -351,7 +351,7 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
                         cycle_idx: Optional[int] = None,
                         curr_yaw: Optional[torch.Tensor] = None,
                         dyn_safety: Optional[torch.Tensor] = None,
-                        static_obs=None) -> PlanOutput:
+                        static_obs=None, solve_override=None) -> PlanOutput:
     """One replanning cycle (mpcCB body + makePlanWithPred) for a batch
     of S scenarios; the 6 intent-combination QPs of each are one batch.
 
@@ -370,7 +370,10 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
     same C rows to every candidate QP with the static safety distance, the
     static slack column (u[4], obs_dyn 0) and the box's yaw
     (updateObstacleParam :1186-1195); they count for the first-cycle
-    test like visible obstacles and stay out of the scoring."""
+    test like visible obstacles and stay out of the scoring.
+    solve_override: `(qps, warm6) -> ADMMResult` over (S, 6, ...) in place
+    of the batched ADMM, everything else unchanged (the f64 oracle of
+    benchmark/oracle_loop.py flies the closed loop through it)."""
     W = cfg.mpc_window
     S, O = pred.pos.shape[0], pred.pos.shape[1]
     dev = curr_pos.device
@@ -453,7 +456,9 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
 
     fac_carry = None
     refreshed = None
-    if cfg.solver.fused_solve:
+    if solve_override is not None:
+        res = solve_override(qps, warm6)
+    elif cfg.solver.fused_solve:
         # the fleet kernel (ops/fleet.py): one launch solves every candidate
         # of every scenario; it factors each cycle and carries no factor,
         # so the carried fac_* fields pass through unchanged

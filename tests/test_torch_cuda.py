@@ -577,7 +577,9 @@ _NO_SYNC = {"default": {}, "fused": dict(fused_solve=True),
             "quadrotor": "quadrotor", "use_fov": "use_fov",
             "no_predictor": "no_predictor", "flat_iter": "flat_iter",
             "stationary": "stationary", "predictor_stale": "predictor_stale",
-            "fused_quadrotor": "quadrotor", "fused_use_fov": "use_fov"}
+            "fused_quadrotor": "quadrotor", "fused_use_fov": "use_fov",
+            # the planner's solve_override hook at its default, passed
+            "solve_override_none": {}}
 
 
 @pytest.mark.cuda
@@ -591,10 +593,13 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
     factor per candidate with in-solve adaptive rho, and each loop option:
     goal relax and the drift-aware refresh decide per scenario on the
     device (the stall counter starts past the grace, so the anneal is
-    live)."""
+    live). The case solve_override_none passes the planner's
+    solve_override hook its default, None."""
     from intent_mpc_torch.benchmark.capture import option_start, with_option
     cfg = IntentMPCConfig()
     opt = _NO_SYNC[solve]
+    hook = ({"solve_override": None} if solve == "solve_override_none"
+            else {})
     start = None
     if isinstance(opt, str):
         cfg = with_option(cfg, opt)
@@ -615,10 +620,44 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
     try:
         for i in (4, 5):
             carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
-                                       carry, i)
+                                       carry, i, **hook)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(carry.pos).all())
+
+
+@pytest.mark.cuda
+def test_oracle_override_round_trip_on_card(cuda_device):
+    """The f64 oracle's host round trip hands the planner card tensors:
+    x, the residuals and rho_suggest float32, solved bool, y's groups
+    float32, all on the card; no ew_chain launches on its cycles, and the
+    carry stays finite."""
+    from intent_mpc_torch.benchmark import oracle_loop
+    from intent_mpc_torch.entry import tiny_setup
+    cfg, scen, ref = tiny_setup(cuda_device)
+    over = oracle_loop.make_oracle_override(cfg.planner)
+    seen = []
+
+    def spy(qps, warm6):
+        res = over(qps, warm6)
+        seen.append(res)
+        return res
+    carry = cl.init_carry(cfg, scen)
+    ew.EW_LAUNCHES = 0
+    for i in range(3):
+        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0],
+                                   empty_grid(cuda_device), carry, i,
+                                   solve_override=spy)
+    torch.cuda.synchronize()
+    assert ew.EW_LAUNCHES == 0
+    res = seen[-1]
+    for t in (res.x, res.prim_res, res.dual_res, res.rho_suggest) \
+            + tuple(res.y):
+        assert t.is_cuda and t.dtype == torch.float32
+    assert res.solved.is_cuda and res.solved.dtype == torch.bool
+    assert res.x.shape == (1, 6, cfg.planner.num_vars)
+    assert bool(torch.isfinite(carry.pos).all())
+    assert int(carry.metrics.solve_attempts[0]) == 3
 
 
 @pytest.mark.cuda

@@ -12,8 +12,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "intent_mpc_tpu")
-# the real-perception, goal-mode and exploration slices' modules, which
-# both checks must reach
+# the real-perception, goal-mode, exploration and tools slices' modules,
+# which both checks must reach
 SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "models.real_detector", "benchmark.real_loop",
                    "utils.prng", "models.global_planner", "models.pwl_traj",
@@ -22,7 +22,11 @@ SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "benchmark.ref_modes", "models.exploration",
                    "models.dep", "models.bspline_traj",
                    "models.time_optimizer", "models.traj_divider",
-                   "utils.grid")
+                   "utils.grid", "entry", "utils.yaml_config",
+                   "benchmark.roofline", "benchmark.stage_profile",
+                   "benchmark.viz", "benchmark.demo",
+                   "benchmark.oracle_loop", "benchmark.native_loop",
+                   "oracle.native", "oracle.osqp_ref")
 
 torch.set_num_threads(1)
 
@@ -81,7 +85,10 @@ def test_importing_port_loads_no_jax():
 
 
 def _entry_calls(tmp_path):
-    from intent_mpc_torch.benchmark import harness, real_loop, ref_modes
+    from intent_mpc_torch import entry
+    from intent_mpc_torch.benchmark import (demo, harness, oracle_loop,
+                                            real_loop, ref_modes, roofline,
+                                            stage_profile)
     from intent_mpc_torch.engine import checkpoint, closed_loop as cl
     from intent_mpc_torch.models.world import (load_ref_traj,
                                                straight_line_ref_traj)
@@ -107,6 +114,13 @@ def _entry_calls(tmp_path):
                                              str(tmp_path / "rl")]),
         "ref_modes": lambda: ref_modes.run(ref_modes.parse_args(
             ["--seeds", "0", "--out", str(tmp_path / "rm")])),
+        "entry": lambda: entry.entry(),
+        "stage_profile": lambda: stage_profile.profile_stages(cfg, 1, 1, 1),
+        "roofline": lambda: roofline.analyze(cfg, 1, 1),
+        "demo": lambda: demo.run_demo(out=str(tmp_path / "demo")),
+        "oracle_loop": lambda: oracle_loop.main(
+            ["--seeds", "0", "--out", str(tmp_path / "ol")]),
+        "run_divergence": lambda: oracle_loop.run_divergence(cfg, 0, None),
     }
 
 
@@ -114,7 +128,9 @@ def _entry_calls(tmp_path):
                                    "stack_scenarios", "batch_rollout",
                                    "run_trials", "run_trials_checkpointed",
                                    "load_checkpoint", "load_ref_traj",
-                                   "real_loop", "ref_modes"])
+                                   "real_loop", "ref_modes", "entry",
+                                   "stage_profile", "roofline", "demo",
+                                   "oracle_loop", "run_divergence"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a device argument an entry point runs on CUDA; with no CUDA
     device it raises instead of falling back to the CPU (before it reads

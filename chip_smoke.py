@@ -176,6 +176,29 @@ Phases (each prints one line; any failure raises and exits non-zero):
                ORACLE_TOL), no kernel launches, host round-trip ms per
                cycle; benchmark/demo.run_demo(seed=0) for 2 s of the
                production world (summarize's keys, finite values)
+ 30. fleet     the torch.distributed fleet (parallel/sharding.py) at world
+               size 1 over NCCL in this process: batch_rollout with the
+               mesh at 128 scenarios for 8 cycles on the default path
+               (ew_chain exactly 800 launches) and the fused path
+               (fleet_admm exactly 8), per-scenario metrics and aggregate
+               bit-equal to the one-device batch_rollout of the same
+               seeds, the collective inventory of the same program under
+               torch.profiler exactly {"all-reduce": 2}, 32 bytes
+ 31. dryrun_multichip entry.dryrun_multichip(1) over NCCL in a process of
+               its own: the toy flight reaches the goal in every episode,
+               and the inventories of the toy, the production base
+               program, goal mode "global" and the real detector are each
+               the two all-reduces
+ 32. scaling   benchmark/scaling.run_study at world 1 (JAX's protocol: 4
+               scenarios per device, 5 cycles, 8 obstacles, 30
+               iterations): solves/s and the inventory
+ 33. solver_knobs the TPU-tuned solver options (Woodbury candidates, block
+               and folded refinement, the bf16 factor, two-phase
+               refinement) on the production config at 32 scenarios for 6
+               cycles: ms per cycle, exact launches (ew_chain 100 per
+               cycle but 0 under Woodbury and two phases), rejected
+               solves, primal residuals; each on the small config, card
+               against CPU (KNOB_TOL)
  29. modules   neither jax nor the JAX package was imported
 Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
@@ -358,15 +381,21 @@ def reset_launch_counts():
 
 
 def expected_launches(cfg, cycles):
-    """Launches of each kernel in `cycles` cycles of cfg's solve path (the
-    flat iteration, which runs on the shared factor of the predictor
-    path, launches no ew_chain)."""
+    """Launches of each kernel in `cycles` cycles of cfg's solve path. On
+    the shared factor of the predictor path the flat iteration (unless
+    the refinement is by blocks or folded), the Woodbury x-update and the
+    two-phase refinement take no ew_chain (JAX's dispatch; truncation
+    runs one phase)."""
     sv = cfg.planner.solver
     if sv.fused_solve:
         return {"ew_chain": 0, "fleet_admm": cycles, "dense_loop": 0}
-    flat = (sv.flat_iter and sv.shared_factor and cfg.engine.use_predictor
-            and sv.truncation != "osqp")
-    return {"ew_chain": 0 if flat else cycles * sv.max_iter,
+    shared = sv.shared_factor and cfg.engine.use_predictor
+    osqp = sv.truncation == "osqp"
+    grouped = shared and (sv.woodbury_candidates or (
+        not osqp and int(sv.max_iter * sv.shared_refine_warm_frac) > 0))
+    flat = (shared and sv.flat_iter and not osqp and not sv.block_refine
+            and not sv.folded_refine)
+    return {"ew_chain": 0 if grouped or flat else cycles * sv.max_iter,
             "fleet_admm": 0, "dense_loop": 0}
 
 
@@ -2345,6 +2374,128 @@ ORACLE_TOL = 1.0
 DEMO_TIMEOUT = 2.0
 
 
+# the TPU-tuned solver options (ROADMAP queue 1 item 6) as SolverConfig
+# fields; the phase runs each on the production config and on the small
+# one, card against CPU
+KNOBS = (("woodbury_candidates", dict(woodbury_candidates=True)),
+         ("block_refine", dict(block_refine=True)),
+         ("folded_refine", dict(folded_refine=True)),
+         ("minv_bf16", dict(minv_dtype="bf16")),
+         ("warm_frac", dict(shared_refine_warm_frac=0.5)))
+# card against CPU on the small config (m): 1e-4 as the other options; the
+# Woodbury x-update has no refinement step, so each device's float32
+# factor rounding reaches x directly (tests/test_torch_solver_knobs.py,
+# JAX against the port: 3.0e-4), and the bf16 preconditioner makes the
+# iteration unstable (the JAX package's measured negative)
+KNOB_TOL = {"woodbury_candidates": 1e-3, "block_refine": 1e-4,
+            "folded_refine": 1e-4, "minv_bf16": 1e-3, "warm_frac": 1e-4}
+
+
+def check_solver_knobs(cfg, S, cycles, dev):
+    """Each TPU-tuned solver option on cfg's default path from a fresh
+    carry (run_path): ms per cycle, the exact kernel launches
+    (expected_launches: ew_chain 100 per cycle under block, folded and
+    bf16, 0 under Woodbury and the two phases), rejected solves and the
+    primal residual (mean and largest of the executed candidates). The
+    bf16 factor's residuals may be non-finite (its measured negative);
+    the others keep every metric finite."""
+    lines = []
+    for name, kw in KNOBS:
+        c = with_solver(cfg, **kw)
+        out, carry, _, _ = run_path(c, S, cycles, dev)
+        check(name == "minv_bf16" or not out["non_finite_metrics"],
+              (name, out["non_finite_metrics"]))
+        exp = expected_launches(c, cycles)
+        check(out["launches"] == exp, (name, "launches", out["launches"],
+                                       exp))
+        m = carry.metrics
+        out.update(
+            option=name, ew_chain_launches=out["launches"]["ew_chain"],
+            launches_per_cycle={k: v / cycles
+                                for k, v in out["launches"].items()},
+            rejected_solves=int((m.solve_attempts
+                                 - m.solve_successes).sum()),
+            prim_res_mean=float(m.prim_res_sum.sum()
+                                / m.solve_attempts.sum()),
+            prim_res_max=float(m.prim_res_max.max()),
+            fac_minv_dtype=str(carry.planner.fac_minv.dtype))
+        lines.append(out)
+    return lines
+
+
+def check_knobs_small(dev):
+    """Each solver option on the small config for 4 cycles of 2
+    scenarios, card against CPU: positions within KNOB_TOL, equal solve
+    counts, finite carries."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import run_loop
+    from intent_mpc_torch.entry import tiny_config
+    lines = []
+    for name, kw in KNOBS:
+        c = with_solver(tiny_config(), **kw)
+        cc, _, pg = run_loop(c, 2, 4, dev)
+        cc_cpu, _, pc = run_loop(c, 2, 4, "cpu")
+        diffs = [float((a - b).abs().max()) for a, b in zip(pg, pc)]
+        check(nan_max(diffs) <= KNOB_TOL[name], (name, diffs))
+        check(finite_carry(cc) and finite_carry(cc_cpu), "non-finite carry")
+        check(torch.equal(cc.metrics.solve_successes.cpu(),
+                          cc_cpu.metrics.solve_successes),
+              ("solve counts differ", name))
+        lines.append(dict(config="small", solve=name, scenarios=2, cycles=4,
+                          max_pos_diff_per_cycle=diffs, held_cycles=4,
+                          tol=KNOB_TOL[name]))
+    return lines
+
+
+def check_fleet(cfg, S, cycles, fleet):
+    """The fleet's main path at world size fleet.world: batch_rollout with
+    the mesh on the default and the fused path, S scenarios, `cycles`
+    cycles, against the one-device batch_rollout of the same seeds in
+    this process (per-scenario metrics and the aggregate bit-equal), the
+    kernel launches of the fleet run (expected_launches), and the
+    collective inventory of the same program over 2 cycles: exactly two
+    all-reduces, 32 bytes."""
+    import time
+    import torch
+    import torch.distributed as dist
+    from intent_mpc_torch.benchmark.capture import fused
+    from intent_mpc_torch.models.world import straight_line_ref_traj
+    from intent_mpc_torch.parallel import sharding as sh
+    dev = fleet.device
+    lines = []
+    for solve, c in (("default", cfg), ("fused", fused(cfg))):
+        scen = sh.stack_scenarios_global(c, range(S), fleet)
+        ref = straight_line_ref_traj(c.start, c.goal, spacing=2.5,
+                                     device=dev)
+        L = ref.shape[0]
+        sh.batch_rollout(c, scen, ref, L, num_cycles=1, device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m, agg = sh.batch_rollout(c, scen, ref, L, mesh=fleet,
+                                  num_cycles=cycles)
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        check(launches == expected_launches(c, cycles),
+              ("fleet launches", solve, launches))
+        m1, agg1 = sh.batch_rollout(c, scen, ref, L, num_cycles=cycles,
+                                    device=dev)
+        same = [f for f, a, b in zip(m._fields, m, m1)
+                if not torch.equal(a, b)]
+        check(not same and agg == agg1, ("fleet differs from the one-device"
+                                         " rollout", solve, same, agg, agg1))
+        rep = sh.collective_report(c, scen, ref, L, fleet, num_cycles=2)
+        check(rep["counts"] == {"all-reduce": 2}
+              and rep["total_bytes"] == 32, ("fleet inventory", rep))
+        lines.append(dict(
+            solve=solve, scenarios=S, cycles=cycles, world=fleet.world,
+            backend=dist.get_backend(), device=str(dev), launches=launches,
+            cycle_ms=secs / cycles * 1e3, bit_equal=True, aggregate=agg,
+            collectives=rep["counts"], collective_bytes=rep["total_bytes"],
+            collective_ops=rep["ops"]))
+    return lines
+
+
 def check_entry(dev):
     """entry()'s cycle on the card against entry("cpu"), held to 1e-4 m
     and m/s; exactly SOLVER_ITERS ew_chain launches."""
@@ -2838,6 +2989,37 @@ def main():
     phase("tools_phases", seconds=time.perf_counter() - t_tools,
           launches=tool_launches)
 
+    # ---- 30-33. the fleet over torch.distributed: its main path at world
+    # size 1 over NCCL (the one card; NCCL refuses two ranks of one
+    # communicator on one GPU), the multi-device dry run and the scaling
+    # study in processes of their own; the TPU-tuned solver options ----
+    from intent_mpc_torch import entry as port_entry
+    from intent_mpc_torch.benchmark import scaling
+    from intent_mpc_torch.parallel import launch
+    from intent_mpc_torch.parallel import sharding as sh
+    t_fleet = time.perf_counter()
+    sh.init_distributed("tcp://127.0.0.1:%d" % launch.free_port(), 1, 0,
+                        backend="nccl")
+    try:
+        fleet_lines = check_fleet(cfg, 128, 8, sh.make_mesh(1))
+    finally:
+        torch.distributed.destroy_process_group()
+    for line in fleet_lines:
+        phase("fleet", nvidia_smi=smi, **line)
+    fleet_runs = {line["solve"]: line for line in fleet_lines}
+    t0 = time.perf_counter()
+    dry = port_entry.dryrun_multichip(1, backend="nccl")
+    phase("dryrun_multichip", seconds=time.perf_counter() - t0,
+          nvidia_smi=smi, **dry)
+    rows, rep = scaling.run_study([1], backend="nccl")
+    phase("scaling", nvidia_smi=smi, rows=rows, **rep)
+    knobs = check_solver_knobs(cfg, 32, 6, dev)
+    for line in knobs:
+        phase("solver_knobs", nvidia_smi=smi, **line)
+    for line in check_knobs_small(dev):
+        phase("card_vs_cpu", **line)
+    phase("fleet_phases", seconds=time.perf_counter() - t_fleet)
+
     # ---- 29. clean modules ----
     dirty = [m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
@@ -2866,6 +3048,10 @@ def main():
                 tools["stage_profile"]["launches"]["ew_chain"],
             "tools_oracle_loop_2": tools["oracle"]["launches"]["ew_chain"],
             "tools_demo_1": tools["demo"]["launches"]["ew_chain"],
+            "fleet_nccl_world1_128":
+                fleet_runs["default"]["launches"]["ew_chain"],
+            **{"solver_knob_%s_32" % k["option"]: k["launches"]["ew_chain"]
+               for k in knobs},
             **{"%s_32" % o["option"]: o["launches"]["ew_chain"]
                for o in options if o["solve"] == "default"}},
         "max_abs_err": max_err,
@@ -2888,6 +3074,8 @@ def main():
             "mapping_perception_fusion_32": map_launches["fleet_admm"],
             "exploration_32": exp_launches["fleet_admm"],
             "tools": tool_launches["fleet_admm"],
+            "fleet_nccl_world1_fused_128":
+                fleet_runs["fused"]["launches"]["fleet_admm"],
             **{"%s_fused_32" % o["option"]: o["launches"]["fleet_admm"]
                for o in options if o["solve"] == "fused"}},
         "max_abs_err": fleet[128]["max_abs_err"],

@@ -21,15 +21,17 @@ Not carried over from the JAX harness, on purpose:
     host loop and has no per-program envelope, so `chunk_cycles` is only
     the checkpoint period of run_trials_checkpointed;
   * XLA tiling-cliff padding of the batch (GOOD_BATCH_SIZES,
-    padded_batch_size);
-  * the multi-device `mesh` branch (multi-GPU is not ported yet).
+    padded_batch_size).
+With a fleet (`mesh`, parallel/sharding.py: one process per GPU under
+torch.distributed) each rank runs the trials of its own block of seeds
+and returns their rows; run_trials says how the ranks' rows merge.
 Every flag of the JAX CLI that the port keeps runs: the rigid-body
 plant (--plant quadrotor), the goal-approach relaxation (--goal-relax),
 the stale predictor history (--predictor-stale), the drift-aware factor
 refresh (--drift-refresh), the flat iteration (--flat-iter), stationary
 refinement (--refine-mode stationary), --truncation osqp and
---per-candidate-factor. A config that names an option the port does not
-run yet raises NotImplementedError before any scenario is built.
+--per-candidate-factor; every solver option of the config runs. A config
+value that names no mode raises ValueError before any scenario is built.
 """
 
 from __future__ import annotations
@@ -48,40 +50,74 @@ from intent_mpc_torch.engine import checkpoint as ckpt
 from intent_mpc_torch.engine import closed_loop as cl
 from intent_mpc_torch.models.occupancy import empty_grid
 from intent_mpc_torch.models.world import straight_line_ref_traj
-from intent_mpc_torch.ops import admm as admmlib
 from intent_mpc_torch.parallel import sharding as sh
 from intent_mpc_torch.utils.config import IntentMPCConfig
 from intent_mpc_torch.utils.device import resolve_device
 
 
 def run_trials(cfg: IntentMPCConfig, seeds: Sequence[int],
+               mesh: Optional[sh.Fleet] = None,
                solver_iters: Optional[int] = None,
                num_cycles: Optional[int] = None,
                device=None) -> List[dict]:
     """Run one trial per seed, batched on `device` (the GPU by default);
-    returns per-trial rows."""
-    dev = resolve_device(device)
+    returns per-trial rows.
+
+    With `mesh` (a parallel/sharding.Fleet, one process per device) each
+    rank runs the rows of its own contiguous block of the seeds on its
+    device (sharding.stack_scenarios_global; the fleet statistics are
+    reduced as batch_rollout does) and returns only those rows, with
+    trial_id the seed's index in `seeds`. The rows go through no
+    collective: a caller merges the fleet's rows by concatenating the
+    ranks' lists in rank order, which gives the rows of the one-process
+    run's order."""
     seeds = list(seeds)
+    first = 0
+    if mesh is not None:
+        dev = mesh.device
+        block = sh.rank_block(len(seeds), mesh)
+        scenarios = sh.stack_scenarios_global(cfg, seeds, mesh)
+        seeds, first = seeds[block], block.start
+    else:
+        dev = resolve_device(device)
+        scenarios = sh.stack_scenarios(cfg, seeds, device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5,
                                  device=dev)
-    scenarios = sh.stack_scenarios(cfg, seeds, device=dev)
     metrics, _ = sh.batch_rollout(cfg, scenarios, ref, ref.shape[0],
-                                  solver_iters=solver_iters,
+                                  mesh=mesh, solver_iters=solver_iters,
                                   num_cycles=num_cycles, device=dev)
-    return rows_from_metrics(cfg, seeds, metrics)
+    return rows_from_metrics(cfg, seeds, metrics, first_id=first)
+
+
+def rank_checkpoint_path(path: str, mesh: sh.Fleet) -> str:
+    """The file of one rank's checkpoint: `path` with .rank<r>of<w>
+    before its .npz."""
+    base = ckpt.npz_path(path)[:-len(".npz")]
+    return "%s.rank%dof%d.npz" % (base, mesh.rank, mesh.world)
 
 
 def run_trials_checkpointed(cfg: IntentMPCConfig, seeds: Sequence[int],
                             checkpoint_path: str, chunk_cycles: int = 50,
                             solver_iters: Optional[int] = None,
-                            device=None) -> List[dict]:
+                            device=None,
+                            mesh: Optional[sh.Fleet] = None) -> List[dict]:
     """run_trials with periodic fleet checkpointing (engine/checkpoint.py):
     the whole batched carry snapshots every `chunk_cycles` MPC cycles, and
     a pre-existing checkpoint at `checkpoint_path` resumes bit-exactly.
     Survives preemption mid-run. The cycles run the same operations as
-    run_trials, so the rows equal its rows."""
-    dev = resolve_device(device)
+    run_trials, so the rows equal its rows. With `mesh` each rank runs
+    its own block of the seeds, as run_trials does, and snapshots its own
+    carry to rank_checkpoint_path(checkpoint_path, mesh); the rows merge
+    as run_trials' do."""
     seeds = list(seeds)
+    first = 0
+    if mesh is not None:
+        dev = mesh.device
+        block = sh.rank_block(len(seeds), mesh)
+        seeds, first = seeds[block], block.start
+        checkpoint_path = rank_checkpoint_path(checkpoint_path, mesh)
+    else:
+        dev = resolve_device(device)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5,
                                  device=dev)
     total = cfg.engine.num_cycles
@@ -103,13 +139,14 @@ def run_trials_checkpointed(cfg: IntentMPCConfig, seeds: Sequence[int],
                                        carry, i, solver_iters)
         start += n
         ckpt.save_checkpoint(checkpoint_path, carry, start, seeds)
-    return rows_from_metrics(cfg, seeds, carry.metrics)
+    return rows_from_metrics(cfg, seeds, carry.metrics, first_id=first)
 
 
 def rows_from_metrics(cfg: IntentMPCConfig, seeds: Sequence[int],
-                      metrics: cl.Metrics) -> List[dict]:
+                      metrics: cl.Metrics, first_id: int = 0) -> List[dict]:
     """Per-trial rows, key for key and expression for expression the JAX
-    harness's _rows_from_metrics (numpy on the host)."""
+    harness's _rows_from_metrics (numpy on the host); trial_id counts
+    from first_id (a fleet rank's first seed index)."""
     rows = []
     m = cl.Metrics(*(a.detach().cpu().numpy() for a in metrics))
     straight = float(np.linalg.norm(np.asarray(cfg.goal)
@@ -119,7 +156,7 @@ def rows_from_metrics(cfg: IntentMPCConfig, seeds: Sequence[int],
         pl = float(m.path_length[i])
         nj = max(int(m.jerk_samples[i]), 1)
         rows.append({
-            "trial_id": i,
+            "trial_id": first_id + i,
             "seed": int(seed),
             "num_obstacles": cfg.world.num_obstacles,
             "dynamic_ratio": cfg.world.dynamic_ratio,
@@ -316,11 +353,8 @@ def config_from_args(args: argparse.Namespace) -> IntentMPCConfig:
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg = config_from_args(args)
-    # Refuse unported options before any work. The fused solve ignores
-    # the options only admm_solve reads; a flag that asks for one is
-    # refused on that path too, not dropped.
+    # refuse an option value that names no mode before any work
     cl.check_supported(cfg)
-    admmlib.check_supported(cfg.planner.solver, fused=False)
     dev = resolve_device(args.device)
 
     t0 = time.time()

@@ -76,7 +76,10 @@ def save_checkpoint(path: str, carry: cl.EngineCarry, cycle_idx: int,
     the very event checkpointing exists to survive, cannot truncate the
     previous good checkpoint."""
     leaves = flatten(carry)
-    arrs = {f"leaf_{i}": l.detach().cpu().numpy()
+    # numpy has no bfloat16: such a leaf (a bf16 shared factor) is kept as
+    # its bit pattern and viewed back against the template on load
+    arrs = {f"leaf_{i}": (l.view(torch.int16) if l.dtype == torch.bfloat16
+                          else l).detach().cpu().numpy()
             for i, l in enumerate(leaves)}
     arrs["num_leaves"] = np.asarray(len(leaves))
     arrs["cycle_idx"] = np.asarray(int(cycle_idx))
@@ -113,6 +116,8 @@ def load_checkpoint(path: str, cfg: IntentMPCConfig, device=None,
     leaves = []
     for i, (a, b) in enumerate(zip(arrs, t_leaves)):
         t = torch.from_numpy(a)
+        if b.dtype == torch.bfloat16 and t.dtype == torch.int16:
+            t = t.view(torch.bfloat16)
         if t.shape != b.shape or t.dtype != b.dtype:
             raise ValueError(f"leaf {i}: {tuple(t.shape)} {t.dtype} != "
                              f"expected {tuple(b.shape)} {b.dtype}: "

@@ -89,7 +89,10 @@ def init_planner_state(cfg: PlannerConfig, batch: int,
                                cb=torch.ones((S, W, 5), **kw),
                                obs=torch.ones((S, W, K + 1), **kw)),
             fac_c=torch.ones((S,), **kw),
-            fac_minv=torch.eye(n, **kw).expand(S, n, n).clone())
+            # admm_factor's dtype: bf16 with SolverConfig.minv_dtype "bf16"
+            fac_minv=torch.eye(n, **kw).expand(S, n, n).to(
+                torch.bfloat16 if cfg.solver.minv_dtype == "bf16"
+                else torch.float32).clone())
         if cfg.solver.factor_drift_refresh > 0:
             # zeros force a refresh on the first drift check (the relative
             # drift against an empty snapshot is large)
@@ -463,6 +466,23 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
         # of every scenario; it factors each cycle and carries no factor,
         # so the carried fac_* fields pass through unchanged
         res = fleet_admm(cfg, qps, warm6, max_iter, rho_override=state.rho)
+    elif cfg.solver.shared_factor and cfg.solver.woodbury_candidates:
+        # the candidates differ from their mean QP only in the closest
+        # obstacle's slot and the second-series slot (build_candidates):
+        # factor the mean without those rows, every cycle (no reuse, as in
+        # JAX), and solve each candidate exactly by a Woodbury correction
+        qp_mean = candidate_mean(qps)
+        diff_slots = torch.stack([closest, torch.full_like(
+            closest, pred.pos.shape[1])], dim=-1)                 # (S, 2)
+        act = qp_mean.obs_active                                  # (S, W, K)
+        keep_slot = 1.0 - torch.nn.functional.one_hot(
+            diff_slots, act.shape[-1]).amax(-2).to(act.dtype)     # (S, K)
+        fac = admm_factor(cfg, qp_mean._replace(
+            obs_active=act * keep_slot[:, None, :]),
+            rho_override=state.rho)
+        refreshed = torch.ones((S,), dtype=torch.bool, device=dev)
+        res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
+                         factor=fac, diff_slots=diff_slots)
     elif cfg.solver.shared_factor:
         # one factorization per scenario: the candidate-mean QP with union
         # obstacle activity; each candidate refines against its own M

@@ -18,14 +18,27 @@ Cholesky of the assembled matrix. With a shared Factor (one per scenario), each
 candidate refines against its own normal matrix with preconditioned
 CG-2, warm-started from the previous iteration's x-tilde, or with
 `shared_refine_mode="stationary"` by the recurrence x += Minv (rhs - M x).
+The normal operator of that refinement is the closed-form a_s/at_s round
+trip, or with `block_refine` the candidate's block-tridiagonal blocks
+(block_chol.block_apply), or with `folded_refine` the operator with the
+scalings folded into the constraint data (`make_folded_m_op`). With
+`woodbury_candidates` and the two slots in which the candidates differ
+(`diff_slots`), the x-update is exact instead: a Woodbury correction of
+the shared inverse of the base QP without those rows. `minv_dtype="bf16"`
+stores the shared inverse in bfloat16; every product reads it as float32.
+
 Iterations are a fixed-count Python loop, or with `truncation="osqp"`
 blocks that stop each problem at OSQP 0.6.2's termination test; without a
 factor, `adaptive_rho` runs OSQP's in-solve rho rule with
 refactorization (`_solve_adaptive`); with a factor, `flat_iter` runs the
-loop in flat constraint space (`_solve_flat`). The elementwise tail of
-each iteration is one launch of the CUDA kernel ops/ew_chain.py when
-`ew_kernel` is on, on every one of these loops but the flat one (JAX's
-dispatch order: its flat branch comes before the kernel's).
+loop in flat constraint space (`_solve_flat`); with
+`shared_refine_warm_frac` the first iterations refine
+`shared_refine_warm` times and the rest `shared_refine_iters` times. The
+elementwise tail of each iteration is one launch of the CUDA kernel
+ops/ew_chain.py when `ew_kernel` is on, on every one of these loops but
+the flat one, the Woodbury x-update and the two-phase refinement (JAX's
+dispatch order: its flat branch comes before the kernel's, and its kernel
+branch takes neither a custom x-update nor two phases).
 
 Batching: the QP carries leading axes (..., C). A Factor either has the
 same leading axes (one factor per problem) or one axis fewer (one factor
@@ -45,8 +58,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from intent_mpc_torch.ops import block_chol as bc
 from intent_mpc_torch.ops import qp as qplib
-from intent_mpc_torch.ops.block_chol import structured_minv
 from intent_mpc_torch.ops.dense_loop import (DenseScaledProblem,
                                              admm_iterations_dense,
                                              csr_capacity)
@@ -88,38 +101,17 @@ class Factor(NamedTuple):
 # last reset (one per full block but the last, as _iterate_truncated says)
 HOST_READS = 0
 
-# options that only admm_solve reads: the fleet-fused solve (ops/fleet.py)
-# ignores them, as the JAX planner's fused branch does (mpc.py:419-453)
-_SOLVE_ONLY = ("truncation", "adaptive_rho", "woodbury_candidates",
-               "block_refine", "folded_refine", "flat_iter",
-               "shared_refine_warm_frac", "shared_factor",
-               "shared_refine_mode", "factor_drift_refresh")
-
-
-def check_supported(scfg: SolverConfig, fused: Optional[bool] = None) -> None:
-    """Raise for the solver options this port does not run yet. With
-    `fused` True the options that only admm_solve reads are not checked
-    (the fleet-fused solve and the factor ignore them); by default
-    `fused` is the config's own fused_solve, and admm_solve passes
-    False."""
-    fused = scfg.fused_solve if fused is None else fused
-    if scfg.truncation not in ("fixed", "osqp"):
-        raise ValueError("truncation must be 'fixed' or 'osqp', got %r"
-                         % (scfg.truncation,))
-    unported = {
-        "woodbury_candidates": scfg.woodbury_candidates,
-        "block_refine": scfg.block_refine,
-        "folded_refine": scfg.folded_refine,
-        "minv_dtype": scfg.minv_dtype != "f32",
-        "shared_refine_warm_frac": scfg.shared_refine_warm_frac != 0.0,
-        "shared_refine_mode": scfg.shared_refine_mode not in ("cg",
-                                                             "stationary"),
-    }
-    bad = [k for k, v in unported.items()
-           if v and not (fused and k in _SOLVE_ONLY)]
-    if bad:
-        raise NotImplementedError(
-            "solver options not ported: %s" % ", ".join(bad))
+def check_supported(scfg: SolverConfig) -> None:
+    """Raise ValueError for a solver option value that names no mode:
+    every option of SolverConfig runs in this port."""
+    for name, value, allowed in (
+            ("truncation", scfg.truncation, ("fixed", "osqp")),
+            ("shared_refine_mode", scfg.shared_refine_mode,
+             ("cg", "stationary")),
+            ("minv_dtype", scfg.minv_dtype, ("f32", "bf16"))):
+        if value not in allowed:
+            raise ValueError("%s must be one of %s, got %r"
+                             % (name, ", ".join(map(repr, allowed)), value))
 
 
 def _ones_like_constraints(cfg: PlannerConfig, qp: QPData) -> ConVec:
@@ -184,8 +176,7 @@ def admm_factor(cfg: PlannerConfig, qp: QPData,
     """Scaling + explicit normal-matrix inverse of one (representative)
     QP per batch entry, for reuse via admm_solve(factor=...)."""
     scfg = scfg or cfg.solver
-    # both solves use this factor: check only what they share
-    check_supported(scfg, fused=True)
+    check_supported(scfg)
     hdiag = qplib.hessian_diag(cfg, qp.q.device)
     D, E, c = ruiz_equilibrate(cfg, qp, hdiag, scfg.scaling_iters)
     h_s = c[..., None] * D * D * hdiag
@@ -193,6 +184,10 @@ def admm_factor(cfg: PlannerConfig, qp: QPData,
     rho = qplib.rho_vec(cfg, qp, rho_base, scfg.rho_eq_scale)
     rho_inner = rho.map(lambda r, e: r * e * e, E)
     Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
+    if scfg.minv_dtype == "bf16":
+        # storage only: every product reads it back as float32 (exact),
+        # as JAX's bf16 x f32 matmul promotes
+        Minv = Minv.to(torch.bfloat16)
     return Factor(D=D, E=E, c=c, Minv=Minv)
 
 
@@ -203,7 +198,7 @@ def _explicit_minv(cfg: PlannerConfig, qp: QPData, h_s, scfg: SolverConfig,
     Cholesky of the assembled matrix (`structured_factor=False`; a caller
     that has assembled it already passes it as M)."""
     if scfg.structured_factor:
-        return structured_minv(cfg, qp, h_s, scfg.sigma, rho_inner, D)
+        return bc.structured_minv(cfg, qp, h_s, scfg.sigma, rho_inner, D)
     if M is None:
         M = qplib.assemble_normal_matrix(cfg, qp, h_s, scfg.sigma, rho_inner,
                                          col_scale=D)
@@ -219,13 +214,149 @@ def _vdot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def make_folded_m_op(cfg: PlannerConfig, qp: QPData, h_s, sigma: float,
+                     rho_inner: ConVec, D):
+    """The scaled normal matrix M = H_s + sigma I + (DA)^T E^2 rho (AD) as
+    an apply with the D/E/rho scalings and activity masks folded into the
+    constraint data once per solve (SolverConfig.folded_refine, JAX
+    admm.py:79-167): each row r contributes (e_r^T v) e_r with e_r =
+    sqrt(rho_r) E_r (row_r . D). The bound rows fold into one diagonal;
+    the dynamics rows stay in closed-form shift form; the obstacle rows go
+    through one pre-scaled gradient tensor. Leading axes broadcast (a
+    shared factor's D (..., 1, n) against the candidates' QP)."""
+    H, W = cfg.horizon, cfg.mpc_window
+    NXc, NUc = qplib.NX, qplib.NU
+    ts = cfg.ts
+    Dx = D[..., :NXc * H].unflatten(-1, (H, NXc))
+    Du = D[..., NXc * H:].unflatten(-1, (W, NUc))
+    se = rho_inner.map(torch.sqrt)           # sqrt(rho) E per row
+    diag = h_s + sigma + qplib.merge_z((se.sb * Dx) ** 2, (se.cb * Du) ** 2)
+    re_eq = rho_inner.eq                                         # (..., H, 8)
+    eo = se.obs * qp.obs_active                                  # (..., W, K)
+    Gh = qp.G * eo[..., None]                                    # (..., W, K, 3)
+    sl = eo * qp.obs_slack
+    sd = sl * qp.obs_dyn
+    ss = sl * (1.0 - qp.obs_dyn)
+
+    def m_op(v):
+        X = Dx * v[..., :NXc * H].unflatten(-1, (H, NXc))
+        U = Du * v[..., NXc * H:].unflatten(-1, (W, NUc))
+        p, vl, dd = X[..., 0:3], X[..., 3:6], X[..., 6:8]
+        a, s = U[..., 0:3], U[..., 3:5]
+        # dynamics rows weighted by rho E^2, then their transpose; the
+        # zero rows keep JAX's order of the scatter-adds
+        nxt_p = p[..., :-1, :] + ts * vl[..., :-1, :] + 0.5 * ts * ts * a \
+            - p[..., 1:, :]
+        nxt_v = vl[..., :-1, :] + ts * a - vl[..., 1:, :]
+        nxt_d = s - dd[..., 1:, :]
+        eq = torch.cat([-X[..., 0:1, :],
+                        torch.cat([nxt_p, nxt_v, nxt_d], dim=-1)], dim=-2)
+        w_eq = re_eq * eq
+        wn = w_eq[..., 1:, :]                                    # (..., W, 8)
+        zrow = torch.zeros_like(w_eq[..., :1, :])
+        atw = torch.cat([wn[..., 0:3], ts * wn[..., 0:3] + wn[..., 3:6],
+                         torch.zeros_like(wn[..., 6:8])], dim=-1)
+        yX = torch.cat([-w_eq[..., 0:1, :], torch.zeros_like(wn)], dim=-2)
+        yX = yX + torch.cat([atw, zrow], dim=-2)
+        yX = yX + torch.cat([zrow, -wn], dim=-2)
+        yU = torch.cat([0.5 * ts * ts * wn[..., 0:3] + ts * wn[..., 3:6],
+                        wn[..., 6:8]], dim=-1)
+        # obstacle rows through the pre-scaled gradient tensor
+        r = qplib._wd(Gh, p[..., :-1, :]) - sd * s[..., 0:1] \
+            - ss * s[..., 1:2]
+        g = qplib._dw(r, Gh)                                     # (..., W, 3)
+        yX = yX + torch.cat([torch.cat([g, torch.zeros_like(wn[..., 3:8])],
+                                       dim=-1), zrow], dim=-2)
+        yU = yU + torch.cat([torch.zeros_like(g),
+                             -torch.sum(r * sd, dim=-1)[..., None],
+                             -torch.sum(r * ss, dim=-1)[..., None]], dim=-1)
+        return diag * v + qplib.merge_z(Dx * yX, Du * yU)
+
+    return m_op
+
+
+def _take_slots(a: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """a (..., W, K) at the obstacle slots (..., J): (..., W, J), the
+    leading axes of both broadcast."""
+    lead = torch.broadcast_shapes(a.shape[:-2], slots.shape[:-1])
+    idx = slots[..., None, :].expand(lead + (a.shape[-2], slots.shape[-1]))
+    return torch.gather(a.expand(lead + a.shape[-2:]), -1, idx)
+
+
+def _slot_columns(cfg: PlannerConfig, qp: QPData, rho_obs: torch.Tensor,
+                  D: torch.Tensor, E_obs: torch.Tensor,
+                  slots: torch.Tensor) -> torch.Tensor:
+    """The scaled sqrt(rho)-weighted rows of the obstacle rows in `slots`
+    (..., J), as U^T (..., 2 J W, n), JAX admm.py:282-326. An obstacle row
+    of dynamic-slack mix d adds rho a a^T to the scaled normal matrix,
+    split into two rank-1 terms sqrt(rho d) [g ; -1 at u_w[3]] and
+    sqrt(rho (1 - d)) [g ; -1 at u_w[4]] (scaled by E and D); inactive
+    rows give zero rows. Row order is JAX's column order: step-major, the
+    u[3] terms of the J slots, then the u[4] terms."""
+    H, W = cfg.horizon, cfg.mpc_window
+    n = cfg.num_vars
+    J = slots.shape[-1]
+    dev = qp.G.device
+    Es = _take_slots(E_obs, slots)                               # (..., W, J)
+    rho_s = _take_slots(rho_obs, slots) * _take_slots(qp.obs_active, slots)
+    dyn = _take_slots(qp.obs_dyn, slots)
+    slk = _take_slots(qp.obs_slack, slots)
+    G = torch.stack([_take_slots(qp.G[..., d], slots) for d in range(3)],
+                    dim=-1)                                      # (..., W, J, 3)
+    wi = torch.arange(W, device=dev)
+    ji = torch.arange(J, device=dev)
+    xcols = qplib.NX * wi[:, None] + torch.arange(3, device=dev)  # (W, 3)
+    u3 = qplib.NX * H + qplib.NU * wi + 3
+    gv = Es[..., None] * G * D[..., xcols][..., :, None, :]      # (..., W, J, 3)
+    lead = torch.broadcast_shapes(gv.shape[:-3], rho_s.shape[:-2],
+                                  D.shape[:-1])
+
+    def side(ucol, weight):
+        base = torch.zeros(lead + (W, J, n), dtype=G.dtype, device=dev)
+        base[..., wi[:, None, None], ji[None, :, None],
+             xcols[:, None, :]] = gv
+        sv = -Es * slk * D[..., ucol][..., :, None]              # (..., W, J)
+        base[..., wi[:, None], ji[None, :], ucol[:, None]] = sv
+        w = torch.sqrt(torch.clamp(rho_s * weight, min=0.0))
+        return base * w[..., None]
+
+    rows = torch.cat([side(u3, dyn), side(u3 + 1, 1.0 - dyn)], dim=-2)
+    return rows.reshape(lead + (2 * J * W, n))
+
+
+def _woodbury_msolve(cfg: PlannerConfig, qp: QPData, rho: ConVec, D, E,
+                     Minv: torch.Tensor, minv_mv, diff_slots: torch.Tensor,
+                     shared: bool):
+    """The exact x-update of each candidate (JAX admm.py:509-541): the
+    shared factor inverts the base QP without the rows of `diff_slots`,
+    so the candidate's normal matrix is M_base + U U^T with U its scaled
+    rows of those slots (_slot_columns), and M_cand^{-1} v = Minv v -
+    T (U^T Minv v), T = Minv U C^{-1}, C = I + U^T Minv U (SPD: a small
+    Cholesky per candidate, batched). Returns msolve(rhs, x_init)."""
+    Ut = _slot_columns(cfg, qp, rho.obs, D, E.obs, diff_slots)  # (..., k2, n)
+    k2 = Ut.shape[-2]
+    M = Minv.unsqueeze(-3) if shared else Minv
+    Wu = torch.matmul(M, Ut.mT)                                  # (..., n, k2)
+    eye = torch.eye(k2, dtype=Ut.dtype, device=Ut.device)
+    C = eye + torch.matmul(Ut, Wu)
+    Lc, _ = torch.linalg.cholesky_ex(C)
+    Lci = torch.linalg.solve_triangular(Lc, eye.expand_as(Lc), upper=False)
+    T = torch.matmul(Wu, torch.matmul(Lci.mT, Lci))
+
+    def msolve(rhs, x_init):
+        v = minv_mv(rhs)
+        return v - torch.matmul(T, torch.matmul(Ut, v[..., None]))[..., 0]
+    return msolve
+
+
 def admm_solve(cfg: PlannerConfig, qp: QPData,
                x0: Optional[torch.Tensor] = None,
                max_iter: Optional[int] = None,
                scfg: Optional[SolverConfig] = None,
                feas_tol: float = 5e-2,
                rho_override=None,
-               factor: Optional[Factor] = None) -> ADMMResult:
+               factor: Optional[Factor] = None,
+               diff_slots: Optional[torch.Tensor] = None) -> ADMMResult:
     """Solve a batch of QPs (leading axes of `qp`).
 
     rho_override: base penalty replacing scfg.rho (a float or a tensor
@@ -233,15 +364,26 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     factor: a Factor from admm_factor. Skips this QP's Ruiz scaling and
     factorization; the factor's Minv preconditions `shared_refine_iters`
     steps of refinement against THIS QP's normal matrix, applied in
-    closed form.
+    closed form (or through its blocks with `block_refine`, or folded
+    with `folded_refine`).
+    diff_slots: (..., 2) the obstacle slots in which the candidates differ
+    from the factored base QP, with the factor's leading axes; with
+    `woodbury_candidates` and a factor the x-update is the exact Woodbury
+    solve (no refinement).
 
-    Without a factor and with `adaptive_rho`, the solve is
-    `_solve_adaptive` (OSQP's in-solve rho rule). Otherwise
+    The paths, in JAX's order of precedence: without a factor and with
+    `adaptive_rho`, `_solve_adaptive` (OSQP's in-solve rho rule);
     `truncation="osqp"` stops each problem at OSQP's termination test
-    (`_iterate_truncated`) and "fixed" runs exactly max_iter iterations.
+    (`_iterate_truncated`); with a factor, `flat_iter` runs `_solve_flat`
+    unless the x-update is Woodbury's, the refinement is by blocks or
+    folded, or the refinement has two phases; then exactly max_iter
+    iterations with the ew_chain tail (`ew_kernel`, neither a Woodbury
+    x-update nor two phases) or the grouped tail, the first
+    int(max_iter * shared_refine_warm_frac) of them with
+    `shared_refine_warm` refinement steps.
     """
     scfg = scfg or cfg.solver
-    check_supported(scfg, fused=False)
+    check_supported(scfg)
     dev = qp.q.device
     n = cfg.num_vars
     nb = qp.q.dim() - 1
@@ -258,6 +400,8 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
             D = D.unsqueeze(-2)
             E = E.map(lambda e: e.unsqueeze(-3))
             c = c.unsqueeze(-1)
+            if diff_slots is not None:
+                diff_slots = diff_slots.unsqueeze(-2)
     h_s = c[..., None] * D * D * hdiag
     q_s = c[..., None] * D * qp.q
     l_s = qp.l.scale(E)
@@ -290,12 +434,18 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
                                xs, zs, ys, iters, rho_base, D, E, unscale,
                                feas_tol)
 
+    tiny = 1e-30     # CG's guard, in the factor's dtype as in JAX
     if factor is None:
         rho_inner = rho.map(lambda r, e: r * e * e, E)
         Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
         refine = scfg.refine_iters
     else:
         Minv = factor.Minv
+        if Minv.dtype != torch.float32:
+            # a bf16 factor: float32 products, as JAX's bf16 x f32 matmul
+            # promotes (the conversion is exact)
+            tiny = float(torch.tensor(tiny, dtype=Minv.dtype))
+            Minv = Minv.to(torch.float32)
         refine = scfg.shared_refine_iters
 
     if shared:
@@ -305,60 +455,99 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
         def minv_mv(v):
             return torch.matmul(Minv, v[..., None])[..., 0]
 
+    m_op = m_apply   # the refinement's normal operator
+    custom = None    # an x-update that replaces the refinement
+    if factor is not None:
+        if diff_slots is not None and scfg.woodbury_candidates:
+            custom = _woodbury_msolve(cfg, qp, rho, D, E, Minv, minv_mv,
+                                      diff_slots, shared)
+        elif scfg.block_refine:
+            Dblk, Eblk = bc.build_blocks(cfg, qp, h_s, sigma, rho.map(
+                lambda r, e: r * e * e, E), D)
+            perm = bc.flat_to_block_perm(cfg, dev)
+
+            def m_op(v):
+                return bc.block_apply(Dblk, Eblk, perm, v)
+        elif scfg.folded_refine:
+            m_op = make_folded_m_op(cfg, qp, h_s, sigma, rho.map(
+                lambda r, e: r * e * e, E), D)
+
     cg = scfg.shared_refine_mode == "cg"
     warm_x0 = factor is not None and cg and scfg.shared_refine_x0 == "prev"
-    if (factor is not None and scfg.flat_iter
-            and scfg.truncation != "osqp"):
-        # the flat constraint-space iteration: JAX dispatches it before the
-        # elementwise-kernel branch, so this path launches no ew_chain
-        xs, zs, ys = _solve_flat(cfg, qp, scfg, D, E, h_s, q_s, rho, xs,
-                                 iters, minv_mv, refine, cg, warm_x0)
-        return _finish(cfg, qp, hdiag, unscale, xs, zs, ys, rho_base,
-                       feas_tol)
-    msolve = _make_msolve(minv_mv, m_apply, refine, cg)
+    warm = (int(iters * scfg.shared_refine_warm_frac)
+            if factor is not None else 0)
 
-    def x_update(xs, rzy, xt_prev):
-        rhs = sigma * xs - q_s + at_s(rzy)
-        return msolve(rhs, xt_prev if warm_x0 else None)
+    def make_step(refine_k: int, ew: bool):
+        msolve = custom or _make_msolve(minv_mv, m_op, refine_k, cg, tiny)
 
-    # the carry: (x, z, y, previous x-tilde[, rho z - y])
-    if scfg.ew_kernel:
-        # the chain's tail (rho z - y) feeds the next iteration's A^T
-        def step(carry):
-            xs, zs, ys, xt_prev, rzy = carry
-            x_t = x_update(xs, rzy, xt_prev)
-            xs, zs, ys, rzy = ew_chain(alpha, xs, x_t, zs, ys, a_s(x_t), rho,
-                                       l_s, u_s)
-            return xs, zs, ys, x_t, rzy
-        carry = (xs, zs, ys, xs,
-                 zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys))
-    else:
+        def x_update(xs, rzy, xt_prev):
+            rhs = sigma * xs - q_s + at_s(rzy)
+            return msolve(rhs, xt_prev if warm_x0 else None)
+
+        if ew:
+            # the carry (x, z, y, previous x-tilde, rho z - y): the
+            # chain's tail feeds the next iteration's A^T
+            def step(carry):
+                xs, zs, ys, xt_prev, rzy = carry
+                x_t = x_update(xs, rzy, xt_prev)
+                xs, zs, ys, rzy = ew_chain(alpha, xs, x_t, zs, ys, a_s(x_t),
+                                           rho, l_s, u_s)
+                return xs, zs, ys, x_t, rzy
+            return step
+
         def step(carry):
             xs, zs, ys, xt_prev = carry
             x_t = x_update(xs, zs.map(lambda zi, ri, yi: ri * zi - yi, rho,
                                       ys), xt_prev)
             return _grouped_tail(alpha, xs, x_t, zs, ys, a_s(x_t), rho,
                                  l_s, u_s) + (x_t,)
-        carry = (xs, zs, ys, xs)
+        return step
 
+    ew = scfg.ew_kernel and custom is None
+    if ew:
+        carry = (xs, zs, ys, xs,
+                 zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys))
+    else:
+        carry = (xs, zs, ys, xs)
     ran = None
     if scfg.truncation == "osqp":
-        carry, ran = _iterate_truncated(step, carry, iters, scfg, unscale)
-    else:
+        # every iteration at `refine`: JAX's truncation loop has no
+        # two-phase refinement
+        carry, ran = _iterate_truncated(make_step(refine, ew), carry, iters,
+                                        scfg, unscale)
+    elif (factor is not None and scfg.flat_iter and custom is None
+          and not scfg.block_refine and not scfg.folded_refine
+          and warm == 0):
+        # the flat constraint-space iteration: JAX dispatches it before the
+        # elementwise-kernel branch, so this path launches no ew_chain
+        xs, zs, ys = _solve_flat(cfg, qp, scfg, D, E, h_s, q_s, rho, xs,
+                                 iters, minv_mv, refine, cg, warm_x0, tiny)
+        return _finish(cfg, qp, hdiag, unscale, xs, zs, ys, rho_base,
+                       feas_tol)
+    elif ew and warm == 0:
+        step = make_step(refine, True)
         for _ in range(iters):
             carry = step(carry)
+    else:
+        carry = carry[:4]
+        for k, n_k in ((scfg.shared_refine_warm, warm),
+                       (refine, iters - warm)):
+            step = make_step(k, False)
+            for _ in range(n_k):
+                carry = step(carry)
     xs, zs, ys = carry[:3]
     return _finish(cfg, qp, hdiag, unscale, xs, zs, ys, rho_base, feas_tol,
                    ran)
 
 
-def _make_msolve(minv_mv, m_apply, refine: int, cg: bool):
+def _make_msolve(minv_mv, m_apply, refine: int, cg: bool,
+                 tiny: float = 1e-30):
     """The x-update solve of M x = rhs with Minv as the preconditioner:
     Minv rhs alone at refine 0; else `refine` steps of preconditioned CG
     (shared_refine_mode "cg", whose x_init, the previous x-tilde, saves a
     Minv read) or of the stationary recurrence x += Minv (rhs - M x)
-    (mode "stationary", which ignores x_init), as JAX's msolve does."""
-    tiny = 1e-30
+    (mode "stationary", which ignores x_init), as JAX's msolve does.
+    `tiny` guards CG's step and conjugation quotients."""
 
     def msolve(rhs, x_init):
         if refine == 0:
@@ -440,7 +629,7 @@ def _static_a_top(horizon: int, window: int, ts: float,
 
 def _solve_flat(cfg: PlannerConfig, qp: QPData, scfg: SolverConfig, D, E,
                 h_s, q_s, rho: ConVec, xs0, iters: int, minv_mv,
-                refine: int, cg: bool, warm_x0: bool):
+                refine: int, cg: bool, warm_x0: bool, tiny: float):
     """The ADMM iteration in flat constraint space (SolverConfig.flat_iter,
     JAX admm.py:329-441): z, y, l, u and rho are single (..., m) vectors;
     the QP-invariant eq/sb/cb part of A and A^T is one product with the
@@ -496,7 +685,7 @@ def _solve_flat(cfg: PlannerConfig, qp: QPData, scfg: SolverConfig, D, E,
     def m_op(v):
         return h_s * v + sigma * v + at_flat(rho_f * a_flat(v))
 
-    msolve = _make_msolve(minv_mv, m_op, refine, cg)
+    msolve = _make_msolve(minv_mv, m_op, refine, cg, tiny)
     x = xs0
     z = a_flat(xs0)
     y = torch.zeros_like(z)

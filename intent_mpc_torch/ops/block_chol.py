@@ -12,6 +12,9 @@ explicit inverse is built in four batched passes:
   3. the row-blocks of L^{-1}: Y_i = J_i (I_i - G_{i-1} Y_{i-1}),
   4. Minv = Y^T Y with one batched matmul.
 
+`block_apply` multiplies by M through the same blocks (the refinement
+operator of SolverConfig.block_refine).
+
 Every tensor carries leading batch axes (...).
 """
 
@@ -128,6 +131,27 @@ def flat_to_block_perm(cfg: PlannerConfig, device="cpu") -> torch.Tensor:
     u = BS * torch.arange(W, device=device)[:, None] + NX \
         + torch.arange(NU, device=device)
     return torch.cat([x.reshape(-1), u.reshape(-1)])
+
+
+def block_apply(Dblk: torch.Tensor, Eblk: torch.Tensor, perm: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """M x through the block-tridiagonal blocks, flat layout in and out
+    (JAX block_chol.py:176-197): y_i = D_i x_i + E_{i-1} x_{i-1} +
+    E_i^T x_{i+1}, as broadcast products summed over the 13-wide block
+    (the JAX version's order, not a matmul's). Dblk/Eblk (..., H, 13, 13)
+    and x (..., n) broadcast over their leading axes."""
+    H = Dblk.shape[-3]
+    lead = torch.broadcast_shapes(Dblk.shape[:-3], x.shape[:-1])
+    xb = x.new_zeros(lead + (H * BS,))
+    xb[..., perm] = x.expand(lead + x.shape[-1:])
+    xb = xb.unflatten(-1, (H, BS))
+    y = torch.sum(Dblk * xb[..., :, None, :], dim=-1)
+    lo = torch.sum(Eblk[..., :-1, :, :] * xb[..., :-1, None, :], dim=-1)
+    up = torch.sum(Eblk[..., :-1, :, :] * xb[..., 1:, :, None], dim=-2)
+    zrow = torch.zeros_like(y[..., :1, :])
+    y = y + torch.cat([zrow, lo], dim=-2)
+    y = y + torch.cat([up, zrow], dim=-2)
+    return y.flatten(-2)[..., perm]
 
 
 def structured_minv(cfg: PlannerConfig, qp: QPData, hdiag_s: torch.Tensor,

@@ -260,9 +260,12 @@ def pack_fleet(cfg: PlannerConfig, qps: QPData, minv: torch.Tensor,
 
     # the inverse ships as full float32: on the infeasible DYNUS QPs the
     # obstacle duals ramp to ~1e4-1e5 while x stays ~1e1, and every
-    # cheaper precision diverged on the TPU (pallas_fused.py:264-272)
+    # cheaper precision diverged on the TPU (pallas_fused.py:264-272). A
+    # bf16 factor (SolverConfig.minv_dtype) is widened exactly here, as
+    # JAX's pack_fleet sets it into its float32 array: the kernel reads
+    # float32 only
     minv_pad = torch.zeros((S, d.n_pad, d.n_pad), dtype=dt, device=dev)
-    minv_pad[:, :n, :n] = minv
+    minv_pad[:, :n, :n] = minv.to(dt)
 
     return FleetProblem(
         a_ext=_a_ext_on(cfg, K, torch.device(dev))[0], minv=minv_pad,

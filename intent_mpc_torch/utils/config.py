@@ -220,18 +220,25 @@ class SolverConfig:
                                       # csrc/fleet_admm.cu (ops/fleet.py),
                                       # stationary refinement, a fresh
                                       # factor every cycle (ported)
-    woodbury_candidates: bool = False  # exact Woodbury x-update (not ported)
-    block_refine: bool = False        # block-apply refinement (not ported)
-    folded_refine: bool = False       # pre-folded refinement (not ported)
-    shared_refine_mode: str = "cg"    # "cg" or "stationary" (both ported)
-    shared_refine_warm_frac: float = 0.0  # two-phase refinement (not ported)
+    woodbury_candidates: bool = False  # exact Woodbury x-update over the
+                                      # two slots the candidates differ in
+                                      # (a fresh base factor every cycle)
+    block_refine: bool = False        # refinement operator through the
+                                      # (H, 13, 13) blocks (block_apply)
+    folded_refine: bool = False       # refinement operator with the
+                                      # scalings folded in (make_folded_m_op)
+    shared_refine_mode: str = "cg"    # "cg" or "stationary"
+    shared_refine_warm_frac: float = 0.0  # two-phase refinement: this share
+                                      # of the iterations refines
+                                      # shared_refine_warm times
     shared_refine_warm: int = 1
     shared_refine_x0: str = "prev"    # CG initial guess: "prev" = previous
                                       # ADMM x-tilde, "minv" = Minv @ rhs
                                       # (ported)
     shared_refine_iters: int = 2      # refinement steps per x-update with a
                                       # shared factor (ported)
-    minv_dtype: str = "f32"           # only "f32" is ported
+    minv_dtype: str = "f32"           # "f32" or "bf16": the shared factor's
+                                      # storage (products read it as f32)
     ew_kernel: bool = True            # run each ADMM iteration's elementwise
                                       # tail (x blend, z relax, projection,
                                       # dual update, next rho*z - y) as one

@@ -72,7 +72,14 @@ def _from(tree, typ, leaf):
 
 def _to_tensor(device, add_batch_axis):
     def leaf(v):
-        t = torch.as_tensor(np.array(v, copy=True), device=device)
+        a = np.array(v, copy=True)
+        if a.dtype.name == "bfloat16":
+            # a bf16 shared factor (ml_dtypes' numpy type, which torch does
+            # not read): through float32, exactly
+            t = torch.as_tensor(a.astype(np.float32),
+                                device=device).to(torch.bfloat16)
+        else:
+            t = torch.as_tensor(a, device=device)
         return t[None] if add_batch_axis else t
     return leaf
 

@@ -297,13 +297,20 @@ def test_converged_solve_matches_native_oracle(num_active, with_static):
 
 
 def test_unported_options_raise(problem):
+    """Every solver option runs now (tests/test_torch_solver_knobs.py
+    holds the TPU-tuned ones against JAX): admm_solve takes each, with and
+    without a factor, and only a value that names no mode raises."""
     _, tcfg, _, tq = problem
     for kw in ({"block_refine": True}, {"woodbury_candidates": True},
                {"folded_refine": True}, {"minv_dtype": "bf16"},
-               {"shared_refine_warm_frac": 0.5},
-               {"shared_refine_mode": "jacobi"}):
-        with pytest.raises(NotImplementedError):
-            tadmm.admm_solve(_with(tcfg, **kw), tq, max_iter=1)
+               {"shared_refine_warm_frac": 0.5}):
+        cfg = _with(tcfg, **kw)
+        for fac in (None, tadmm.admm_factor(cfg, tq)):
+            res = tadmm.admm_solve(cfg, tq, max_iter=1, factor=fac)
+            assert bool(torch.isfinite(res.x).all()), kw
+    with pytest.raises(ValueError, match="shared_refine_mode"):
+        tadmm.admm_solve(_with(tcfg, shared_refine_mode="jacobi"), tq,
+                         max_iter=1)
 
 
 # ---------------------------------------------------------------------------

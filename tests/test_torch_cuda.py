@@ -19,8 +19,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import (accepted, check_exploration_small,  # noqa: E402
-                        check_fusion_small, check_mapping_small,
-                        small_fleet_qps)
+                        check_fusion_small, check_knobs_small,
+                        check_mapping_small, small_fleet_qps)
 from intent_mpc_torch.benchmark import bench  # noqa: E402
 from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
@@ -579,7 +579,14 @@ _NO_SYNC = {"default": {}, "fused": dict(fused_solve=True),
             "stationary": "stationary", "predictor_stale": "predictor_stale",
             "fused_quadrotor": "quadrotor", "fused_use_fov": "use_fov",
             # the planner's solve_override hook at its default, passed
-            "solve_override_none": {}}
+            "solve_override_none": {},
+            # the TPU-tuned solver options
+            "woodbury_candidates": dict(woodbury_candidates=True),
+            "block_refine": dict(block_refine=True),
+            "folded_refine": dict(folded_refine=True),
+            "minv_bf16": dict(minv_dtype="bf16"),
+            "warm_frac": dict(shared_refine_warm_frac=0.5),
+            "fused_minv_bf16": dict(fused_solve=True, minv_dtype="bf16")}
 
 
 @pytest.mark.cuda
@@ -1022,3 +1029,45 @@ def test_dep_step_does_not_synchronize(cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(plan.success.all()) and int(st.valid.sum()) > 2
+
+
+@pytest.mark.cuda
+def test_solver_knobs_on_card_match_cpu(cuda_device):
+    """Each TPU-tuned solver option (Woodbury candidates, block and folded
+    refinement, the bf16 factor, two-phase refinement) on the small
+    config for 4 cycles, card against CPU, within chip_smoke.KNOB_TOL
+    with equal solve counts."""
+    lines = check_knobs_small(cuda_device)
+    assert [ln["solve"] for ln in lines] == ["woodbury_candidates",
+                                             "block_refine", "folded_refine",
+                                             "minv_bf16", "warm_frac"]
+
+
+@pytest.mark.cuda
+def test_fleet_world_one_over_nccl_on_card(cuda_device, monkeypatch):
+    """One NCCL rank on cuda:0 in a process of its own
+    (parallel/launch.spawn): its per-scenario metrics and aggregate equal
+    the one-device batch_rollout of the same seeds, and the inventory of
+    its rollout is the two all-reduces, 32 bytes."""
+    from intent_mpc_torch.parallel import launch
+    monkeypatch.setenv("PYTHONPATH", os.path.dirname(os.path.abspath(
+        __file__)) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    res, = launch.spawn("torch_fleet_worker:fleet_rollout", 1, "nccl",
+                        kwargs=dict(seeds=list(range(4)), iters=20, cycles=5,
+                                    inventory_cycles=2), timeout=600)
+    assert res["world"] == 1
+    assert res["metrics"] == res["metrics_one_process"]
+    assert res["agg"] == res["agg_one_process"]
+    assert res["report"] == {"counts": {"all-reduce": 2}, "total_bytes": 32}
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_one_rank_over_nccl(cuda_device):
+    """entry.dryrun_multichip(1) over NCCL: the toy flight reaches the goal
+    in every episode and its inventory is the two all-reduces."""
+    from intent_mpc_torch import entry
+    out = entry.dryrun_multichip(1, production=False)
+    assert out["backend"] == "nccl" and out["device"] == "cuda:0"
+    assert out["success_rate"] == 1.0 and out["collision_rate"] == 0.0
+    assert out["collective_ops"] == {"all-reduce": 2}
+    assert out["collective_bytes"] == 32

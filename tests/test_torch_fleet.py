@@ -213,25 +213,23 @@ def _fused(cfg, **solver):
 
 
 def test_fused_solve_options_accepted():
-    """With fused_solve the options only admm_solve reads are not checked
-    (the JAX planner's fused branch never reads them); admm_solve itself
-    still refuses what it does not run (stationary refinement it runs).
-    polish and temporal_rho run on the fused path; an unported option
-    the fused solve shares (minv_dtype) is refused there too."""
+    """The fused path takes every solver option (the JAX planner's fused
+    branch never reads those only admm_solve reads): stationary
+    refinement, polish and temporal rho, the two-phase refinement, and
+    the bf16 factor, which the fleet solve reads as float32
+    (tests/test_torch_solver_knobs.py); admm_solve takes them too."""
     cfg = small_config()
     fused = _fused(cfg, fused_solve=True, shared_refine_mode="stationary",
                    shared_refine_x0="minv", factor_reuse_cycles=1)
     tcl.check_supported(fused)
-    tadmm.check_supported(fused.planner.solver, fused=False)
+    tadmm.check_supported(fused.planner.solver)
     tcl.check_supported(_fused(cfg, fused_solve=True))
     tcl.check_supported(_fused(cfg, fused_solve=True, polish=True,
                                temporal_rho=True))
     warm = _fused(cfg, fused_solve=True, shared_refine_warm_frac=0.5)
     tcl.check_supported(warm)
-    with pytest.raises(NotImplementedError, match="shared_refine_warm_frac"):
-        tadmm.check_supported(warm.planner.solver, fused=False)
-    with pytest.raises(NotImplementedError, match="minv_dtype"):
-        tcl.check_supported(_fused(cfg, fused_solve=True, minv_dtype="bf16"))
+    tadmm.check_supported(warm.planner.solver)
+    tcl.check_supported(_fused(cfg, fused_solve=True, minv_dtype="bf16"))
 
 
 # the small closed-loop config of tests/test_pallas_fused.py:72-84

@@ -75,8 +75,8 @@ def test_aggregate_matches_jax(both_rows):
     assert H.aggregate([]) == {} and len(H.aggregate(trows)) == 14
 
 
-# options the port does not run yet; the CLI has no flag for them, so the
-# test sets them in the config the flags describe
+# the solver options the port ran last (the TPU-tuned ones); the CLI has
+# no flag for them, so the test sets them in the config the flags describe
 UNPORTED = {"woodbury_candidates": dict(woodbury_candidates=True),
             "block_refine": dict(block_refine=True),
             "folded_refine": dict(folded_refine=True),
@@ -98,20 +98,27 @@ def _with_option(cfg, **kw):
 @pytest.mark.parametrize("flags", list(UNPORTED))
 def test_cli_refuses_unported_flags_before_any_work(flags, monkeypatch,
                                                     tmp_path):
-    """A config that names an option the port does not run raises
-    NotImplementedError in the CLI before a scenario is built, with
-    --fused too, where the fleet solve would not read a solver option."""
+    """Every solver option runs now, so the CLI refuses none of them: a
+    config naming one reaches the scenario build (the stub that stands
+    for the work) on the default and the fused path. A value that names
+    no mode is still refused before any work (ValueError)."""
     def no_work(*a, **k):
         raise AssertionError("work started")
     build = H.config_from_args
+    monkeypatch.setattr(H.sh, "stack_scenarios", no_work)
     monkeypatch.setattr(H, "config_from_args",
                         lambda args: _with_option(build(args),
                                                   **UNPORTED[flags]))
-    monkeypatch.setattr(H.sh, "stack_scenarios", no_work)
     for extra in ([], ["--fused"]):
-        with pytest.raises(NotImplementedError, match=flags):
+        with pytest.raises(AssertionError, match="work started"):
             H.main(["--device", "cpu", "--trials", "1", "--out",
                     str(tmp_path)] + extra)
+    monkeypatch.setattr(H, "config_from_args",
+                        lambda args: _with_option(
+                            _with_option(build(args), **UNPORTED[flags]),
+                            shared_refine_mode="jacobi"))
+    with pytest.raises(ValueError, match="shared_refine_mode"):
+        H.main(["--device", "cpu", "--trials", "1", "--out", str(tmp_path)])
     assert not os.listdir(tmp_path)
 
 

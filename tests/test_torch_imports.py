@@ -26,7 +26,9 @@ SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "benchmark.roofline", "benchmark.stage_profile",
                    "benchmark.viz", "benchmark.demo",
                    "benchmark.oracle_loop", "benchmark.native_loop",
-                   "oracle.native", "oracle.osqp_ref")
+                   "oracle.native", "oracle.osqp_ref",
+                   "parallel.sharding", "parallel.launch",
+                   "benchmark.scaling")
 
 torch.set_num_threads(1)
 
@@ -88,7 +90,7 @@ def _entry_calls(tmp_path):
     from intent_mpc_torch import entry
     from intent_mpc_torch.benchmark import (demo, harness, oracle_loop,
                                             real_loop, ref_modes, roofline,
-                                            stage_profile)
+                                            scaling, stage_profile)
     from intent_mpc_torch.engine import checkpoint, closed_loop as cl
     from intent_mpc_torch.models.world import (load_ref_traj,
                                                straight_line_ref_traj)
@@ -121,6 +123,9 @@ def _entry_calls(tmp_path):
         "oracle_loop": lambda: oracle_loop.main(
             ["--seeds", "0", "--out", str(tmp_path / "ol")]),
         "run_divergence": lambda: oracle_loop.run_divergence(cfg, 0, None),
+        "make_mesh": lambda: sh.make_mesh(),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+        "run_study": lambda: scaling.run_study([1]),
     }
 
 
@@ -130,7 +135,9 @@ def _entry_calls(tmp_path):
                                    "load_checkpoint", "load_ref_traj",
                                    "real_loop", "ref_modes", "entry",
                                    "stage_profile", "roofline", "demo",
-                                   "oracle_loop", "run_divergence"])
+                                   "oracle_loop", "run_divergence",
+                                   "make_mesh", "dryrun_multichip",
+                                   "run_study"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a device argument an entry point runs on CUDA; with no CUDA
     device it raises instead of falling back to the CPU (before it reads

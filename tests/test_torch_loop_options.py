@@ -256,9 +256,10 @@ def test_fused_fov_upper_bound_is_inert():
 
 def test_check_supported_raises_for_exactly_the_options_left():
     """engine/closed_loop.check_supported accepts every option this port
-    runs, real perception, static clustering and goal mode with each of
-    its three input-trajectory modes among them, and raises for the
-    TPU-only solver knobs, each by name."""
+    runs, real perception, static clustering, goal mode with each of its
+    three input-trajectory modes and the TPU-tuned solver knobs among
+    them: no option is left. It raises only for values that name no mode
+    (ValueError), each by name."""
     base = IntentMPCConfig()
     for opt in OPTIONS.values():
         tcl.check_supported(with_options(base, opt.get("engine"),
@@ -270,22 +271,18 @@ def test_check_supported_raises_for_exactly_the_options_left():
     for mode in ("linspace", "minsnap", "global"):
         tcl.check_supported(with_options(
             base, dict(goal_mode=True, ref_mode=mode), None))
+    for solver in (dict(woodbury_candidates=True), dict(block_refine=True),
+                   dict(folded_refine=True), dict(minv_dtype="bf16"),
+                   dict(shared_refine_warm_frac=0.5)):
+        tcl.check_supported(with_options(base, None, solver))
     with pytest.raises(ValueError, match="ref_mode"):
         tcl.check_supported(with_options(
             base, dict(goal_mode=True, ref_mode="spline"), None))
-    left = {"woodbury_candidates": dict(solver=dict(
-                woodbury_candidates=True)),
-            "block_refine": dict(solver=dict(block_refine=True)),
-            "folded_refine": dict(solver=dict(folded_refine=True)),
-            "minv_dtype": dict(solver=dict(minv_dtype="bf16")),
-            "shared_refine_warm_frac": dict(solver=dict(
-                shared_refine_warm_frac=0.5)),
-            "shared_refine_mode": dict(solver=dict(
-                shared_refine_mode="jacobi"))}
-    for name, opt in left.items():
-        with pytest.raises(NotImplementedError, match=name):
-            tcl.check_supported(with_options(base, opt.get("engine"),
-                                             opt.get("solver")))
+    for name, solver in (("shared_refine_mode",
+                          dict(shared_refine_mode="jacobi")),
+                         ("minv_dtype", dict(minv_dtype="f16"))):
+        with pytest.raises(ValueError, match=name):
+            tcl.check_supported(with_options(base, None, solver))
 
 
 @pytest.mark.slow

@@ -56,8 +56,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                off the factor-refresh cycles 0, 4, 8) gives rows identical
                (==) to run_trials, and a run cut at 5 cycles and resumed
                from its file gives rows identical to the uninterrupted one
- 12. latency   bench.latency at 32 scenarios, both paths: 50 blocking and
-               50 pipelined depth-1 cycles, p50/p99/max ms against the
+ 12. latency   bench.latency at 32 scenarios, both paths: 20 blocking and
+               20 pipelined depth-1 cycles, p50/p99/max ms against the
                100 ms budget, with the card's name and power limit
  13. df        ops/df.py's error-free transforms exact on the card (in
                float64, 2^20 pairs) and df_matvec at 128 x 2510 x 385
@@ -2484,7 +2484,7 @@ def check_fleet(cfg, S, cycles, fleet):
                 if not torch.equal(a, b)]
         check(not same and agg == agg1, ("fleet differs from the one-device"
                                          " rollout", solve, same, agg, agg1))
-        rep = sh.collective_report(c, scen, ref, L, fleet, num_cycles=2)
+        _, rep = sh.collective_report(c, scen, ref, L, fleet, num_cycles=2)
         check(rep["counts"] == {"all-reduce": 2}
               and rep["total_bytes"] == 32, ("fleet inventory", rep))
         lines.append(dict(
@@ -2847,7 +2847,7 @@ def main():
             os.path.join(work, "checkpoint_" + name), dev))
     for name, f in (("default", False), ("fused", True)):
         reset_launch_counts()
-        lat = bench.latency(32, cycles=50, fused=f, device=dev)
+        lat = bench.latency(32, cycles=20, fused=f, device=dev)
         phase("latency", solve=name, nvidia_smi=smi, launches=launch_counts(),
               **lat)
     phase("new_phases", seconds=time.perf_counter() - t_new)

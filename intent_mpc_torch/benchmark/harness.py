@@ -65,9 +65,9 @@ def run_trials(cfg: IntentMPCConfig, seeds: Sequence[int],
 
     With `mesh` (a parallel/sharding.Fleet, one process per device) each
     rank runs the rows of its own contiguous block of the seeds on its
-    device (sharding.stack_scenarios_global; the fleet statistics are
-    reduced as batch_rollout does) and returns only those rows, with
-    trial_id the seed's index in `seeds`. The rows go through no
+    device (as sharding.stack_scenarios_global feeds it; the fleet
+    statistics are reduced as batch_rollout does) and returns only those
+    rows, with trial_id the seed's index in `seeds`. The rows go through no
     collective: a caller merges the fleet's rows by concatenating the
     ranks' lists in rank order, which gives the rows of the one-process
     run's order."""
@@ -76,11 +76,10 @@ def run_trials(cfg: IntentMPCConfig, seeds: Sequence[int],
     if mesh is not None:
         dev = mesh.device
         block = sh.rank_block(len(seeds), mesh)
-        scenarios = sh.stack_scenarios_global(cfg, seeds, mesh)
         seeds, first = seeds[block], block.start
     else:
         dev = resolve_device(device)
-        scenarios = sh.stack_scenarios(cfg, seeds, device=dev)
+    scenarios = sh.stack_scenarios(cfg, seeds, device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=2.5,
                                  device=dev)
     metrics, _ = sh.batch_rollout(cfg, scenarios, ref, ref.shape[0],

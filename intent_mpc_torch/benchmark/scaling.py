@@ -72,8 +72,8 @@ def study_rank(fleet: sh.Fleet, per_device: int, cycles: int,
     seconds = time.perf_counter() - t0
     out = {"seconds": seconds, "episodes": agg["episodes"]}
     if inventory:
-        rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
-                                   solver_iters=iters, num_cycles=cycles)
+        _, rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
+                                      solver_iters=iters, num_cycles=cycles)
         out["collectives"] = rep["counts"]
         out["collective_bytes"] = rep["total_bytes"]
     return out

@@ -71,20 +71,18 @@ def entry(device=None):
 
 
 def dryrun_multichip(n_devices: int, backend: str = "nccl", device=None,
-                     production: bool = True, threads=None,
                      timeout: float = 1800.0) -> dict:
     """Fly a fleet of `n_devices` ranks, one process each
     (parallel/launch.spawn), and check it behaves and communicates only
     its statistics (dryrun_rank). backend "nccl" puts rank r on cuda:r;
-    "gloo" with device "cpu" runs on the CPU. production=False skips the
-    production inventories. Returns rank 0's summary; raises if any
-    check of any rank fails."""
+    "gloo" with device "cpu" runs on the CPU. Returns rank 0's summary;
+    raises if any check of any rank fails."""
     if backend == "nccl":
         resolve_device(device)          # the card, or raise before spawning
     return launch.spawn("intent_mpc_torch.entry:dryrun_rank", n_devices,
-                        backend, kwargs=dict(production=production),
+                        backend,
                         device=None if device is None else str(device),
-                        threads=threads, timeout=timeout)[0]
+                        timeout=timeout)[0]
 
 
 def _check(ok, what):
@@ -112,7 +110,8 @@ def dryrun_rank(fleet: sh.Fleet, production: bool = True) -> dict:
     30, 64 slots, 200 obstacles; its statistics must count the fleet's
     episodes and some solves), goal mode with ref_mode "global" over a
     static map with the keys of jax.random.split(PRNGKey(7), n), and the
-    real detector."""
+    real detector. production=False stops after the toy flight's
+    inventory."""
     n = fleet.world
     dev = fleet.device
     cfg = tiny_config().replace(goal=(3.0, 0.0, 2.0))
@@ -133,8 +132,9 @@ def dryrun_rank(fleet: sh.Fleet, production: bool = True) -> dict:
     _check(summary["collision_rate"] == 0.0, summary)
     # the same program's inventory, over INVENTORY_CYCLES cycles (the
     # collectives are per rollout; the profiler costs ~7x a cycle's time)
-    rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
-                               solver_iters=30, num_cycles=INVENTORY_CYCLES)
+    _, rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
+                                  solver_iters=30,
+                                  num_cycles=INVENTORY_CYCLES)
     _check_inventory("toy", rep)
     out = dict(summary, world=n, rank=fleet.rank, device=str(dev),
                backend=str(torch.distributed.get_backend())
@@ -149,7 +149,7 @@ def dryrun_rank(fleet: sh.Fleet, production: bool = True) -> dict:
     ref_p = straight_line_ref_traj(prod.start, prod.goal, spacing=2.5,
                                    device=dev)
     scen_p = sh.stack_scenarios_global(prod, range(n), fleet)
-    (_, agg_p), rep_base = sh.profiled_rollout(
+    (_, agg_p), rep_base = sh.collective_report(
         prod, scen_p, ref_p, ref_p.shape[0], fleet,
         num_cycles=INVENTORY_CYCLES)
     _check_inventory("base", rep_base)
@@ -167,15 +167,17 @@ def dryrun_rank(fleet: sh.Fleet, production: bool = True) -> dict:
         inflation=(0.3, 0.3, 0.2), device=dev)
     ref_g = torch.zeros((128, 3), device=dev)
     keys = prng.split(prng.prng_key(7, device=dev), n)
-    rep_goal = sh.collective_report(goal_cfg, scen_p, ref_g, ref_g.shape[0],
-                                    fleet, num_cycles=INVENTORY_CYCLES,
-                                    occ=grid, ref_keys=keys)
+    _, rep_goal = sh.collective_report(goal_cfg, scen_p, ref_g,
+                                       ref_g.shape[0], fleet,
+                                       num_cycles=INVENTORY_CYCLES,
+                                       occ=grid, ref_keys=keys)
     _check_inventory("goal_mode_global", rep_goal)
 
     real_cfg = prod.replace(engine=dataclasses.replace(
         prod.engine, use_fake_detector=False))
-    rep_real = sh.collective_report(real_cfg, scen_p, ref_p, ref_p.shape[0],
-                                    fleet, num_cycles=INVENTORY_CYCLES)
+    _, rep_real = sh.collective_report(real_cfg, scen_p, ref_p,
+                                       ref_p.shape[0], fleet,
+                                       num_cycles=INVENTORY_CYCLES)
     _check_inventory("real_detector", rep_real)
 
     out["production"] = {

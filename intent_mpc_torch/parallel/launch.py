@@ -9,9 +9,10 @@ each, and returns each rank's JSON-able result in rank order:
     results = spawn("intent_mpc_torch.entry:dryrun_rank", world=2,
                     backend="gloo", device="cpu", kwargs={...})
 
-A rank that fails, or a fleet that outlasts `timeout`, raises with the
-end of that rank's output; every process is stopped before spawn
-returns. Run as a module, this file is one rank:
+The ranks are watched together: as soon as one exits non-zero (its
+peers may then wait on it forever), or the fleet outlasts `timeout`,
+the others are stopped and spawn raises with the end of that rank's
+output. Every process is stopped before spawn returns. Run as a module, this file is one rank:
 
     python -m intent_mpc_torch.parallel.launch --target mod:fn --rank 0
         --world 2 --addr tcp://127.0.0.1:PORT --backend gloo [--device cpu]
@@ -27,6 +28,8 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
+import time
 from typing import List, Optional
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -58,26 +61,48 @@ def spawn(target: str, world: int, backend: str, kwargs: Optional[dict] = None,
         cmd += ["--device", device]
     if threads is not None:
         cmd += ["--threads", str(threads)]
-    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=ROOT, env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
-    outs = []
+    procs, logs = [], []
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+        for r in range(world):
+            # a file, not a pipe: a rank that writes much never blocks
+            logs.append(tempfile.TemporaryFile())
+            procs.append(subprocess.Popen(
+                cmd + ["--rank", str(r)], cwd=ROOT, env=env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        failed = why = None
+        while failed is None:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            # the first rank to fail: its peers may wait on it forever
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:
+                failed, why = bad[0], "exited %d" % codes[bad[0]]
+            elif time.monotonic() > deadline:
+                failed, why = codes.index(None), "outlasted %g s" % timeout
+            else:
+                time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read().decode(errors="replace"))
+            log.close()
+    if failed is not None:
+        raise RuntimeError("fleet rank %d of %d (%s) %s:\n%s"
+                           % (failed, world, backend, why,
+                              outs[failed][-4000:]))
     results = []
-    for r, (p, out) in enumerate(zip(procs, outs)):
+    for r, out in enumerate(outs):
         lines = [ln for ln in out.splitlines() if ln.startswith(RESULT)]
-        if p.returncode != 0 or not lines:
-            raise RuntimeError("fleet rank %d of %d (%s) exited %s:\n%s"
-                               % (r, world, backend, p.returncode,
-                                  out[-4000:]))
+        if not lines:
+            raise RuntimeError("fleet rank %d of %d (%s) printed no result:"
+                               "\n%s" % (r, world, backend, out[-4000:]))
         results.append(json.loads(lines[-1][len(RESULT):]))
     return results
 

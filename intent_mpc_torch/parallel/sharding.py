@@ -19,7 +19,7 @@ holds the whole fleet.
 
 `parallel/launch.spawn` starts such ranks as processes of their own
 (`init_process_group` runs once per process); `collective_report`
-inventories what a fleet rollout really sent between them.
+runs a fleet rollout and inventories what it really sent between them.
 """
 
 from __future__ import annotations
@@ -194,12 +194,11 @@ def batch_rollout(cfg: IntentMPCConfig, scenarios: Scenario,
     scenario for the goal-mode RRT builds, split with the scenarios
     (rank r flies keys[r S:(r + 1) S] with its S scenarios).
 
-    Without a mesh the aggregate is read scalar by scalar from the
-    device. With one, `scenarios` is this rank's block
+    With a mesh, `scenarios` is this rank's block
     (stack_scenarios_global, shard_scenarios) and runs on the rank's
-    device; the fleet statistics are reduced across ranks with exactly two
-    all_reduces on PyTorch's current stream (the sums, the minimum) and
-    read with one host copy.
+    device, and the fleet statistics are reduced across ranks with exactly
+    two all_reduces on PyTorch's current stream (the sums, the minimum).
+    The aggregate is read with one host copy either way.
 
     Returns (this rank's per-scenario Metrics, aggregate dict of fleet
     statistics[, paths (S, C, 3) when record_paths])."""
@@ -217,27 +216,13 @@ def batch_rollout(cfg: IntentMPCConfig, scenarios: Scenario,
                                   record_path=record_paths, device=dev,
                                   ref_key=keys)
     m = carry.metrics
-    if mesh is None:
-        agg = {
-            "episodes": float(m.goal_reached.shape[0]),
-            "goals": float(torch.sum(m.goal_reached.to(torch.float32))),
-            "collisions": float(torch.sum(m.collision.to(torch.float32))),
-            "path_length_sum": float(torch.sum(m.path_length)),
-            "travel_time_sum": float(torch.sum(m.travel_time)),
-            "min_dist_min": float(torch.min(m.min_obstacle_dist)),
-            "solve_attempts": float(torch.sum(
-                m.solve_attempts.to(torch.float32))),
-            "solve_successes": float(torch.sum(
-                m.solve_successes.to(torch.float32))),
-        }
-    else:
-        sums, low = _local_stats(m)
-        if mesh.group is not None:
-            dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.group)
-            dist.all_reduce(low, op=dist.ReduceOp.MIN, group=mesh.group)
-        vals = dict(zip(SUM_KEYS + ("min_dist_min",),
-                        torch.cat([sums, low]).tolist()))
-        agg = {k: vals[k] for k in AGG_KEYS}
+    sums, low = _local_stats(m)
+    if mesh is not None and mesh.group is not None:
+        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=mesh.group)
+        dist.all_reduce(low, op=dist.ReduceOp.MIN, group=mesh.group)
+    vals = dict(zip(SUM_KEYS + ("min_dist_min",),
+                    torch.cat([sums, low]).tolist()))
+    agg = {k: vals[k] for k in AGG_KEYS}
     if record_paths:
         return m, agg, paths
     return m, agg
@@ -245,35 +230,25 @@ def batch_rollout(cfg: IntentMPCConfig, scenarios: Scenario,
 
 def collective_report(cfg: IntentMPCConfig, scenarios: Scenario,
                       ref_traj: torch.Tensor, traj_len, mesh: Fleet,
-                      solver_iters: Optional[int] = None,
-                      num_cycles: Optional[int] = None,
-                      occ=None, ref_keys: Optional[torch.Tensor] = None
-                      ) -> dict:
-    """Inventory what one fleet rollout sends between processes.
+                      **kwargs):
+    """Run one fleet rollout (batch_rollout with `mesh`; kwargs as it
+    takes them) and inventory what it sends between processes.
 
     JAX reads the collectives from the compiled HLO; the port has no HLO,
-    so it runs the rollout (batch_rollout with `mesh`) under
-    torch.profiler with record_shapes and counts every `c10d::`
-    collective op the process issued, from this module or any other: an
-    all_gather of a scenario tensor, or an all_reduce of anything larger
-    than the statistics, would be a sharding leak. Each op's bytes are
-    those of the tensors its backend's record ("gloo:all_reduce",
-    "nccl:all_reduce", ...) carries, paired with the c10d ops in time
-    order. Returns {"counts": {op: n}, "total_bytes": int, "ops": [(op,
-    bytes), ...]} under JAX's op names ("all-reduce", "all-gather", ...;
-    an op JAX has no name for keeps torch's)."""
-    return profiled_rollout(cfg, scenarios, ref_traj, traj_len, mesh,
-                            solver_iters=solver_iters, num_cycles=num_cycles,
-                            occ=occ, ref_keys=ref_keys)[1]
+    so it runs the rollout under torch.profiler with record_shapes and
+    counts every `c10d::` collective op the process issued, from this
+    module or any other: an all_gather of a scenario tensor, or an
+    all_reduce of anything larger than the statistics, would be a
+    sharding leak. Each op's bytes are those of the tensors its backend's
+    record ("gloo:all_reduce", "nccl:all_reduce", ...) carries, paired
+    with the c10d ops in time order. The profiler's raw event list is
+    read (building its Python event tree costs minutes for the ~50k ops
+    of every cycle).
 
-
-def profiled_rollout(cfg: IntentMPCConfig, scenarios: Scenario,
-                     ref_traj: torch.Tensor, traj_len, mesh: Fleet,
-                     **kwargs):
-    """(batch_rollout's result, collective_report's inventory) of one
-    fleet rollout under the profiler; kwargs as batch_rollout takes
-    them. The profiler's raw event list is read (building its Python
-    event tree costs minutes for the ~50k ops of every cycle)."""
+    Returns (batch_rollout's result, the inventory {"counts": {op: n},
+    "total_bytes": int, "ops": [(op, bytes), ...]}) under JAX's op names
+    ("all-reduce", "all-gather", ...; an op JAX has no name for keeps
+    torch's)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU],
                  record_shapes=True) as prof:

@@ -1063,10 +1063,12 @@ def test_fleet_world_one_over_nccl_on_card(cuda_device, monkeypatch):
 
 @pytest.mark.cuda
 def test_dryrun_multichip_one_rank_over_nccl(cuda_device):
-    """entry.dryrun_multichip(1) over NCCL: the toy flight reaches the goal
-    in every episode and its inventory is the two all-reduces."""
-    from intent_mpc_torch import entry
-    out = entry.dryrun_multichip(1, production=False)
+    """The toy flight of entry.dryrun_multichip(1) over NCCL (its rank,
+    entry.dryrun_rank, spawned with production=False) reaches the goal in
+    every episode and its inventory is the two all-reduces."""
+    from intent_mpc_torch.parallel import launch
+    out = launch.spawn("intent_mpc_torch.entry:dryrun_rank", 1, "nccl",
+                       kwargs=dict(production=False), timeout=600)[0]
     assert out["backend"] == "nccl" and out["device"] == "cuda:0"
     assert out["success_rate"] == 1.0 and out["collision_rate"] == 0.0
     assert out["collective_ops"] == {"all-reduce": 2}

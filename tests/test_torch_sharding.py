@@ -73,8 +73,8 @@ def test_one_process_fleet_is_bit_equal():
         assert torch.equal(a, b)
     assert agg == agg0
     assert list(agg) == list(sh.AGG_KEYS)
-    rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
-                               solver_iters=10, num_cycles=1)
+    _, rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
+                                  solver_iters=10, num_cycles=1)
     assert rep == {"counts": {}, "total_bytes": 0, "ops": []}
 
 
@@ -201,14 +201,31 @@ def test_fleet_harness_rows_merge_to_the_one_process_rows(worker_path,
     assert all(r["threads"] == 1 for r in res)
 
 
+def test_spawn_reports_the_failed_rank_at_once(worker_path):
+    """A rank that fails while its peer waits (as a rank blocked in a
+    collective would) ends the fleet at once: spawn stops the peer and
+    raises with the failed rank's own traceback, long before the fleet's
+    timeout (read: ~5 s on the CPU against 600 s)."""
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rank 1 of 2 \\(gloo\\) exited 1"
+                       "(.|\\n)*rank 1 fails on purpose"):
+        launch.spawn("torch_fleet_worker:fail_on_rank", 2, "gloo",
+                     kwargs=dict(rank=1), device="cpu", threads=1,
+                     timeout=600)
+    assert time.monotonic() - t0 < 120
+
+
 def test_dryrun_multichip_two_gloo_ranks():
-    """entry.dryrun_multichip(2) over gloo on the CPU: the toy flight (2
-    scenarios per rank, 3 m clear goal, 40 cycles) reaches the goal in
-    every episode without collision, and its inventory is the two
-    all-reduces, 32 bytes. The production inventories are the slow test
-    below."""
-    out = entry.dryrun_multichip(2, backend="gloo", device="cpu",
-                                 production=False, threads=1)
+    """The toy flight of entry.dryrun_multichip(2) over gloo on the CPU
+    (its ranks, entry.dryrun_rank, spawned as dryrun_multichip spawns
+    them, with production=False): 2 scenarios per rank, 3 m clear goal,
+    40 cycles, reach the goal in every episode without collision, and its
+    inventory is the two all-reduces, 32 bytes. The production
+    inventories are the slow test below."""
+    out = launch.spawn("intent_mpc_torch.entry:dryrun_rank", 2, "gloo",
+                       kwargs=dict(production=False), device="cpu",
+                       threads=1, timeout=600)[0]
     assert out["world"] == 2 and out["backend"] == "gloo"
     assert out["num_episodes"] == 4
     assert out["success_rate"] == 1.0 and out["collision_rate"] == 0.0
@@ -224,8 +241,7 @@ def test_dryrun_multichip_production_inventories():
     static map, the real detector; 2 cycles each, one scenario per rank):
     each is exactly the two all-reduces, 32 bytes. Slow: the production
     program runs ~50k ops per cycle under the profiler on the CPU."""
-    out = entry.dryrun_multichip(2, backend="gloo", device="cpu",
-                                 production=True, threads=1)
+    out = entry.dryrun_multichip(2, backend="gloo", device="cpu")
     prod = out["production"]
     assert prod["base"]["episodes"] == 2
     assert prod["base"]["solve_attempts"] > 0

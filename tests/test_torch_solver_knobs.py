@@ -431,3 +431,76 @@ def test_bf16_factor_reaches_the_fleet_solve_as_float32():
     assert torch.equal(fp.minv[:, :n, :n], fac.Minv.float())
     res = tfl.fleet_admm(cfg.planner, qps, warm, 20)
     assert bool(torch.isfinite(res.x).all())
+
+
+# ---------------------------------------------------------------------------
+# the refinement operator each option selects is the one the solve applies
+# ---------------------------------------------------------------------------
+
+# the options that swap the refinement's normal operator; None: m_apply
+OPERATORS = (None, "block_refine", "folded_refine")
+
+
+def _count_operators(monkeypatch):
+    """Wrap block_chol.block_apply and the operator admm.make_folded_m_op
+    returns with call counters: {option: applications}."""
+    calls = dict.fromkeys(OPERATORS[1:], 0)
+    block_apply, make_folded = tbc.block_apply, tadmm.make_folded_m_op
+
+    def counted_block_apply(*args):
+        calls["block_refine"] += 1
+        return block_apply(*args)
+
+    def counted_make_folded(*args):
+        op = make_folded(*args)
+
+        def counted_op(v):
+            calls["folded_refine"] += 1
+            return op(v)
+        return counted_op
+
+    monkeypatch.setattr(tbc, "block_apply", counted_block_apply)
+    monkeypatch.setattr(tadmm, "make_folded_m_op", counted_make_folded)
+    return calls
+
+
+def _assert_only(calls, knob):
+    for name, n in calls.items():
+        assert (n > 0) == (name == knob), (knob, calls)
+
+
+@pytest.mark.parametrize("knob", OPERATORS, ids=str)
+def test_refinement_operator_is_wired_into_admm_solve(candidates, monkeypatch,
+                                                      knob):
+    """admm_solve on a shared factor applies block_apply under
+    block_refine, the folded operator under folded_refine, and neither
+    without them (both operators equal m_apply to rounding, so the
+    solves alone cannot tell which one ran)."""
+    _, tcfg, _, tqs, _, tmean = candidates
+    if knob is not None:
+        tcfg = _with(tcfg, **KNOBS[knob])
+    fac = tadmm.admm_factor(tcfg, tmean)
+    calls = _count_operators(monkeypatch)
+    tadmm.admm_solve(tcfg, tqs, torch.zeros((3, tcfg.num_vars)), 5,
+                     factor=fac)
+    _assert_only(calls, knob)
+
+
+@pytest.mark.parametrize("knob", OPERATORS, ids=str)
+def test_refinement_operator_is_reached_from_episode_step(monkeypatch, knob):
+    """One episode_step cycle of the `__graft_entry__` config (shared
+    factor, CG-2 refinement) reaches the operator of its option, and
+    neither operator without one."""
+    from intent_mpc_torch.models.world import straight_line_ref_traj
+    from intent_mpc_torch.parallel.sharding import stack_scenarios
+    cfg = small_config(num_obstacles=4, horizon=8, timeout=0.5,
+                       max_obstacles=4, hist=8).replace(goal=(6.0, 0.0, 2.0))
+    if knob is not None:
+        cfg = _solver(cfg, **KNOBS[knob])
+    scen = stack_scenarios(cfg, [0], device="cpu")
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, spacing=0.5)
+    carry = tcl.init_carry(cfg, scen, device="cpu")
+    calls = _count_operators(monkeypatch)
+    tcl.episode_step(cfg, scen, ref, ref.shape[0], empty_grid(), carry, 0,
+                     solver_iters=5)
+    _assert_only(calls, knob)

@@ -4,6 +4,7 @@ init_process_group runs once per process). No JAX here: each task
 returns plain lists for the test to hold against the JAX package."""
 
 import dataclasses
+import time
 
 import torch
 
@@ -31,9 +32,9 @@ def fleet_rollout(fleet, seeds, iters, cycles, inventory_cycles):
     m1, agg1 = sh.batch_rollout(cfg, scen, ref, ref.shape[0],
                                 solver_iters=iters, num_cycles=cycles,
                                 device=fleet.device)
-    rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
-                               solver_iters=iters,
-                               num_cycles=inventory_cycles)
+    _, rep = sh.collective_report(cfg, scen, ref, ref.shape[0], fleet,
+                                  solver_iters=iters,
+                                  num_cycles=inventory_cycles)
     return {"rank": fleet.rank, "world": fleet.world,
             "scenarios": _lists(scen), "metrics": _lists(m), "agg": agg,
             "metrics_one_process": _lists(m1), "agg_one_process": agg1,
@@ -53,3 +54,10 @@ def harness_rows(fleet, seeds, timeout, iters, checkpoint):
     return {"rows": rows, "checkpointed": ck,
             "file": H.rank_checkpoint_path(checkpoint, fleet),
             "threads": torch.get_num_threads()}
+
+
+def fail_on_rank(fleet, rank):
+    """Rank `rank` raises at once; every other rank waits ten minutes."""
+    if fleet.rank == rank:
+        raise RuntimeError("rank %d fails on purpose" % rank)
+    time.sleep(600)

@@ -2,7 +2,8 @@
 counterpart of bench.py).
 
     python -m intent_mpc_torch.benchmark.bench [--batch 128] [--cycles 10]
-        [--obstacles 200] [--iters N] [--fused]
+        [--obstacles 200] [--iters N] [--fused] [--device cuda|cpu]
+        [--profile DIR]
 
 Runs the DYNUS closed loop (200-obstacle trefoil world, horizon-30 MPC
 with 6 intent-combination candidate QPs per replan) for a batch of
@@ -16,7 +17,12 @@ launch of csrc/fleet_admm.cu per cycle).
 
 Prints ONE JSON line, {"metric", "value", "unit", "vs_baseline"} with
 the 1000 solves/s north-star as the baseline, and a summary line on
-stderr. Needs a CUDA device.
+stderr. It runs on the CUDA device unless `--device` names another
+(`--device cpu` runs the plain versions of the kernels); with no CUDA
+device and no `--device` it raises. `--profile DIR` runs the timed
+cycles under torch.profiler (CPU activity, and CUDA activity on the
+card) and writes a Chrome trace into DIR (bench.py's jax profiler
+trace); the warm-up and `--latency` run outside it.
 
 `--latency` then measures the per-replan-cycle latency against the 100 ms
 budget (bench.py:211-283), 50 cycles in each of two patterns:
@@ -34,20 +40,23 @@ are stopped when it ends.
 
 The solver-variant flags of bench.py run as there (--refine,
 --refine-mode, --refine-x0, --factor-reuse, --drift-refresh, --flat-iter,
---per-candidate-factor). `--roofline` prints the timed cycles against the
-card's peaks (benchmark/roofline.report). Not ported from bench.py: the
-XLA-only options (--platform, the compilation cache, cliff padding of the
-batch and --no-pad, the jax --profile trace; for a profile see
-benchmark/profile_cycle.py), --ew-kernel (on by default here) and the
-solver variants the port does not run (--folded-refine, --minv-bf16).
+--folded-refine, --minv-bf16, --per-candidate-factor). `--roofline`
+prints the timed cycles against the card's peaks
+(benchmark/roofline.report). `--device` takes the place of bench.py's
+`--platform`. Not ported from bench.py: the XLA-only options (the
+compilation cache, cliff padding of the batch and --no-pad) and
+--ew-kernel (on by default here). For launches and device time per
+cycle see benchmark/profile_cycle.py.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -91,6 +100,10 @@ def solver_fields(args) -> dict:
             out[field] = getattr(args, flag)
     if args.flat_iter:
         out["flat_iter"] = True
+    if args.folded_refine:
+        out["folded_refine"] = True
+    if args.minv_bf16:
+        out["minv_dtype"] = "bf16"
     return out
 
 
@@ -219,10 +232,30 @@ def card_power() -> str:
         text=True, timeout=60).stdout.strip()
 
 
+@contextlib.contextmanager
+def profiled(profile: Optional[str], dev: torch.device):
+    """Record torch.profiler activity (CPU, and CUDA on a CUDA device) in
+    the block and write its Chrome trace to `profile`/trace.json after
+    it; record nothing when `profile` is None."""
+    if profile is None:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with torch_profile(activities=acts) as prof:
+        yield
+    os.makedirs(profile, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(profile, "trace.json"))
+
+
 def run(batch: int, cycles: int, obstacles: int = 200, iters=None,
         fused: bool = False, device=None,
-        solver: Optional[dict] = None) -> dict:
-    """Warm up for 2 x cycles cycles, then time `cycles` cycles."""
+        solver: Optional[dict] = None, profile: Optional[str] = None) -> dict:
+    """Warm up for 2 x cycles cycles, then time `cycles` cycles (under
+    torch.profiler, its trace written into the directory `profile`, if
+    given)."""
     dev = resolve_device(device)
     cfg = bench_config(obstacles, fused, solver)
     scen = sh.stack_scenarios(cfg, range(batch), device=dev)
@@ -244,10 +277,11 @@ def run(batch: int, cycles: int, obstacles: int = 200, iters=None,
     carry = cycles_from(carry, cycles)
     sync()
     warmup = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    carry = cycles_from(carry, 2 * cycles)
-    sync()
-    elapsed = time.perf_counter() - t0
+    with profiled(profile, dev):
+        t0 = time.perf_counter()
+        carry = cycles_from(carry, 2 * cycles)
+        sync()
+        elapsed = time.perf_counter() - t0
     return dict(solves=batch * 6 * cycles, elapsed=elapsed, warmup=warmup,
                 device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                         else str(dev)))
@@ -271,6 +305,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(benchmark/roofline.py)")
     ap.add_argument("--load", type=int, default=0,
                     help="co-located CPU burner processes for the run")
+    ap.add_argument("--device", type=str, default=None,
+                    help="torch device (default: the CUDA device; cpu runs "
+                         "the kernels' plain versions)")
+    ap.add_argument("--profile", type=str, default=None,
+                    help="write a torch.profiler Chrome trace of the timed "
+                         "cycles into this directory")
     ap.add_argument("--refine", type=int, default=None,
                     help="shared-factor refinement steps per x-update")
     ap.add_argument("--refine-mode", type=str, default=None,
@@ -287,6 +327,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--flat-iter", action="store_true",
                     help="flat-constraint-space iteration "
                          "(SolverConfig.flat_iter)")
+    ap.add_argument("--folded-refine", action="store_true",
+                    help="pre-folded refinement normal-operator apply "
+                         "(SolverConfig.folded_refine)")
+    ap.add_argument("--minv-bf16", action="store_true",
+                    help="store the shared x-update preconditioner in "
+                         "bfloat16 (SolverConfig.minv_dtype)")
     ap.add_argument("--per-candidate-factor", action="store_true",
                     help="factor every intent candidate separately")
     return ap.parse_args(argv)
@@ -303,8 +349,12 @@ def main(argv=None):
 
 def report(args):
     solver = solver_fields(args)
+    dev = resolve_device(args.device)
+    if args.latency and dev.type != "cuda":
+        raise RuntimeError("--latency is measured on a CUDA device, got %s"
+                           % dev)
     r = run(args.batch, args.cycles, args.obstacles, args.iters, args.fused,
-            solver=solver)
+            device=dev, solver=solver, profile=args.profile)
     sps = r["solves"] / r["elapsed"]
     print(json.dumps({
         "metric": "mpc_solves_per_sec_per_chip",
@@ -324,7 +374,7 @@ def report(args):
                  args.iters or cfg.planner.solver.max_iter)
     if args.latency:
         lat = latency(args.batch, obstacles=args.obstacles, iters=args.iters,
-                      fused=args.fused, solver=solver)
+                      fused=args.fused, device=dev, solver=solver)
         tag = f" (load={args.load})" if args.load else ""
         card = card_power()
         for mode, name in (("blocking", "blocking"),

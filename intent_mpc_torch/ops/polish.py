@@ -3,11 +3,11 @@
 
 OSQP polishes after convergence: it detects the active constraint set
 from (z, y), solves the KKT system restricted to the active rows, and
-refines iteratively (semantics mirrored by the float64 oracle,
-oracle/numpy_ref.py:_polish). Here the refinement computes its KKT
-residuals with compensated double-float arithmetic (ops/df.py) and
-carries the (x, nu) iterates as hi + lo pairs, so corrections below
-float32 resolution are not lost.
+refines iteratively (semantics mirrored by the port's float64 oracle,
+intent_mpc_torch/oracle/numpy_ref.py:234 _polish). Here the refinement
+computes its KKT residuals with compensated double-float arithmetic
+(ops/df.py) and carries the (x, nu) iterates as hi + lo pairs, so
+corrections below float32 resolution are not lost.
 
 The correction operator lives in the condensed space: eliminating the
 states through the dynamics (x = F u + w) leaves a condensed Hessian
@@ -28,8 +28,9 @@ step, for the pinned problem min 0.5 x^T P x + q^T x s.t. A_act x = b_act:
   update (double-float):    x += (dX, dU);  nu += (dnu_eq, dnu_i)
 
 Like OSQP, the polished solution is accepted only if it violates no
-constraint row by more than `polish_accept_tol` (numpy_ref.py:264-267);
-otherwise the input iterate passes through unchanged.
+constraint row by more than `polish_accept_tol` (the oracle's gate,
+intent_mpc_torch/oracle/numpy_ref.py:264-267); otherwise the input
+iterate passes through unchanged.
 
 Every reduction that the JAX version makes over one QP (and vmaps) is
 made here over the last axis only, so each problem of a batch is
@@ -198,7 +199,7 @@ def polish(cfg: PlannerConfig, qp: QPData, x: torch.Tensor, y: ConVec,
         y_cur = qplib.flat_to_con(nu_flat, cfg, K)
 
     # acceptance: the polished point must not violate any row
-    # (oracle gate, numpy_ref.py:264-267), per problem
+    # (the oracle's gate, oracle/numpy_ref.py:264-267), per problem
     z_pol = _mv(A, x_pol)
     ok = torch.all(z_pol >= lf - scfg.polish_accept_tol, dim=-1) \
         & torch.all(z_pol <= uf + scfg.polish_accept_tol, dim=-1)

@@ -6,10 +6,11 @@ The reference links the exact binary at
 trajectory_planner/include/trajectory_planner/third_party/lib/x86/libosqp.so
 (OSQP 0.6.2 per third_party/osqp/constants.h:12) through the OsqpEigen
 facade (third_party/OsqpEigen/Solver.hpp, used at mpcPlanner.cpp:436-527).
-Every other oracle in this repo (the JAX package's oracle/numpy_ref.py,
-native/qp_solver.cpp) was written by the same author from the same
-algorithm spec; this module is the external anchor — identical QP
-matrices go through the very solver binary the reference flies.
+Every other oracle in this repo (oracle/numpy_ref.py, the port's copy of
+the JAX package's; native/qp_solver.cpp) was written by the same author
+from the same algorithm spec; this module is the external anchor —
+identical QP matrices go through the very solver binary the reference
+flies.
 
 ABI determined from the vendored headers (read, not guessed):
   - osqp_configure.h: DLONG defined  -> c_int   = int64

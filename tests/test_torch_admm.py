@@ -1,5 +1,5 @@
 """Port parity: intent_mpc_torch.ops.admm and ops.block_chol against the
-JAX package and the float64 numpy oracle."""
+JAX package and the port's float64 oracles (intent_mpc_torch/oracle/)."""
 
 import dataclasses
 
@@ -12,11 +12,11 @@ import torch
 from intent_mpc_tpu.ops import admm as jadmm
 from intent_mpc_tpu.ops import block_chol as jbc
 from intent_mpc_tpu.ops import qp as jqp
-from intent_mpc_tpu.oracle import native
-from intent_mpc_tpu.oracle import numpy_ref as oracle
 from intent_mpc_torch.ops import admm as tadmm
 from intent_mpc_torch.ops import block_chol as tbc
 from intent_mpc_torch.ops import qp as tqp
+from intent_mpc_torch.oracle import native
+from intent_mpc_torch.oracle import numpy_ref as oracle
 
 from test_qp import _random_problem
 from test_torch_qp import build_both, configs, stack_jax, to_torch
@@ -256,7 +256,7 @@ def _reference_case(num_active, with_static):
         jcfg, K, num_active, 0, with_static)
     ka = num_active
     dense = oracle.build_reference_qp(
-        jcfg, x0, xref, oxyz[:, :ka], osize[:, :ka], yaw[:, :ka],
+        tcfg, x0, xref, oxyz[:, :ka], osize[:, :ka], yaw[:, :ka],
         is_dyn[:, :ka], lin)
     return tcfg, tq, dense
 
@@ -284,7 +284,7 @@ def test_converged_solve_matches_oracle(num_active, with_static):
 @pytest.mark.parametrize("num_active,with_static", [(0, False), (3, True)])
 def test_converged_solve_matches_native_oracle(num_active, with_static):
     """The same converged float32 solve against the C++ oracle
-    (intent_mpc_tpu/oracle/native.py, float64 OSQP-style ADMM run to
+    (intent_mpc_torch/oracle/native.py, float64 OSQP-style ADMM run to
     eps 1e-10), with the same tolerances: positions 5e-3, accelerations
     5e-2. Skipped where the C++ library cannot be built."""
     if not native.available():
@@ -469,7 +469,7 @@ def test_adaptive_rho_recovers_bad_initialization():
     x0, xref, oxyz, osize, yaw, is_dyn, active, lin = _random_problem(
         jcfg, 8, 4, 0, True)
     P, q, A, l, u = oracle.build_reference_qp(
-        jcfg, x0, xref, oxyz[:, :4], osize[:, :4], yaw[:, :4],
+        tcfg, x0, xref, oxyz[:, :4], osize[:, :4], yaw[:, :4],
         is_dyn[:, :4], lin)
     x_c, _ = oracle.solve_qp_dense(P, q, A, l, u, max_iter=20000, eps=1e-9,
                                    polish=True)

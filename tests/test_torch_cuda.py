@@ -18,9 +18,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (accepted, check_exploration_small,  # noqa: E402
-                        check_fusion_small, check_knobs_small,
-                        check_mapping_small, small_fleet_qps)
+from chip_smoke import (NORTH_STAR_BOUNDS, accepted,  # noqa: E402
+                        check_exploration_small, check_fusion_small,
+                        check_knobs_small, check_mapping_small,
+                        check_north_star, small_fleet_qps)
 from intent_mpc_torch.benchmark import bench  # noqa: E402
 from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
@@ -1041,6 +1042,23 @@ def test_solver_knobs_on_card_match_cpu(cuda_device):
     assert [ln["solve"] for ln in lines] == ["woodbury_candidates",
                                              "block_refine", "folded_refine",
                                              "minv_bf16", "warm_frac"]
+
+
+@pytest.mark.cuda
+def test_north_star_parity_on_card(cuda_device):
+    """The north-star check of tests/test_fullscale_parity.py on the card:
+    the horizon-30 QP through build_qp, admm_solve (2000 iterations, each
+    one ew_chain launch) and polish against the port's float64 oracle:
+    the polish accepted, positions within 1e-3 m and accelerations within
+    1e-1 (the unpolished iterate within 2e-2 m and 1.5)."""
+    out = check_north_star(cuda_device)
+    assert out["launches"] == {"ew_chain": 2000, "fleet_admm": 0,
+                               "dense_loop": 0}
+    assert out["accepted"]
+    b = NORTH_STAR_BOUNDS
+    assert out["pos_err"] < b["pos"] and out["acc_err"] < b["acc"], out
+    assert out["raw_pos_err"] < b["raw_pos"], out
+    assert out["raw_acc_err"] < b["raw_acc"], out
 
 
 @pytest.mark.cuda

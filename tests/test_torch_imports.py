@@ -12,8 +12,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "intent_mpc_tpu")
-# the real-perception, goal-mode, exploration and tools slices' modules,
-# which both checks must reach
+# the real-perception, goal-mode, exploration, tools, fleet and oracle
+# slices' modules, which both checks must reach
 SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "models.real_detector", "benchmark.real_loop",
                    "utils.prng", "models.global_planner", "models.pwl_traj",
@@ -27,6 +27,7 @@ SLICE_MODULES = ("models.clustering", "models.sensor", "models.perception",
                    "benchmark.viz", "benchmark.demo",
                    "benchmark.oracle_loop", "benchmark.native_loop",
                    "oracle.native", "oracle.osqp_ref",
+                   "oracle.numpy_ref", "oracle.predictor_ref",
                    "parallel.sharding", "parallel.launch",
                    "benchmark.scaling")
 
@@ -88,9 +89,10 @@ def test_importing_port_loads_no_jax():
 
 def _entry_calls(tmp_path):
     from intent_mpc_torch import entry
-    from intent_mpc_torch.benchmark import (demo, harness, oracle_loop,
-                                            real_loop, ref_modes, roofline,
-                                            scaling, stage_profile)
+    from intent_mpc_torch.benchmark import (bench, demo, harness,
+                                            oracle_loop, real_loop,
+                                            ref_modes, roofline, scaling,
+                                            stage_profile)
     from intent_mpc_torch.engine import checkpoint, closed_loop as cl
     from intent_mpc_torch.models.world import (load_ref_traj,
                                                straight_line_ref_traj)
@@ -126,6 +128,8 @@ def _entry_calls(tmp_path):
         "make_mesh": lambda: sh.make_mesh(),
         "dryrun_multichip": lambda: entry.dryrun_multichip(1),
         "run_study": lambda: scaling.run_study([1]),
+        "bench": lambda: bench.main(["--batch", "1", "--cycles", "1",
+                                     "--profile", str(tmp_path / "p")]),
     }
 
 
@@ -137,7 +141,7 @@ def _entry_calls(tmp_path):
                                    "stage_profile", "roofline", "demo",
                                    "oracle_loop", "run_divergence",
                                    "make_mesh", "dryrun_multichip",
-                                   "run_study"])
+                                   "run_study", "bench"])
 def test_entry_points_default_to_cuda(entry, tmp_path):
     """Without a device argument an entry point runs on CUDA; with no CUDA
     device it raises instead of falling back to the CPU (before it reads

@@ -1,5 +1,6 @@
 """Port parity: intent_mpc_torch.ops.polish against the JAX package's
-ops/polish.py and the float64 oracle (numpy_ref, polish on), on the
+ops/polish.py and the port's float64 oracle (intent_mpc_torch/oracle/
+numpy_ref.py, polish on), on the
 problems of tests/test_polish.py.
 
 Both polishes start from the same JAX ADMM iterate (800 iterations,
@@ -17,9 +18,9 @@ import torch
 
 from intent_mpc_tpu.ops import polish as jpol
 from intent_mpc_tpu.ops.admm import admm_solve as jadmm_solve
-from intent_mpc_tpu.oracle import numpy_ref
 from intent_mpc_torch.ops import polish as tpol
 from intent_mpc_torch.ops import qp as tqp
+from intent_mpc_torch.oracle import numpy_ref
 
 import test_qp as tq
 from test_torch_qp import configs, stack_jax, to_torch
@@ -32,9 +33,16 @@ def cfgs():
     return configs(max_iter=800, refine_iters=1)
 
 
-def _inputs(jcfg, seed, iters=None):
-    """The JAX QP, its ADMM iterate and duals, and the port's copies."""
-    jq, dense, _ = tq._build_both(jcfg, 4, 3, seed=seed, with_static=True)
+def _inputs(cfgs, seed, iters=None):
+    """The JAX QP, its ADMM iterate and duals, the port's copies, and the
+    problem's dense QP as the port's float64 oracle builds it."""
+    jcfg, tcfg = cfgs
+    jq, _, _ = tq._build_both(jcfg, 4, 3, seed=seed, with_static=True)
+    x0, xref, oxyz, osize, yaw, is_dyn, _, lin = tq._random_problem(
+        jcfg, 4, 3, seed, with_static=True)
+    dense = numpy_ref.build_reference_qp(
+        tcfg, x0, xref, oxyz[:, :3], osize[:, :3], yaw[:, :3],
+        is_dyn[:, :3], lin)
     res = jadmm_solve(jcfg, jq, max_iter=iters)
     return (jq, res, dense, to_torch(jq, tqp.QPData),
             torch.as_tensor(np.array(res.x)), to_torch(res.y, tqp.ConVec))
@@ -53,7 +61,7 @@ def _pos_acc_err(cfg, x, x_ref):
 @pytest.mark.parametrize("seed", [0, 3, 11])
 def test_polish_matches_jax_and_oracle(cfgs, seed):
     jcfg, tcfg = cfgs
-    jq, res, (P, q, A, l, u), tq_, tx, ty = _inputs(jcfg, seed)
+    jq, res, (P, q, A, l, u), tq_, tx, ty = _inputs(cfgs, seed)
     x_c, _ = numpy_ref.solve_qp_dense(P, q, A, l, u, max_iter=20000,
                                       eps=1e-10, polish=True)
     tp = tpol.polish(tcfg, tq_, tx, ty)
@@ -71,7 +79,7 @@ def test_polish_rejected_passes_through(cfgs):
     """An iterate 3 ADMM iterations in is rejected by both gates, and the
     port hands back its input unchanged (bit for bit)."""
     jcfg, tcfg = cfgs
-    jq, res, _, tq_, tx, ty = _inputs(jcfg, 0, iters=3)
+    jq, res, _, tq_, tx, ty = _inputs(cfgs, 0, iters=3)
     tp = tpol.polish(tcfg, tq_, tx, ty)
     jp = jpol.polish(jcfg, jq, res.x, res.y)
     assert not bool(jp.accepted) and not bool(tp.accepted)
@@ -85,7 +93,7 @@ def test_polish_batched_equals_sequential(cfgs):
     (the batched Schur factor may round differently), acceptance
     equal, and the rejected problem passes its input through exactly."""
     jcfg, tcfg = cfgs
-    items = [_inputs(jcfg, 0), _inputs(jcfg, 3, iters=3), _inputs(jcfg, 11)]
+    items = [_inputs(cfgs, 0), _inputs(cfgs, 3, iters=3), _inputs(cfgs, 11)]
     jqs = stack_jax([it[0] for it in items])
     tqb = to_torch(jqs, tqp.QPData)
     txb = torch.stack([it[4] for it in items])

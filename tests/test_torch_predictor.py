@@ -1,5 +1,6 @@
 """Port parity: intent_mpc_torch.models.detector and models.predictor
-against the JAX package and the reference-literal oracle."""
+against the JAX package and the port's reference-literal oracle
+(intent_mpc_torch/oracle/predictor_ref.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -11,12 +12,12 @@ from intent_mpc_tpu.models import detector as jdet
 from intent_mpc_tpu.models import occupancy as jocc
 from intent_mpc_tpu.models import predictor as jpred
 from intent_mpc_tpu.models.occupancy import empty_grid as jempty
-from intent_mpc_tpu.oracle import predictor_ref as ref
 from intent_mpc_tpu.utils.config import DetectorConfig as JDetectorConfig
 from intent_mpc_tpu.utils.config import PredictorConfig as JPredictorConfig
 from intent_mpc_torch.models import detector as tdet
 from intent_mpc_torch.models import predictor as tpred
 from intent_mpc_torch.models.occupancy import empty_grid
+from intent_mpc_torch.oracle import predictor_ref as ref
 from intent_mpc_torch.utils.config import DetectorConfig, PredictorConfig
 
 torch.set_num_threads(1)

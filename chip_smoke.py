@@ -555,36 +555,28 @@ def north_star_problem():
     return pcfg, inputs, dense
 
 
-def north_star_oracle(dense):
-    """The port's float64 oracle on the dense QP: polished, 20000
-    iterations at eps 1e-9; its solution violates no row by 1e-5."""
-    import numpy as np
-    from intent_mpc_torch.oracle import numpy_ref
-    P, q, A, l, u = dense
-    x_c, _ = numpy_ref.solve_qp_dense(P, q, A, l, u, max_iter=20000,
-                                      eps=1e-9, polish=True)
-    zc = A @ x_c
-    viol = max(np.clip(l - zc, 0, None).max(), np.clip(zc - u, 0, None).max())
-    check(viol < 1e-5, ("oracle solution violates constraints", viol))
-    return x_c
-
-
-def check_north_star(dev, x_oracle=None):
+def check_north_star(dev):
     """The north-star parity check on `dev`: the port's build_qp,
     admm_solve (2000 iterations; on the card every one through ew_chain)
     and polish on the horizon-30 problem against the port's float64
-    oracle (computed here unless `x_oracle` is given), within
-    NORTH_STAR_BOUNDS. Returns the errors, the bounds, the solve's
-    ew_chain launches and the seconds on the device and in the oracle."""
+    oracle (polished, 20000 iterations at eps 1e-9; its solution violates
+    no row by 1e-5), within NORTH_STAR_BOUNDS. Returns the errors, the
+    bounds, the solve's ew_chain launches and the seconds on the device
+    and in the oracle."""
     import numpy as np
     import torch
     from intent_mpc_torch.ops import admm as admmlib
     from intent_mpc_torch.ops import polish as pol
     from intent_mpc_torch.ops import qp as qplib
-    pcfg, inputs, dense = north_star_problem()
+    from intent_mpc_torch.oracle import numpy_ref
+    pcfg, inputs, (P, q, A, l, u) = north_star_problem()
     t0 = time.perf_counter()
-    x_c = north_star_oracle(dense) if x_oracle is None else x_oracle
-    oracle_s = time.perf_counter() - t0 if x_oracle is None else None
+    x_c, _ = numpy_ref.solve_qp_dense(P, q, A, l, u, max_iter=20000,
+                                      eps=1e-9, polish=True)
+    oracle_s = time.perf_counter() - t0
+    zc = A @ x_c
+    viol = max(np.clip(l - zc, 0, None).max(), np.clip(zc - u, 0, None).max())
+    check(viol < 1e-5, ("oracle solution violates constraints", viol))
     qp = qplib.build_qp(pcfg, *(torch.as_tensor(np.asarray(a, np.float32),
                                                 device=dev) for a in inputs))
     sync = torch.cuda.synchronize if qp.q.is_cuda else (lambda: None)

@@ -22,7 +22,10 @@ stderr. It runs on the CUDA device unless `--device` names another
 device and no `--device` it raises. `--profile DIR` runs the timed
 cycles under torch.profiler (CPU activity, and CUDA activity on the
 card) and writes a Chrome trace into DIR (bench.py's jax profiler
-trace); the warm-up and `--latency` run outside it.
+trace); the warm-up and `--latency` run outside it. The profiler slows
+the window, so a profiled run marks its JSON line `"profiled": true`
+and its summary line (and `--roofline`'s shares, from the same window,
+follow it): its rate is not the card's.
 
 `--latency` then measures the per-replan-cycle latency against the 100 ms
 budget (bench.py:211-283), 50 cycles in each of two patterns:
@@ -200,6 +203,13 @@ def command_step(cfg, scen, iters=None):
     return step
 
 
+def require_cuda(dev: torch.device):
+    """Latency is measured only on a CUDA device: raise on any other."""
+    if dev.type != "cuda":
+        raise RuntimeError("latency is measured on a CUDA device, got %s"
+                           % dev)
+
+
 def latency(batch: int, cycles: int = 50, obstacles: int = 200, iters=None,
             fused: bool = False, device=None,
             solver: Optional[dict] = None) -> dict:
@@ -207,9 +217,7 @@ def latency(batch: int, cycles: int = 50, obstacles: int = 200, iters=None,
     and pipelined depth-1, `cycles` timed cycles each (bench.py's cycle
     indices: 2 warm-up cycles, blocking 2.., pipelined from 60 on)."""
     dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise RuntimeError("latency is measured on a CUDA device, got %s"
-                           % dev)
+    require_cuda(dev)
     cfg = bench_config(obstacles, fused, solver)
     scen = sh.stack_scenarios(cfg, range(batch), device=dev)
     step = command_step(cfg, scen, iters)
@@ -350,23 +358,29 @@ def main(argv=None):
 def report(args):
     solver = solver_fields(args)
     dev = resolve_device(args.device)
-    if args.latency and dev.type != "cuda":
-        raise RuntimeError("--latency is measured on a CUDA device, got %s"
-                           % dev)
+    if args.latency:
+        require_cuda(dev)      # before the throughput window runs
     r = run(args.batch, args.cycles, args.obstacles, args.iters, args.fused,
             device=dev, solver=solver, profile=args.profile)
     sps = r["solves"] / r["elapsed"]
-    print(json.dumps({
+    line = {
         "metric": "mpc_solves_per_sec_per_chip",
         "value": round(sps, 1),
         "unit": "solves/s",
         "vs_baseline": round(sps / 1000.0, 3),
-    }))
+    }
+    profiled_tag = ""
+    if args.profile is not None:
+        # the profiler slows the timed window: its rate is not the card's
+        line["profiled"] = True
+        profiled_tag = " profiled=true"
+    print(json.dumps(line))
     print(f"# batch={args.batch} cycles={args.cycles} "
           f"obstacles={args.obstacles} fused={args.fused} "
           f"elapsed={r['elapsed']:.3f}s "
           f"cycle={r['elapsed'] / args.cycles * 1e3:.1f}ms "
-          f"warmup={r['warmup']:.1f}s device={r['device']}", file=sys.stderr)
+          f"warmup={r['warmup']:.1f}s device={r['device']}{profiled_tag}",
+          file=sys.stderr)
     if args.roofline:
         from intent_mpc_torch.benchmark.roofline import report as roofline
         cfg = bench_config(args.obstacles, args.fused, solver)

@@ -385,14 +385,7 @@ def test_predict_obstacle_bit_equal_to_jax(seed, occupied):
 # ---- the north-star parity check on the port (chip_smoke.check_north_star,
 # which the card runs too) ----
 
-@pytest.fixture(scope="module")
-def north_star_oracle():
-    """The port's polished float64 optimum of the horizon-30 problem,
-    computed once (~15 s)."""
-    return chip_smoke.north_star_oracle(chip_smoke.north_star_problem()[2])
-
-
-def test_north_star_problem_is_test_fullscale_parity_s(north_star_oracle):
+def test_north_star_problem_is_test_fullscale_parity_s():
     """The problem is the one tests/test_fullscale_parity.py builds: its
     dense QP equal to the JAX oracle's on test_qp._random_problem's
     inputs."""
@@ -409,10 +402,9 @@ def test_north_star_problem_is_test_fullscale_parity_s(north_star_oracle):
         is_dyn[:, :4], lin)
     for g, w in zip(dense, jdense):
         assert np.array_equal(g, w)
-    assert north_star_oracle.shape == (385,)
 
 
-def test_north_star_parity_on_cpu(north_star_oracle):
+def test_north_star_parity_on_cpu():
     """The port's build_qp, admm_solve (2000 iterations, refine 1) and
     polish on the horizon-30 problem against its own float64 oracle: the
     polish accepted, positions within 1e-3 m and accelerations within
@@ -420,7 +412,7 @@ def test_north_star_parity_on_cpu(north_star_oracle):
     (tests/test_fullscale_parity.py's bounds; measured ~5.5e-6 m and
     ~1.1e-3 polished, ~3.0e-3 m and ~1.06 unpolished). On the CPU
     ew_chain runs its plain version: no launch."""
-    out = chip_smoke.check_north_star("cpu", x_oracle=north_star_oracle)
+    out = chip_smoke.check_north_star("cpu")
     b = chip_smoke.NORTH_STAR_BOUNDS
     assert b == {"pos": 1e-3, "acc": 1e-1, "raw_pos": 2e-2, "raw_acc": 1.5}
     assert out["accepted"]
@@ -465,13 +457,16 @@ def test_bench_solver_flags_set_jax_bench_fields():
 
 
 def test_bench_profile_writes_a_trace_on_cpu(tmp_path, capsys):
-    """--profile DIR on --device cpu at a tiny size: the JSON line, and a
-    Chrome trace in DIR whose events include the cycle's operators."""
+    """--profile DIR on --device cpu at a tiny size: the JSON line and the
+    summary marked as profiled, and a Chrome trace in DIR whose events
+    include the cycle's operators."""
     out = tmp_path / "prof"
     bench.main(["--device", "cpu", "--batch", "2", "--obstacles", "8",
                 "--iters", "3", "--cycles", "1", "--profile", str(out)])
-    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    out_err = capsys.readouterr()
+    line = json.loads(out_err.out.strip().splitlines()[-1])
     assert line["metric"] == "mpc_solves_per_sec_per_chip"
+    assert line["profiled"] is True and "profiled=true" in out_err.err
     with open(out / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)

@@ -378,19 +378,19 @@ HARNESS_KEYS = [
     "mpc_prim_res_avg", "mpc_prim_res_max"]
 
 
+KERNELS = ("ew_chain", "fleet_admm", "dense_loop")
+
+
 def launch_counts():
-    from intent_mpc_torch.ops import dense_loop as dl
-    from intent_mpc_torch.ops import ew_chain as ew
-    from intent_mpc_torch.ops import fleet as fl
-    return {"ew_chain": ew.EW_LAUNCHES, "fleet_admm": fl.FLEET_LAUNCHES,
-            "dense_loop": dl.DENSE_LAUNCHES}
+    """Each kernel's launches since reset_launch_counts (utils/trace)."""
+    from intent_mpc_torch.utils import trace
+    counts = trace.counters()
+    return {k: counts.get(k + ".launches", 0) for k in KERNELS}
 
 
 def reset_launch_counts():
-    from intent_mpc_torch.ops import dense_loop as dl
-    from intent_mpc_torch.ops import ew_chain as ew
-    from intent_mpc_torch.ops import fleet as fl
-    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = dl.DENSE_LAUNCHES = 0
+    from intent_mpc_torch.utils import trace
+    trace.reset(*(k + ".launches" for k in KERNELS))
 
 
 def expected_launches(cfg, cycles):
@@ -1053,12 +1053,12 @@ def run_path(cfg, S, cycles, dev, start=None):
     too), and the default paths hold them finite."""
     import torch
     from intent_mpc_torch.benchmark.capture import run_loop
-    from intent_mpc_torch.ops import admm as admmlib
+    from intent_mpc_torch.utils import trace
     run_loop(cfg, S, 1, dev, start)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    admmlib.HOST_READS = 0
+    trace.reset("admm.host_reads")
     with SolveRecorder() as rec:
         carry, secs, _ = run_loop(cfg, S, cycles, dev, start)
     launches = launch_counts()
@@ -1072,7 +1072,7 @@ def run_path(cfg, S, cycles, dev, start=None):
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                min_solve_successes=int(carry.metrics.solve_successes.min()),
                non_finite_metrics=bad)
-    return out, carry, rec, admmlib.HOST_READS
+    return out, carry, rec, trace.counters().get("admm.host_reads", 0)
 
 
 def check_loop_osqp(cfg, S, cycles, dev):
@@ -1385,14 +1385,14 @@ def check_real_perception(cfg, S, cycles, dev, stages):
     from intent_mpc_torch.benchmark.capture import run_loop
     from intent_mpc_torch.benchmark.real_loop import static_maps
     from intent_mpc_torch.engine import closed_loop as cl
-    from intent_mpc_torch.models import clustering as clus
     from intent_mpc_torch.models.world import straight_line_ref_traj
     from intent_mpc_torch.parallel import sharding as sh
+    from intent_mpc_torch.utils import trace
     run_loop(cfg, S, 1, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    clus.HOST_READS = clus.ROUNDS = 0
+    trace.reset("clustering.host_reads", "clustering.rounds")
     timer = StageTimer()
     scen = sh.stack_scenarios(cfg, range(S), device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device=dev)
@@ -1412,7 +1412,9 @@ def check_real_perception(cfg, S, cycles, dev, stages):
             secs.append(time.perf_counter() - t0)
             cyc.append(a.elapsed_time(b))
     launches = launch_counts()
-    reads, rounds = clus.HOST_READS, clus.ROUNDS
+    counts = trace.counters()
+    reads = counts.get("clustering.host_reads", 0)
+    rounds = counts.get("clustering.rounds", 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches == expected_launches(cfg, cycles),
           ("real_perception launches", launches))
@@ -1474,13 +1476,14 @@ def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
     import torch
     from intent_mpc_torch.benchmark import capture as C
     from intent_mpc_torch.engine import closed_loop as cl
+    from intent_mpc_torch.utils import trace
     cfg, run = C.goal_dynus(ref_mode, S, dev, fused_solve)
     composed = cl.composed(cfg)
     C.goal_step(cfg, run, C.goal_init(cfg, run, dev), 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    cl.HOST_READS = 0
+    trace.reset("closed_loop.host_reads")
     timer = StageTimer(goal_build_sites())
     carry = C.goal_init(cfg, run, dev)
     cycles = 1 + mpc_cycles
@@ -1492,7 +1495,7 @@ def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
     launches = launch_counts()
-    reads = cl.HOST_READS
+    reads = trace.counters().get("closed_loop.host_reads", 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches == expected_launches(cfg, cycles),
           ("goal_mode launches", ref_mode, launches))
@@ -2770,9 +2773,7 @@ def main():
     from intent_mpc_torch.benchmark.capture import cuda_time_ms, fused, run_loop
     from intent_mpc_torch.ops import admm as admmlib
     from intent_mpc_torch.ops import build
-    from intent_mpc_torch.ops import dense_loop as dl
     from intent_mpc_torch.ops import ew_chain as ew
-    from intent_mpc_torch.ops import fleet as fl
     from intent_mpc_torch.utils.config import IntentMPCConfig, small_config
     from intent_mpc_torch.utils.device import resolve_device
 
@@ -2827,17 +2828,16 @@ def main():
     loop = {}
     for s in (128, 32):
         run_loop(cfg, s, 1, dev)          # warm-up: library handles, caches
-        ew.EW_LAUNCHES = 0
-        fl.FLEET_LAUNCHES = 0
-        dl.DENSE_LAUNCHES = 0
+        reset_launch_counts()
         carry, secs, _ = run_loop(cfg, s, 8, dev)
-        launches = ew.EW_LAUNCHES
+        counts = launch_counts()
+        launches = counts["ew_chain"]
         iters = cfg.planner.solver.max_iter
         check(launches == 8 * iters, ("kernel launches", launches, 8 * iters))
-        check(fl.FLEET_LAUNCHES == 0, ("fleet_admm launches on the default "
-                                       "path", fl.FLEET_LAUNCHES))
-        check(dl.DENSE_LAUNCHES == 0, ("dense_loop launches on the default "
-                                       "path", dl.DENSE_LAUNCHES))
+        check(counts["fleet_admm"] == 0, ("fleet_admm launches on the "
+                                          "default path", counts))
+        check(counts["dense_loop"] == 0, ("dense_loop launches on the "
+                                          "default path", counts))
         check(finite_carry(carry), "non-finite carry leaf")
         succ = carry.metrics.solve_successes
         check(int(succ.sum()) > 0, "no successful solve")
@@ -2884,16 +2884,15 @@ def main():
     loop_f = {}
     for s in (128, 32):
         run_loop(fused(cfg), s, 1, dev)   # warm-up
-        ew.EW_LAUNCHES = 0
-        fl.FLEET_LAUNCHES = 0
-        dl.DENSE_LAUNCHES = 0
+        reset_launch_counts()
         carry, secs, _ = run_loop(fused(cfg), s, 8, dev)
-        launches, ew_launches = fl.FLEET_LAUNCHES, ew.EW_LAUNCHES
+        counts = launch_counts()
+        launches, ew_launches = counts["fleet_admm"], counts["ew_chain"]
         check(launches == 8, ("fleet_admm launches", launches, 8))
         check(ew_launches == 0, ("ew_chain launches on the fused path",
                                  ew_launches))
-        check(dl.DENSE_LAUNCHES == 0, ("dense_loop launches on the fused "
-                                       "path", dl.DENSE_LAUNCHES))
+        check(counts["dense_loop"] == 0, ("dense_loop launches on the fused "
+                                          "path", counts))
         check(finite_carry(carry), "non-finite carry leaf (fused)")
         succ = carry.metrics.solve_successes
         check(int(succ.sum()) > 0, "no successful solve (fused)")
@@ -2930,10 +2929,10 @@ def main():
     phase("kernel", kernel="dense_loop", config="small", scenarios=4,
           iters=150, tol_rel=1e-3, entry_tol=2e-3, **check_dense_small(dev))
     qps_d, warm_d, mask = entry_in
-    dl.DENSE_LAUNCHES = 0
+    reset_launch_counts()
     res = admmlib.admm_solve_dense(cfg.planner, qps_d, warm_d)
     torch.cuda.synchronize()
-    dense_launches = dl.DENSE_LAUNCHES
+    dense_launches = launch_counts()["dense_loop"]
     check(dense_launches == 1, ("dense_loop launches per admm_solve_dense "
                                 "call", dense_launches))
     n = cfg.planner.num_vars

@@ -13,7 +13,10 @@ benchmark/ref_modes.py --dynus), warms up on cycles 0-3, then profiles
 cycles at the default k = 4) with torch.profiler, and prints one JSON
 line: wall time per cycle, device-busy time per cycle (the summed kernel
 time of the window, so the device's idle share is 1 - busy / wall), kernel
-launches per cycle, and the kernels with the most device time. In the
+launches per cycle, the counters of utils/trace per cycle, each stage's
+host self time per cycle from the spans of utils/trace (recorded in the
+profiled window, so the profiler's own cost is in them), and the kernels
+with the most device time. In the
 composed goal modes a build cycle (every scenario's input trajectory
 re-armed, as after a stop+replan) is profiled first, on its own, and
 reported under "build_cycle". Needs a CUDA device.
@@ -36,11 +39,9 @@ from intent_mpc_torch.benchmark.capture import (LOOP_OPTIONS, fused,
                                                 with_option)
 from intent_mpc_torch.benchmark.real_loop import static_maps
 from intent_mpc_torch.engine import closed_loop as cl
-from intent_mpc_torch.models import clustering as clus
 from intent_mpc_torch.models.world import straight_line_ref_traj
-from intent_mpc_torch.ops import ew_chain as ew
-from intent_mpc_torch.ops import fleet as fl
 from intent_mpc_torch.parallel import sharding as sh
+from intent_mpc_torch.utils import trace
 from intent_mpc_torch.utils.device import resolve_device
 
 GOAL_OPTIONS = ("goal_linspace", "goal_minsnap", "goal_global")
@@ -104,13 +105,14 @@ def main():
                                    veto_occ=veto)
     torch.cuda.synchronize()
 
-    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = clus.HOST_READS = 0
-
     def step(c, i):
         return cl.episode_step(cfg, scen, ref, ref.shape[0], occ, c, i,
                                veto_occ=veto)[0]
+    trace.reset()
+    trace.start()
     carry, wall, by_name, launches, prof = profiled(
         step, carry, range(4, 4 + args.cycles))
+    spans, counts = trace.stop(), trace.counters()
     if args.trace:
         prof.export_chrome_trace(args.trace)
     busy_us = sum(t for _, t in by_name.values())
@@ -124,9 +126,13 @@ def main():
         "device_busy_ms_per_cycle": busy_us / c / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernel_launches_per_cycle": launches / c,
-        "ew_chain_launches_per_cycle": ew.EW_LAUNCHES / c,
-        "fleet_admm_launches_per_cycle": fl.FLEET_LAUNCHES / c,
-        "dbscan_host_reads_per_cycle": clus.HOST_READS / c,
+        "ew_chain_launches_per_cycle": counts.get("ew_chain.launches", 0) / c,
+        "fleet_admm_launches_per_cycle":
+            counts.get("fleet_admm.launches", 0) / c,
+        "dbscan_host_reads_per_cycle":
+            counts.get("clustering.host_reads", 0) / c,
+        "counters_per_cycle": {k: v / c for k, v in sorted(counts.items())},
+        "stage_self_ms_per_cycle": trace.self_ms(spans),
         "top_kernels": [{"name": k[:80], "count_per_cycle": n / c,
                          "device_ms_per_cycle": t / c / 1e3}
                         for k, (n, t) in top],
@@ -159,10 +165,12 @@ def goal_main(args, dev):
             "device_idle_share": 1.0 - busy / 1e6 / wall,
             "kernel_launches": launches}
         first += 1
-    ew.EW_LAUNCHES = fl.FLEET_LAUNCHES = cl.HOST_READS = 0
     c = args.cycles
+    trace.reset()
+    trace.start()
     carry, wall, by_name, launches, prof = profiled(
         step, carry, range(first, first + c))
+    spans, counts = trace.stop(), trace.counters()
     if args.trace:
         prof.export_chrome_trace(args.trace)
     busy = sum(t for _, t in by_name.values())
@@ -172,9 +180,13 @@ def goal_main(args, dev):
         "device_busy_ms_per_cycle": busy / c / 1e3,
         "device_idle_share": 1.0 - busy / 1e6 / wall,
         "kernel_launches_per_cycle": launches / c,
-        "ew_chain_launches_per_cycle": ew.EW_LAUNCHES / c,
-        "fleet_admm_launches_per_cycle": fl.FLEET_LAUNCHES / c,
-        "build_host_reads_per_cycle": cl.HOST_READS / c,
+        "ew_chain_launches_per_cycle": counts.get("ew_chain.launches", 0) / c,
+        "fleet_admm_launches_per_cycle":
+            counts.get("fleet_admm.launches", 0) / c,
+        "build_host_reads_per_cycle":
+            counts.get("closed_loop.host_reads", 0) / c,
+        "counters_per_cycle": {k: v / c for k, v in sorted(counts.items())},
+        "stage_self_ms_per_cycle": trace.self_ms(spans),
         "top_kernels": [{"name": k[:80], "count_per_cycle": n / c,
                          "device_ms_per_cycle": t / c / 1e3}
                         for k, (n, t) in top]})

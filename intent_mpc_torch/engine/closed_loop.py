@@ -28,7 +28,8 @@ either the straight line from the last replan anchor, rebuilt every cycle
 "minsnap", or "global" with an RRT route first) built once per
 stop+replan and kept per scenario in the carry. A composed build runs for
 the whole batch on the cycles where some scenario needs one; deciding
-that is the composed modes' one host read per cycle (`HOST_READS`).
+that is the composed modes' one host read per cycle
+("closed_loop.host_reads" in utils/trace).
 """
 
 from __future__ import annotations
@@ -54,13 +55,9 @@ from intent_mpc_torch.models.quad_plant import (QuadPlantConfig, QuadState,
                                                 quad_init, quad_step)
 from intent_mpc_torch.models.world import Scenario, obstacle_state
 from intent_mpc_torch.ops.admm import check_supported as check_solver
-from intent_mpc_torch.utils import prng
+from intent_mpc_torch.utils import prng, trace
 from intent_mpc_torch.utils.config import IntentMPCConfig
 from intent_mpc_torch.utils.device import constant, resolve_device
-
-# host reads of the composed goal modes' "does any scenario build its input
-# trajectory this cycle" flag since the last reset (one per cycle)
-HOST_READS = 0
 
 
 class Metrics(NamedTuple):
@@ -283,9 +280,8 @@ def _build_ref(cfg: IntentMPCConfig, occ: OccupancyGrid, carry: EngineCarry,
     without one is retried next cycle with a fresh fold of the key).
     Returns (ref_traj, ref_len, committed (S,) bool). The build runs for
     the whole batch when any scenario needs it: that decision is a host
-    read (HOST_READS)."""
-    global HOST_READS
-    HOST_READS += 1
+    read, counted as "closed_loop.host_reads" in utils/trace."""
+    trace.count("closed_loop.host_reads")
     if not bool(torch.any(build)):
         return carry.ref_traj, carry.ref_len, build
     S, L = carry.ref_traj.shape[:2]
@@ -406,7 +402,22 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     "global"; utils/prng.prng_key(0) when None, as in JAX).
     solve_override: `(qps, warm6) -> ADMMResult` in place of the batched
     ADMM of the predictor path's plan (models/mpc.make_plan_with_pred;
-    oracle-in-the-loop runs). Returns (carry, pos (S, 3))."""
+    oracle-in-the-loop runs). Returns (carry, pos (S, 3)).
+
+    The cycle runs inside the span "cycle" of utils/trace, its stages
+    inside "perceive", "predict", "plan" and "ticks"."""
+    with trace.span("cycle", cycle_idx):
+        return _cycle(cfg, scenario, ref_traj, traj_len, occ, carry,
+                      cycle_idx, solver_iters, veto_occ, ref_key,
+                      solve_override)
+
+
+def _cycle(cfg: IntentMPCConfig, scenario: Scenario, ref_traj: torch.Tensor,
+           traj_len: int, occ: OccupancyGrid, carry: EngineCarry,
+           cycle_idx: int, solver_iters: Optional[int],
+           veto_occ: Optional[OccupancyGrid], ref_key: Optional[torch.Tensor],
+           solve_override) -> Tuple[EngineCarry, torch.Tensor]:
+    """episode_step's body."""
     ecfg = cfg.engine
     dev = carry.pos.device
     S = carry.pos.shape[0]
@@ -417,97 +428,102 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     goal = constant(tuple(cfg.goal), dev)
     active = ~carry.done
 
-    # ---- detector updates at cycle start ----
-    obs_pos0, _ = obstacle_state(scenario, t0)
-    rd = carry.real_det
-    if ecfg.use_fake_detector:
-        d = det.fd_update(cfg.detector, carry.detector, obs_pos0, t0)
-        d = det.hist_push(d, obs_pos0)
-        # predictor_stale_hist: the predictor and the MPC read the history
-        # as of the previous cycle's last 30 Hz tick (the reference's 30 Hz
-        # predictor-timer staleness bound); by default the fresh push
-        d_query = carry.detector if ecfg.predictor_stale_hist else d
-        pos_h, vel_h, acc_h, size_h, hist_len, visible = det.query_history(
-            cfg.detector, d_query, scenario.bbox, carry.pos)
-    else:
-        # real perception (use_fake_detector=false, mpcNavigation.cpp:
-        # 129-136): render a depth frame at the drone's pose, run the
-        # detect/track/classify stack and query track histories
-        d = carry.detector
-        cam_occ = occ if ecfg.render_static_grid else None
-        if not cfg.real_detector.static_map_veto:
-            veto_occ = None
-        elif veto_occ is None:
-            veto_occ = occ
-        rd = _sense(cfg, rd, scenario, carry.pos, carry.yaw, obs_pos0,
-                    cam_occ, veto_occ)
-        pos_h, vel_h, acc_h, size_h, hist_len, visible = rdet.query_history(
-            cfg.real_detector, cfg.detector, rd, carry.pos,
-            static_occ=veto_occ)
-
-    # ---- replan-check collision monitor (replanCheckCB :414-422); in
-    # predefined-goal mode it only counts: the engine replans every cycle
-    if ecfg.replan_check:
-        elapsed = (carry.traj_age.to(torch.float32) + 1.0) * cycle_dt
-        traj_hit = carry.traj_ready & active & committed_collision(
-            cfg, carry.planner, occ, elapsed, pos_h[:, :, 0],
-            size_h[:, :, 0], visible)
-    else:
-        traj_hit = torch.zeros((S,), dtype=torch.bool, device=dev)
-    planner_in = carry.planner
-    ref_anchor = carry.ref_anchor
-    stop_replan = goal_invalid = build = committed = None
-    if ecfg.goal_mode:
-        # goal mode: a collision in the committed trajectory stops it,
-        # discards it and replans from hover (:474-480); a statically
-        # occupied goal region is an invalid goal, a permanent stop
-        # (:460-471)
-        stop_replan = traj_hit
-        goal_invalid = active & goal_region_occupied(occ, goal, S)
-        fresh = mpclib.init_planner_state(cfg.planner, S, dev)
-        planner_in = tree_where(stop_replan, fresh, planner_in)
-        ref_anchor = tree_where(stop_replan, carry.pos, carry.ref_anchor)
-        L = ref_traj.shape[0]
-        if ecfg.ref_mode == "linspace":
-            # the straight input trajectory from the anchor, rebuilt every
-            # cycle (valid only over an empty corridor)
-            ref_traj = linspace(ref_anchor, goal.expand(S, 3), L)
-            traj_len = torch.full((S,), L, dtype=torch.int32, device=dev)
+    with trace.span("perceive"):
+        # ---- detector updates at cycle start ----
+        obs_pos0, _ = obstacle_state(scenario, t0)
+        rd = carry.real_det
+        if ecfg.use_fake_detector:
+            d = det.fd_update(cfg.detector, carry.detector, obs_pos0, t0)
+            d = det.hist_push(d, obs_pos0)
+            # predictor_stale_hist: the predictor and the MPC read the history
+            # as of the previous cycle's last 30 Hz tick (the reference's 30 Hz
+            # predictor-timer staleness bound); by default the fresh push
+            d_query = carry.detector if ecfg.predictor_stale_hist else d
+            pos_h, vel_h, acc_h, size_h, hist_len, visible = det.query_history(
+                cfg.detector, d_query, scenario.bbox, carry.pos)
         else:
-            # stop pass -> build pass -> solve pass, like the reference's
-            # refTrajReady_ handshake: the build pass does not solve the
-            # MPC, and updatePath resets the planner's warm state
-            build = carry.need_ref & ~stop_replan & active
-            ref_traj, traj_len, committed = _build_ref(
-                cfg, occ, carry, goal, build, ref_key, cycle_idx)
-            planner_in = tree_where(committed, fresh, planner_in)
+            # real perception (use_fake_detector=false, mpcNavigation.cpp:
+            # 129-136): render a depth frame at the drone's pose, run the
+            # detect/track/classify stack and query track histories
+            d = carry.detector
+            cam_occ = occ if ecfg.render_static_grid else None
+            if not cfg.real_detector.static_map_veto:
+                veto_occ = None
+            elif veto_occ is None:
+                veto_occ = occ
+            rd = _sense(cfg, rd, scenario, carry.pos, carry.yaw, obs_pos0,
+                        cam_occ, veto_occ)
+            pos_h, vel_h, acc_h, size_h, hist_len, visible = rdet.query_history(
+                cfg.real_detector, cfg.detector, rd, carry.pos,
+                static_occ=veto_occ)
 
-    static_obs = (_static_rows(cfg, occ, carry.pos)
-                  if cfg.planner.static_clustering else None)
+        # ---- replan-check collision monitor (replanCheckCB :414-422); in
+        # predefined-goal mode it only counts: the engine replans every cycle
+        if ecfg.replan_check:
+            elapsed = (carry.traj_age.to(torch.float32) + 1.0) * cycle_dt
+            traj_hit = carry.traj_ready & active & committed_collision(
+                cfg, carry.planner, occ, elapsed, pos_h[:, :, 0],
+                size_h[:, :, 0], visible)
+        else:
+            traj_hit = torch.zeros((S,), dtype=torch.bool, device=dev)
+        planner_in = carry.planner
+        ref_anchor = carry.ref_anchor
+        stop_replan = goal_invalid = build = committed = None
+        if ecfg.goal_mode:
+            # goal mode: a collision in the committed trajectory stops it,
+            # discards it and replans from hover (:474-480); a statically
+            # occupied goal region is an invalid goal, a permanent stop
+            # (:460-471)
+            stop_replan = traj_hit
+            goal_invalid = active & goal_region_occupied(occ, goal, S)
+            fresh = mpclib.init_planner_state(cfg.planner, S, dev)
+            planner_in = tree_where(stop_replan, fresh, planner_in)
+            ref_anchor = tree_where(stop_replan, carry.pos, carry.ref_anchor)
+            L = ref_traj.shape[0]
+            if ecfg.ref_mode == "linspace":
+                # the straight input trajectory from the anchor, rebuilt every
+                # cycle (valid only over an empty corridor)
+                ref_traj = linspace(ref_anchor, goal.expand(S, 3), L)
+                traj_len = torch.full((S,), L, dtype=torch.int32, device=dev)
+            else:
+                # stop pass -> build pass -> solve pass, like the reference's
+                # refTrajReady_ handshake: the build pass does not solve the
+                # MPC, and updatePath resets the planner's warm state
+                build = carry.need_ref & ~stop_replan & active
+                ref_traj, traj_len, committed = _build_ref(
+                    cfg, occ, carry, goal, build, ref_key, cycle_idx)
+                planner_in = tree_where(committed, fresh, planner_in)
 
-    dyn_safety, stall_new = None, carry.stall_cycles
-    if ecfg.goal_relax:
-        stall_new, dyn_safety = _goal_relax(cfg, carry, goal, active)
+        static_obs = (_static_rows(cfg, occ, carry.pos)
+                      if cfg.planner.static_clustering else None)
+
+        dyn_safety, stall_new = None, carry.stall_cycles
+        if ecfg.goal_relax:
+            stall_new, dyn_safety = _goal_relax(cfg, carry, goal, active)
 
     # ---- predictor + MPC (mpcCB :290-365) ----
     if ecfg.use_predictor:
-        prediction = predlib.predict(cfg.predictor, pos_h, vel_h, acc_h,
-                                     size_h, hist_len, occ)
-        plan_out = mpclib.make_plan_with_pred(
-            cfg.planner, planner_in, carry.pos, carry.vel, ref_traj, traj_len,
-            prediction, visible, solver_iters, cycle_idx=cycle_idx,
-            curr_yaw=carry.yaw if ecfg.use_fov else None,
-            dyn_safety=dyn_safety, static_obs=static_obs,
-            solve_override=solve_override)
+        with trace.span("predict"):
+            prediction = predlib.predict(cfg.predictor, pos_h, vel_h, acc_h,
+                                         size_h, hist_len, occ)
+        with trace.span("plan"):
+            plan_out = mpclib.make_plan_with_pred(
+                cfg.planner, planner_in, carry.pos, carry.vel, ref_traj,
+                traj_len, prediction, visible, solver_iters,
+                cycle_idx=cycle_idx,
+                curr_yaw=carry.yaw if ecfg.use_fov else None,
+                dyn_safety=dyn_safety, static_obs=static_obs,
+                solve_override=solve_override)
     else:
         # use_predictor=false: obstacles held constant over the horizon
         # (mpcNavigation.cpp:301-311 + updateDynamicObstacles); as in JAX
         # this path takes no FOV rows
-        plan_out = mpclib.make_plan(
-            cfg.planner, planner_in, carry.pos, carry.vel, ref_traj,
-            traj_len, pos_h[:, :, 0], vel_h[:, :, 0], size_h[:, :, 0],
-            visible, solver_iters, static_obs=static_obs,
-            dyn_safety=dyn_safety)
+        with trace.span("plan"):
+            plan_out = mpclib.make_plan(
+                cfg.planner, planner_in, carry.pos, carry.vel, ref_traj,
+                traj_len, pos_h[:, :, 0], vel_h[:, :, 0], size_h[:, :, 0],
+                visible, solver_iters, static_obs=static_obs,
+                dyn_safety=dyn_safety)
 
     run_mpc = active & ~carry.stopping
     traj_ready = carry.traj_ready
@@ -589,120 +605,121 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     end_time = H * cfg.planner.ts
     zero3 = torch.zeros_like(pos)
 
-    for k in range(ecfg.ticks_per_cycle):
-        tk = t0 + k * dt
-        t_traj = traj_age.to(torch.float32) * cycle_dt + k * dt   # (S,)
+    with trace.span("ticks"):
+        for k in range(ecfg.ticks_per_cycle):
+            tk = t0 + k * dt
+            t_traj = traj_age.to(torch.float32) * cycle_dt + k * dt   # (S,)
 
-        # ---- target from trajectory (trajExeCB :499-567) ----
-        tp = mpclib.sample_pos(cfg.planner, planner.states_sol, t_traj)
-        tv = mpclib.sample_vel(cfg.planner, planner.states_sol, t_traj)
-        ta = mpclib.sample_acc(cfg.planner, planner.controls_sol, t_traj)
-        past_end = t_traj >= end_time
-        tv = tree_where(past_end, zero3, tv)
-        ta = tree_where(past_end, zero3, ta)
-        # stop mode or no trajectory: hold position
-        hold = stopping | ~traj_ready
-        hold_pos = tree_where(stopping, stop_pos, pos)
-        tp = tree_where(hold, hold_pos, tp)
-        tv = tree_where(hold, zero3, tv)
-        ta = tree_where(hold, zero3, ta)
+            # ---- target from trajectory (trajExeCB :499-567) ----
+            tp = mpclib.sample_pos(cfg.planner, planner.states_sol, t_traj)
+            tv = mpclib.sample_vel(cfg.planner, planner.states_sol, t_traj)
+            ta = mpclib.sample_acc(cfg.planner, planner.controls_sol, t_traj)
+            past_end = t_traj >= end_time
+            tv = tree_where(past_end, zero3, tv)
+            ta = tree_where(past_end, zero3, ta)
+            # stop mode or no trajectory: hold position
+            hold = stopping | ~traj_ready
+            hold_pos = tree_where(stopping, stop_pos, pos)
+            tp = tree_where(hold, hold_pos, tp)
+            tv = tree_where(hold, zero3, tv)
+            ta = tree_where(hold, zero3, ta)
 
-        # ---- control + dynamics ----
-        acc_cmd, ctrl_new = acc_command(cfg.control, ctrl, pos, vel, tp, tv,
-                                        ta, dt)
-        ctrl = tree_where(active, ctrl_new, ctrl)
-        if ecfg.perfect_tracking:
-            new_pos, new_vel = tp, tv
-        elif ecfg.plant == "quadrotor":
-            # rigid-body plant (quadcopterPlugin acc-control mode): the
-            # controller's world-acc command and the trajectory heading
-            # drive the PID -> force/torque cascade
-            quad = tree_where(active, quad_step(QuadPlantConfig(), quad,
-                                                acc_cmd, yaw, dt), quad)
-            new_pos, new_vel = quad.pos, quad.vel
-        else:
-            new_vel = vel + acc_cmd * dt
-            new_pos = pos + vel * dt + 0.5 * acc_cmd * dt ** 2
-        step_len = torch.linalg.vector_norm(new_pos - pos, dim=-1)
-        pos = tree_where(active, new_pos, pos)
-        vel = tree_where(active, new_vel, vel)
-
-        # ---- world state at this tick ----
-        obs_pos_t, _ = obstacle_state(scenario, tk + dt)
-        # ~30 Hz history pushes; tick 0's push is the cycle-start push above
-        if k in ecfg.hist_ticks and k != 0:
-            if ecfg.use_fake_detector:
-                d2 = det.fd_update(cfg.detector, d, obs_pos_t, tk + dt)
-                d = det.hist_push(d2, obs_pos_t)
+            # ---- control + dynamics ----
+            acc_cmd, ctrl_new = acc_command(cfg.control, ctrl, pos, vel, tp, tv,
+                                            ta, dt)
+            ctrl = tree_where(active, ctrl_new, ctrl)
+            if ecfg.perfect_tracking:
+                new_pos, new_vel = tp, tv
+            elif ecfg.plant == "quadrotor":
+                # rigid-body plant (quadcopterPlugin acc-control mode): the
+                # controller's world-acc command and the trajectory heading
+                # drive the PID -> force/torque cascade
+                quad = tree_where(active, quad_step(QuadPlantConfig(), quad,
+                                                    acc_cmd, yaw, dt), quad)
+                new_pos, new_vel = quad.pos, quad.vel
             else:
-                rd = _sense(cfg, rd, scenario, pos, yaw, obs_pos_t, cam_occ,
-                            veto_occ)
+                new_vel = vel + acc_cmd * dt
+                new_pos = pos + vel * dt + 0.5 * acc_cmd * dt ** 2
+            step_len = torch.linalg.vector_norm(new_pos - pos, dim=-1)
+            pos = tree_where(active, new_pos, pos)
+            vel = tree_where(active, new_vel, vel)
 
-        # ---- monitor updates (masked once done) ----
-        dist_boxes = _aabb_distance(pos, obs_pos_t, scenario.bbox)
-        min_d = torch.amin(dist_boxes, dim=-1)
-        hit = torch.any(dist_boxes <= 0.0, dim=-1)
-        tol = ecfg.violation_tol
-        v_viol = torch.any(torch.abs(tv) > ecfg.vel_limit + tol, dim=-1)
-        a_viol = torch.any(torch.abs(ta) > ecfg.acc_limit + tol, dim=-1)
-        jerk = (ta - prev_acc) / dt
-        j_viol = torch.any(torch.abs(jerk) > ecfg.jerk_limit + tol,
-                           dim=-1) & has_prev
-        jmag = torch.linalg.vector_norm(jerk, dim=-1)
-        vmag = torch.linalg.vector_norm(tv, dim=-1)
-        amag = torch.linalg.vector_norm(ta, dim=-1)
+            # ---- world state at this tick ----
+            obs_pos_t, _ = obstacle_state(scenario, tk + dt)
+            # ~30 Hz history pushes; tick 0's push is the cycle-start push above
+            if k in ecfg.hist_ticks and k != 0:
+                if ecfg.use_fake_detector:
+                    d2 = det.fd_update(cfg.detector, d, obs_pos_t, tk + dt)
+                    d = det.hist_push(d2, obs_pos_t)
+                else:
+                    rd = _sense(cfg, rd, scenario, pos, yaw, obs_pos_t, cam_occ,
+                                veto_occ)
 
-        upd = active
-        ui = upd.to(torch.int32)
-        zf = torch.zeros_like(vmag)
-        m = metrics
-        metrics = m._replace(
-            min_obstacle_dist=torch.where(
-                upd, torch.minimum(m.min_obstacle_dist, min_d),
-                m.min_obstacle_dist),
-            collision=m.collision | (hit & upd),
-            collision_count=m.collision_count + (hit & upd).to(torch.int32),
-            path_length=m.path_length + torch.where(upd, step_len, zf),
-            vel_violations=m.vel_violations + (v_viol & upd).to(torch.int32),
-            acc_violations=m.acc_violations + (a_viol & upd).to(torch.int32),
-            jerk_violations=m.jerk_violations + (j_viol & upd).to(torch.int32),
-            samples=m.samples + ui,
-            jerk_samples=m.jerk_samples + (has_prev & upd).to(torch.int32),
-            max_velocity=torch.where(upd, torch.maximum(m.max_velocity, vmag),
-                                     m.max_velocity),
-            max_acceleration=torch.where(
-                upd, torch.maximum(m.max_acceleration, amag),
-                m.max_acceleration),
-            sum_velocity=m.sum_velocity
-            + torch.where(upd & (vmag > 0.01), vmag, zf),
-            n_vel_valid=m.n_vel_valid + (upd & (vmag > 0.01)).to(torch.int32),
-            jerk_sq_sum=m.jerk_sq_sum
-            + torch.where(upd & has_prev, jmag ** 2, zf),
-            jerk_abs_sum=m.jerk_abs_sum
-            + torch.where(upd & has_prev, jmag, zf),
-        )
-        prev_acc = tree_where(active, ta, prev_acc)
-        has_prev = has_prev | active
-        if ecfg.yaw_lookahead > 0.0:
-            yaw = _lookahead_yaw(cfg, planner, t_traj, yaw,
-                                 active & traj_ready & ~hold & ~past_end)
-        else:
-            yaw = _velocity_yaw(tv, yaw, active)
+            # ---- monitor updates (masked once done) ----
+            dist_boxes = _aabb_distance(pos, obs_pos_t, scenario.bbox)
+            min_d = torch.amin(dist_boxes, dim=-1)
+            hit = torch.any(dist_boxes <= 0.0, dim=-1)
+            tol = ecfg.violation_tol
+            v_viol = torch.any(torch.abs(tv) > ecfg.vel_limit + tol, dim=-1)
+            a_viol = torch.any(torch.abs(ta) > ecfg.acc_limit + tol, dim=-1)
+            jerk = (ta - prev_acc) / dt
+            j_viol = torch.any(torch.abs(jerk) > ecfg.jerk_limit + tol,
+                               dim=-1) & has_prev
+            jmag = torch.linalg.vector_norm(jerk, dim=-1)
+            vmag = torch.linalg.vector_norm(tv, dim=-1)
+            amag = torch.linalg.vector_norm(ta, dim=-1)
 
-        # goal criterion (run_mpc_benchmark.py:268-276); with repeat_path
-        # the trial completes only once the last round's goal stop fired
-        reached = (torch.linalg.vector_norm(pos - goal, dim=-1)
-                   < ecfg.goal_dist_threshold) \
-            & (torch.linalg.vector_norm(vel, dim=-1) < ecfg.goal_vel_threshold) \
-            & active
-        if ecfg.repeat_path > 1:
-            reached = reached & stopping
-        metrics = metrics._replace(
-            goal_reached=metrics.goal_reached | reached,
-            travel_time=torch.where(reached & ~done, tk + dt,
-                                    metrics.travel_time))
-        done = done | reached
-        active = ~done
+            upd = active
+            ui = upd.to(torch.int32)
+            zf = torch.zeros_like(vmag)
+            m = metrics
+            metrics = m._replace(
+                min_obstacle_dist=torch.where(
+                    upd, torch.minimum(m.min_obstacle_dist, min_d),
+                    m.min_obstacle_dist),
+                collision=m.collision | (hit & upd),
+                collision_count=m.collision_count + (hit & upd).to(torch.int32),
+                path_length=m.path_length + torch.where(upd, step_len, zf),
+                vel_violations=m.vel_violations + (v_viol & upd).to(torch.int32),
+                acc_violations=m.acc_violations + (a_viol & upd).to(torch.int32),
+                jerk_violations=m.jerk_violations + (j_viol & upd).to(torch.int32),
+                samples=m.samples + ui,
+                jerk_samples=m.jerk_samples + (has_prev & upd).to(torch.int32),
+                max_velocity=torch.where(upd, torch.maximum(m.max_velocity, vmag),
+                                         m.max_velocity),
+                max_acceleration=torch.where(
+                    upd, torch.maximum(m.max_acceleration, amag),
+                    m.max_acceleration),
+                sum_velocity=m.sum_velocity
+                + torch.where(upd & (vmag > 0.01), vmag, zf),
+                n_vel_valid=m.n_vel_valid + (upd & (vmag > 0.01)).to(torch.int32),
+                jerk_sq_sum=m.jerk_sq_sum
+                + torch.where(upd & has_prev, jmag ** 2, zf),
+                jerk_abs_sum=m.jerk_abs_sum
+                + torch.where(upd & has_prev, jmag, zf),
+            )
+            prev_acc = tree_where(active, ta, prev_acc)
+            has_prev = has_prev | active
+            if ecfg.yaw_lookahead > 0.0:
+                yaw = _lookahead_yaw(cfg, planner, t_traj, yaw,
+                                     active & traj_ready & ~hold & ~past_end)
+            else:
+                yaw = _velocity_yaw(tv, yaw, active)
+
+            # goal criterion (run_mpc_benchmark.py:268-276); with repeat_path
+            # the trial completes only once the last round's goal stop fired
+            reached = (torch.linalg.vector_norm(pos - goal, dim=-1)
+                       < ecfg.goal_dist_threshold) \
+                & (torch.linalg.vector_norm(vel, dim=-1) < ecfg.goal_vel_threshold) \
+                & active
+            if ecfg.repeat_path > 1:
+                reached = reached & stopping
+            metrics = metrics._replace(
+                goal_reached=metrics.goal_reached | reached,
+                travel_time=torch.where(reached & ~done, tk + dt,
+                                        metrics.travel_time))
+            done = done | reached
+            active = ~done
 
     new_carry = EngineCarry(
         pos=pos, vel=vel, detector=d, planner=planner, controller=ctrl,

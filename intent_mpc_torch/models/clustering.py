@@ -28,13 +28,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from intent_mpc_torch.utils import trace
 from intent_mpc_torch.utils.device import constant
 from intent_mpc_torch.utils.rounding import fma, norm3, sq_sum3
 
-# host reads of DBSCAN's "labels changed" flag since the last reset (one
-# per block of DBSCAN_BLOCK rounds), and the rounds run
-HOST_READS = 0
-ROUNDS = 0
 DBSCAN_BLOCK = 8
 
 
@@ -64,13 +61,13 @@ def dbscan(points: torch.Tensor, valid: torch.Tensor, eps: float,
     JAX runs the propagation in a while_loop until no label changes. Here
     the rounds run in blocks of DBSCAN_BLOCK, and the host reads the
     "changed" flag of a block's last round once per block: the only
-    synchronization. Each round takes the minimum label over the core
+    synchronization. The reads count as "clustering.host_reads" and the
+    rounds as "clustering.rounds" in utils/trace. Each round takes the minimum label over the core
     neighbours and then jumps once through the label's own label (a core
     point's label is the index of a core point of its component, so
     labels[labels] stays inside the component). That reaches the same
     fixed point, the component minimum, in fewer rounds; rounds past it
     change nothing."""
-    global HOST_READS, ROUNDS
     S, P = points.shape[:2]
     x, y, z = (points[:, :, None, a] - points[:, None, :, a]
                for a in range(3))
@@ -92,8 +89,8 @@ def dbscan(points: torch.Tensor, valid: torch.Tensor, eps: float,
             new = torch.where(core, torch.minimum(new, jump), labels)
             changed = torch.any(new != labels)
             labels = new
-        ROUNDS += DBSCAN_BLOCK
-        HOST_READS += 1
+        trace.count("clustering.rounds", DBSCAN_BLOCK)
+        trace.count("clustering.host_reads")
         if not bool(changed):
             break
     del core_adj

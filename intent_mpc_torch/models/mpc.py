@@ -32,6 +32,7 @@ from intent_mpc_torch.ops.admm import (Factor, admm_factor, admm_solve,
                                        candidate_mean)
 from intent_mpc_torch.ops.fleet import fleet_admm
 from intent_mpc_torch.ops.polish import polish
+from intent_mpc_torch.utils import trace
 from intent_mpc_torch.utils.config import PlannerConfig
 from intent_mpc_torch.utils.device import constant
 
@@ -459,42 +460,43 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
 
     fac_carry = None
     refreshed = None
-    if solve_override is not None:
-        res = solve_override(qps, warm6)
-    elif cfg.solver.fused_solve:
-        # the fleet kernel (ops/fleet.py): one launch solves every candidate
-        # of every scenario; it factors each cycle and carries no factor,
-        # so the carried fac_* fields pass through unchanged
-        res = fleet_admm(cfg, qps, warm6, max_iter, rho_override=state.rho)
-    elif cfg.solver.shared_factor and cfg.solver.woodbury_candidates:
-        # the candidates differ from their mean QP only in the closest
-        # obstacle's slot and the second-series slot (build_candidates):
-        # factor the mean without those rows, every cycle (no reuse, as in
-        # JAX), and solve each candidate exactly by a Woodbury correction
-        qp_mean = candidate_mean(qps)
-        diff_slots = torch.stack([closest, torch.full_like(
-            closest, pred.pos.shape[1])], dim=-1)                 # (S, 2)
-        act = qp_mean.obs_active                                  # (S, W, K)
-        keep_slot = 1.0 - torch.nn.functional.one_hot(
-            diff_slots, act.shape[-1]).amax(-2).to(act.dtype)     # (S, K)
-        fac = admm_factor(cfg, qp_mean._replace(
-            obs_active=act * keep_slot[:, None, :]),
-            rho_override=state.rho)
-        refreshed = torch.ones((S,), dtype=torch.bool, device=dev)
-        res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
-                         factor=fac, diff_slots=diff_slots)
-    elif cfg.solver.shared_factor:
-        # one factorization per scenario: the candidate-mean QP with union
-        # obstacle activity; each candidate refines against its own M
-        qp_mean = candidate_mean(qps)
-        fac, fac_carry, refreshed = _shared_factor(cfg, state, qp_mean,
-                                                   cycle_idx, curr_yaw)
-        res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
-                         factor=fac)
-    else:
-        # a factor per candidate, OSQP's own per-problem factorization (and
-        # with adaptive_rho its in-solve rho rule)
-        res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho)
+    with trace.span("solve"):
+        if solve_override is not None:
+            res = solve_override(qps, warm6)
+        elif cfg.solver.fused_solve:
+            # the fleet kernel (ops/fleet.py): one launch solves every candidate
+            # of every scenario; it factors each cycle and carries no factor,
+            # so the carried fac_* fields pass through unchanged
+            res = fleet_admm(cfg, qps, warm6, max_iter, rho_override=state.rho)
+        elif cfg.solver.shared_factor and cfg.solver.woodbury_candidates:
+            # the candidates differ from their mean QP only in the closest
+            # obstacle's slot and the second-series slot (build_candidates):
+            # factor the mean without those rows, every cycle (no reuse, as in
+            # JAX), and solve each candidate exactly by a Woodbury correction
+            qp_mean = candidate_mean(qps)
+            diff_slots = torch.stack([closest, torch.full_like(
+                closest, pred.pos.shape[1])], dim=-1)                 # (S, 2)
+            act = qp_mean.obs_active                                  # (S, W, K)
+            keep_slot = 1.0 - torch.nn.functional.one_hot(
+                diff_slots, act.shape[-1]).amax(-2).to(act.dtype)     # (S, K)
+            fac = admm_factor(cfg, qp_mean._replace(
+                obs_active=act * keep_slot[:, None, :]),
+                rho_override=state.rho)
+            refreshed = torch.ones((S,), dtype=torch.bool, device=dev)
+            res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
+                             factor=fac, diff_slots=diff_slots)
+        elif cfg.solver.shared_factor:
+            # one factorization per scenario: the candidate-mean QP with union
+            # obstacle activity; each candidate refines against its own M
+            qp_mean = candidate_mean(qps)
+            fac, fac_carry, refreshed = _shared_factor(cfg, state, qp_mean,
+                                                       cycle_idx, curr_yaw)
+            res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho,
+                             factor=fac)
+        else:
+            # a factor per candidate, OSQP's own per-problem factorization (and
+            # with adaptive_rho its in-solve rho rule)
+            res = admm_solve(cfg, qps, warm6, max_iter, rho_override=rho)
     states6, _ = qplib.split_z(res.x, cfg)                        # (S,6,H,8)
 
     # Acceptance mirrors the reference: OSQP's status is never checked
@@ -667,7 +669,8 @@ def make_plan(cfg: PlannerConfig, state: PlannerState,
     warm = _where_s(state.has_solution,
                     qplib.merge_z(state.states_sol, state.controls_sol),
                     torch.zeros((S, cfg.num_vars), dtype=dt, device=dev))
-    res = admm_solve(cfg, qp, warm, max_iter, rho_override=state.rho)
+    with trace.span("solve"):
+        res = admm_solve(cfg, qp, warm, max_iter, rho_override=state.rho)
     Xs, Us = qplib.split_z(res.x, cfg)
     accepted = torch.isfinite(res.prim_res) & (res.prim_res < 1e3) \
         & torch.all(torch.isfinite(res.x), dim=-1)

@@ -65,6 +65,7 @@ from intent_mpc_torch.ops.dense_loop import (DenseScaledProblem,
                                              csr_capacity)
 from intent_mpc_torch.ops.ew_chain import ew_chain
 from intent_mpc_torch.ops.qp import ConVec, QPData
+from intent_mpc_torch.utils import trace
 from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
 
 
@@ -96,10 +97,6 @@ class Factor(NamedTuple):
     c: torch.Tensor
     Minv: torch.Tensor       # (..., n, n)
 
-
-# host reads of the all-done flag by truncation="osqp" solves since the
-# last reset (one per full block but the last, as _iterate_truncated says)
-HOST_READS = 0
 
 def check_supported(scfg: SolverConfig) -> None:
     """Raise ValueError for a solver option value that names no mode:
@@ -174,20 +171,22 @@ def admm_factor(cfg: PlannerConfig, qp: QPData,
                 scfg: Optional[SolverConfig] = None,
                 rho_override=None) -> Factor:
     """Scaling + explicit normal-matrix inverse of one (representative)
-    QP per batch entry, for reuse via admm_solve(factor=...)."""
+    QP per batch entry, for reuse via admm_solve(factor=...), inside the
+    span "factor" of utils/trace."""
     scfg = scfg or cfg.solver
     check_supported(scfg)
-    hdiag = qplib.hessian_diag(cfg, qp.q.device)
-    D, E, c = ruiz_equilibrate(cfg, qp, hdiag, scfg.scaling_iters)
-    h_s = c[..., None] * D * D * hdiag
-    rho_base = scfg.rho if rho_override is None else rho_override
-    rho = qplib.rho_vec(cfg, qp, rho_base, scfg.rho_eq_scale)
-    rho_inner = rho.map(lambda r, e: r * e * e, E)
-    Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
-    if scfg.minv_dtype == "bf16":
-        # storage only: every product reads it back as float32 (exact),
-        # as JAX's bf16 x f32 matmul promotes
-        Minv = Minv.to(torch.bfloat16)
+    with trace.span("factor"):
+        hdiag = qplib.hessian_diag(cfg, qp.q.device)
+        D, E, c = ruiz_equilibrate(cfg, qp, hdiag, scfg.scaling_iters)
+        h_s = c[..., None] * D * D * hdiag
+        rho_base = scfg.rho if rho_override is None else rho_override
+        rho = qplib.rho_vec(cfg, qp, rho_base, scfg.rho_eq_scale)
+        rho_inner = rho.map(lambda r, e: r * e * e, E)
+        Minv = _explicit_minv(cfg, qp, h_s, scfg, rho_inner, D)
+        if scfg.minv_dtype == "bf16":
+            # storage only: every product reads it back as float32 (exact),
+            # as JAX's bf16 x f32 matmul promotes
+            Minv = Minv.to(torch.bfloat16)
     return Factor(D=D, E=E, c=c, Minv=Minv)
 
 
@@ -784,11 +783,11 @@ def _iterate_truncated(step, carry, iters: int, scfg: SolverConfig,
     iters % blk runs once for the problems still live, so the cap is
     exact. As JAX's while_loop stops once every lane is done, the loop
     reads one boolean per block on the host (not after the last full
-    block): the only synchronization of this path. Frozen problems are
-    computed with the rest and then kept, as under vmap.
+    block), counted as "admm.host_reads" in utils/trace: the only
+    synchronization of this path. Frozen problems are computed with the
+    rest and then kept, as under vmap.
 
     Returns (carry, iterations each problem ran)."""
-    global HOST_READS
     blk = scfg.term_check_interval
     nfull = (iters // blk) * blk
     xs = carry[0]
@@ -805,7 +804,7 @@ def _iterate_truncated(step, carry, iters: int, scfg: SolverConfig,
         done = done | unscale.converged(scfg, *carry[:3])
         k += blk
         if k < nfull:
-            HOST_READS += 1
+            trace.count("admm.host_reads")
             if bool(done.all()):
                 all_done = True
                 break

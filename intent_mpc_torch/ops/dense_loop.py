@@ -35,8 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-# kernel launches since the last reset (only the CUDA path counts)
-DENSE_LAUNCHES = 0
+from intent_mpc_torch.utils import trace
 
 # what dense_loop_launch returns for shapes the kernel does not take
 _CUDA_ERROR_INVALID_VALUE = 1
@@ -182,8 +181,8 @@ def _check(sp: DenseScaledProblem) -> None:
 def admm_iterations_dense(sp: DenseScaledProblem, iters: int, sigma: float,
                           alpha: float, refine: int = 1) -> torch.Tensor:
     """Run the whole loop for all candidates; returns the scaled x
-    (C, n_pad)."""
-    global DENSE_LAUNCHES
+    (C, n_pad). A kernel launch counts as "dense_loop.launches" in
+    utils/trace."""
     _check(sp)
     dev = sp.minv.device
     if dev.type == "cpu":
@@ -215,7 +214,7 @@ def admm_iterations_dense(sp: DenseScaledProblem, iters: int, sigma: float,
     if err != 0:
         raise RuntimeError("dense_loop kernel launch failed: cudaError %d"
                            % err)
-    DENSE_LAUNCHES += 1
+    trace.count("dense_loop.launches")
     # a candidate whose A did not fit the CSR stopped with its count in
     # status: fail on the device, without a host sync
     if C:

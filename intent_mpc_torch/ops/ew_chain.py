@@ -27,9 +27,7 @@ import ctypes
 import torch
 
 from intent_mpc_torch.ops.qp import ConVec
-
-# kernel launches since the last reset (only the CUDA path counts)
-EW_LAUNCHES = 0
+from intent_mpc_torch.utils import trace
 
 NUM_GROUPS = 4
 NUM_SEGMENTS = 1 + NUM_GROUPS    # x, then the groups
@@ -139,8 +137,8 @@ def ew_chain(alpha: float, x, x_t, z: ConVec, y: ConVec, zt: ConVec,
     """Returns (x_n, z_n: ConVec, y_n: ConVec, rzy: ConVec).
 
     All inputs are float32, contiguous and on one device; each group's
-    six tensors share one shape, and x, x_t share another."""
-    global EW_LAUNCHES
+    six tensors share one shape, and x, x_t share another. A kernel
+    launch counts as "ew_chain.launches" in utils/trace."""
     groups = (z, y, zt, rho, l, u)
     _check(x, x_t, groups)
     if x.device.type == "cpu":
@@ -171,5 +169,5 @@ def ew_chain(alpha: float, x, x_t, z: ConVec, y: ConVec, zt: ConVec,
     err = lib.ew_chain_launch(ctypes.addressof(args), stream)
     if err != 0:
         raise RuntimeError("ew_chain kernel launch failed: cudaError %d" % err)
-    EW_LAUNCHES += 1
+    trace.count("ew_chain.launches")
     return x_n, z_n, y_n, rzy

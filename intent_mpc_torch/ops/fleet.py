@@ -50,10 +50,8 @@ from intent_mpc_torch.ops import qp as qplib
 from intent_mpc_torch.ops.admm import (ADMMResult, Factor, admm_factor,
                                        candidate_mean, primal_residual)
 from intent_mpc_torch.ops.qp import NU, NX, ConVec, QPData
+from intent_mpc_torch.utils import trace
 from intent_mpc_torch.utils.config import PlannerConfig, SolverConfig
-
-# kernel launches since the last reset (only the CUDA path counts)
-FLEET_LAUNCHES = 0
 
 # the kernel's phase kinds, in the order of its optional cycle count
 # (enum Phase in csrc/fleet_admm.cu; benchmark/fleet_phases.py reads it)
@@ -477,8 +475,8 @@ def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
             refine: int, clk: Optional[torch.Tensor] = None):
     """One launch of the kernel on a checked CUDA problem. `clk`, an int64
     (S, len(PHASES)) tensor, receives each block's cycles per phase kind
-    (benchmark/fleet_phases.py); every other caller passes None."""
-    global FLEET_LAUNCHES
+    (benchmark/fleet_phases.py); every other caller passes None. The
+    launch counts as "fleet_admm.launches" in utils/trace."""
     dev = fp.minv.device
     S = fp.minv.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
@@ -503,7 +501,7 @@ def _launch(cfg: PlannerConfig, fp: FleetProblem, d: FleetDims, iters: int,
     if err != 0:
         raise RuntimeError("fleet_admm kernel launch failed: cudaError %d"
                            % err)
-    FLEET_LAUNCHES += 1
+    trace.count("fleet_admm.launches")
     return x, yl, yo
 
 

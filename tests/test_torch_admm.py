@@ -17,6 +17,7 @@ from intent_mpc_torch.ops import block_chol as tbc
 from intent_mpc_torch.ops import qp as tqp
 from intent_mpc_torch.oracle import native
 from intent_mpc_torch.oracle import numpy_ref as oracle
+from intent_mpc_torch.utils import trace
 
 from test_qp import _random_problem
 from test_torch_qp import build_both, configs, stack_jax, to_torch
@@ -350,10 +351,11 @@ def test_osqp_truncation_matches_jax(truncation_batch, ew_kernel):
     tc = _with(tcfg, truncation="osqp", max_iter=410, ew_kernel=ew_kernel)
     jr = jax.vmap(lambda q, r: jadmm.admm_solve(jc, q, rho_override=r))(
         jqs, jnp.asarray(TRUNC_RHO))
-    tadmm.HOST_READS = 0
+    trace.reset("admm.host_reads")
     tr = tadmm.admm_solve(tc, tqs, rho_override=torch.as_tensor(TRUNC_RHO))
     assert tr.iters.tolist() == [200, 325, 350, 410]
-    assert tadmm.HOST_READS == 15          # 16 full blocks, no read after
+    # 16 full blocks, no read after the last
+    assert trace.counters()["admm.host_reads"] == 15
     np.testing.assert_allclose(tr.x.numpy(), np.asarray(jr.x), atol=1e-4,
                                rtol=0)
     np.testing.assert_allclose(tr.prim_res.numpy(), np.asarray(jr.prim_res),

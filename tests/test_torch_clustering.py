@@ -13,6 +13,7 @@ import torch
 from intent_mpc_tpu.models import clustering as jclus
 from intent_mpc_tpu.models import occupancy as jocc
 from intent_mpc_torch.models import clustering as tclus
+from intent_mpc_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -53,15 +54,17 @@ def test_dbscan_labels_match_jax(cloud):
         valid[-3:] = False
     want = np.asarray(jax.jit(jclus.dbscan, static_argnames=(
         "eps", "min_pts"))(pts, valid, eps=0.5, min_pts=min_pts))
-    tclus.HOST_READS = tclus.ROUNDS = 0
+    trace.reset("clustering.host_reads", "clustering.rounds")
     got = tclus.dbscan(torch.as_tensor(pts)[None], torch.as_tensor(valid)[None],
                        0.5, min_pts)
     np.testing.assert_array_equal(got[0].numpy(), want)
     assert got.dtype == torch.int32
-    assert tclus.ROUNDS == tclus.DBSCAN_BLOCK * tclus.HOST_READS
+    counts = trace.counters()
+    reads = counts["clustering.host_reads"]
+    assert counts["clustering.rounds"] == tclus.DBSCAN_BLOCK * reads
     if cloud == "chain":
         assert len(set(want.tolist())) == 1          # one cluster
-        assert tclus.HOST_READS > 1
+        assert reads > 1
 
 
 def test_dbscan_batched_rows_equal_single_rows():

@@ -11,6 +11,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import sys
 
 import pytest
@@ -35,6 +36,7 @@ from intent_mpc_torch.ops import fleet as fl  # noqa: E402
 from intent_mpc_torch.ops import qp as qplib  # noqa: E402
 from intent_mpc_torch.ops.qp import ConVec  # noqa: E402
 from intent_mpc_torch.parallel import sharding as sh  # noqa: E402
+from intent_mpc_torch.utils import trace  # noqa: E402
 from intent_mpc_torch.utils.config import (IntentMPCConfig,  # noqa: E402
                                            PlannerConfig, SolverConfig,
                                            small_config)
@@ -49,6 +51,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     return torch.device("cuda")
+
+
+def _launches(kernel):
+    """The kernel's launches counted by utils/trace since its last reset."""
+    return trace.counters().get(kernel + ".launches", 0)
 
 
 def _regime_args(device, batch=(6, 6), H=10, W=9, K=8, n=125):
@@ -102,12 +109,12 @@ def test_kernel_bit_equal_to_plain_version(cuda_device, S):
         args = _regime_args(cuda_device, batch=(S * 6,), H=30, W=29, K=65,
                             n=385)
         assert args[0].numel() % 4 and args[2].cb.numel() % 4
-    before = ew.EW_LAUNCHES
+    before = _launches("ew_chain")
     got = ew.ew_chain(ALPHA, *args)
     want = ew.ew_chain_reference(ALPHA, *args)
     again = ew.ew_chain(ALPHA, *args)
     torch.cuda.synchronize()
-    assert ew.EW_LAUNCHES == before + 2
+    assert _launches("ew_chain") == before + 2
     for g, w, a in zip(_flat(got), _flat(want), _flat(again)):
         assert torch.equal(torch.isnan(g), torch.isnan(w))
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
@@ -122,10 +129,10 @@ def test_kernel_refuses_a_misaligned_view(cuda_device):
     base = torch.zeros(args[0].numel() + 1, device=cuda_device)
     view = base[1:].view(args[0].shape)
     view.copy_(args[0])
-    before = ew.EW_LAUNCHES
+    before = _launches("ew_chain")
     with pytest.raises(ValueError, match="16-byte"):
         ew.ew_chain(ALPHA, view, *args[1:])
-    assert ew.EW_LAUNCHES == before
+    assert _launches("ew_chain") == before
 
 
 @pytest.mark.cuda
@@ -138,10 +145,10 @@ def test_closed_loop_on_card_matches_cpu(cuda_device):
     cfg = small_config(num_obstacles=4, horizon=8, timeout=0.5,
                        max_obstacles=4, hist=8).replace(goal=(6.0, 0.0, 2.0))
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 0.5)
-    ew.EW_LAUNCHES = 0
+    trace.reset("ew_chain.launches")
     gpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1]), ref,
                             ref.shape[0], num_cycles=4)
-    assert ew.EW_LAUNCHES == 4 * cfg.planner.solver.max_iter
+    assert _launches("ew_chain") == 4 * cfg.planner.solver.max_iter
     cpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1], device="cpu"),
                             ref, ref.shape[0], num_cycles=4, device="cpu")
     assert gpu.pos.device.type == "cuda"
@@ -163,11 +170,11 @@ def test_fleet_kernel_matches_plain_version(cuda_device):
     warm = torch.zeros((4, 6, pcfg.num_vars), device=cuda_device)
     fp, _ = fl.fleet_setup(pcfg, qps, warm)
     for iters, tol in ((1, 1e-5), (60, 1e-3)):
-        before = fl.FLEET_LAUNCHES
+        before = _launches("fleet_admm")
         got = fl.fleet_solve(pcfg, fp, iters, 3)
         want = fl.fleet_solve_reference(pcfg, fp, iters, 3)
         torch.cuda.synchronize()
-        assert fl.FLEET_LAUNCHES == before + 1
+        assert _launches("fleet_admm") == before + 1
         live = want[0][:, :fl.LIVE]
         err = float((got[0][:, :fl.LIVE] - live).abs().max())
         assert err <= tol * float(live.abs().max()), (iters, err)
@@ -194,11 +201,11 @@ def _check_fleet(pcfg, fp, iters, refine, tol):
     """One launch against fleet_solve_reference, with the tolerances of
     test_fleet_kernel_matches_plain_version: x within tol of max|x|, the
     duals within 1e-3 of their scale, the inert slots zero."""
-    before = fl.FLEET_LAUNCHES
+    before = _launches("fleet_admm")
     got = fl.fleet_solve(pcfg, fp, iters, refine)
     want = fl.fleet_solve_reference(pcfg, fp, iters, refine)
     torch.cuda.synchronize()
-    assert fl.FLEET_LAUNCHES == before + 1
+    assert _launches("fleet_admm") == before + 1
     live = want[0][:, :fl.LIVE]
     err = float((got[0][:, :fl.LIVE] - live).abs().max())
     assert err <= tol * float(live.abs().max()), (iters, refine, err)
@@ -335,12 +342,12 @@ def test_dense_kernel_matches_plain_version(cuda_device, candidates, refine):
                         scenarios=1 if candidates is None else 23)
     assert sp.q.shape[0] == (candidates or 6)
     for iters, tol in ((1, 2e-4 if refine else 1e-5), (150, 1e-3)):
-        before = dl.DENSE_LAUNCHES
+        before = _launches("dense_loop")
         got = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
         want = dl.dense_loop_reference(sp, iters, 1e-6, ALPHA, refine)
         again = dl.admm_iterations_dense(sp, iters, 1e-6, ALPHA, refine)
         torch.cuda.synchronize()
-        assert dl.DENSE_LAUNCHES == before + 2
+        assert _launches("dense_loop") == before + 2
         err = float((got - want).abs().max())
         assert err <= tol * float(want.abs().max()), (iters, err)
         assert not bool(got[:, pcfg.num_vars:].any())
@@ -455,11 +462,11 @@ def test_dense_entry_refuses_an_a_beyond_its_csr(cuda_device):
     K = qps.G.shape[-2]
     n_pad, m_pad = admmlib.dense_pads(pcfg, K)
     assert qplib.dense_a_nnz_max(pcfg, K) > dl.csr_capacity(n_pad, m_pad)
-    before = dl.DENSE_LAUNCHES
+    before = _launches("dense_loop")
     warm = torch.zeros((1, 6, pcfg.num_vars), device=cuda_device)
     with pytest.raises(ValueError, match="cannot hold A"):
         admmlib.admm_solve_dense(pcfg, qps, warm, 5)
-    assert dl.DENSE_LAUNCHES == before
+    assert _launches("dense_loop") == before
 
 
 @pytest.mark.cuda
@@ -473,13 +480,13 @@ def test_dense_kernel_raises_on_shapes_it_cannot_take(cuda_device):
             z((C, n_pad, n_pad)), z((C, n_pad, n_pad)), z((C, m_pad, n_pad)),
             z((C, n_pad)), z((C, n_pad)), z((C, m_pad)), z((C, m_pad)),
             z((C, m_pad)))
-    before = dl.DENSE_LAUNCHES
+    before = _launches("dense_loop")
     for n_pad in (640, 130):
         with pytest.raises(ValueError, match="n_pad = %d" % n_pad):
             dl.admm_iterations_dense(problem(1, n_pad, 128), 1, 1e-6, ALPHA, 0)
     with pytest.raises(ValueError, match="shared memory"):
         dl.admm_iterations_dense(problem(1, 128, 12800), 1, 1e-6, ALPHA, 0)
-    assert dl.DENSE_LAUNCHES == before
+    assert _launches("dense_loop") == before
 
 
 def _fused(cfg):
@@ -497,10 +504,10 @@ def test_fused_loop_on_card_matches_cpu(cuda_device):
                               max_obstacles=4, hist=8).replace(
         goal=(6.0, 0.0, 2.0)))
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 0.5)
-    fl.FLEET_LAUNCHES = ew.EW_LAUNCHES = 0
+    trace.reset("fleet_admm.launches", "ew_chain.launches")
     gpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1]), ref,
                             ref.shape[0], num_cycles=4)
-    assert fl.FLEET_LAUNCHES == 4 and ew.EW_LAUNCHES == 0
+    assert _launches("fleet_admm") == 4 and _launches("ew_chain") == 0
     cpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1], device="cpu"),
                             ref, ref.shape[0], num_cycles=4, device="cpu")
     assert torch.allclose(gpu.pos.cpu(), cpu.pos, atol=1e-3, rtol=0)
@@ -587,7 +594,9 @@ _NO_SYNC = {"default": {}, "fused": dict(fused_solve=True),
             "folded_refine": dict(folded_refine=True),
             "minv_bf16": dict(minv_dtype="bf16"),
             "warm_frac": dict(shared_refine_warm_frac=0.5),
-            "fused_minv_bf16": dict(fused_solve=True, minv_dtype="bf16")}
+            "fused_minv_bf16": dict(fused_solve=True, minv_dtype="bf16"),
+            # the spans of utils/trace on, both paths
+            "default_traced": {}, "fused_traced": dict(fused_solve=True)}
 
 
 @pytest.mark.cuda
@@ -602,7 +611,8 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
     goal relax and the drift-aware refresh decide per scenario on the
     device (the stall counter starts past the grace, so the anneal is
     live). The case solve_override_none passes the planner's
-    solve_override hook its default, None."""
+    solve_override hook its default, None; the "_traced" cases record the
+    spans of utils/trace."""
     from intent_mpc_torch.benchmark.capture import option_start, with_option
     cfg = IntentMPCConfig()
     opt = _NO_SYNC[solve]
@@ -624,6 +634,9 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
     for i in range(4):
         carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
     torch.cuda.synchronize()
+    traced = solve.endswith("_traced")
+    if traced:
+        trace.start()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for i in (4, 5):
@@ -631,7 +644,106 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
                                        carry, i, **hook)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        spans = trace.stop()
     assert bool(torch.isfinite(carry.pos).all())
+    assert [s.cycle for s in spans if s.name == "cycle"] == \
+        ([4, 5] if traced else [])
+
+
+# the runtime's calls that put work on the device (mpcbench/spans.RUNTIME)
+_RUNTIME = re.compile(r"^cu(da)?(Launch|Memcpy|Memset)")
+
+
+def _profiled(cfg, scen, ref, occ, carry, cycles, spans_on):
+    """Run `cycles` under torch.profiler's CUDA activity (the benchmark's
+    traced sub-window), the spans of utils/trace on or off. Returns
+    (spans, device events, {correlation id: runtime event}); an event is
+    (start_ns, end_ns, name, correlation id)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        if spans_on:
+            trace.start()
+        for i in cycles:
+            carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                       carry, i)
+        torch.cuda.synchronize()
+        spans = trace.stop()
+    dev, host = [], {}
+    for e in prof.profiler.kineto_results.events():
+        ev = (e.start_ns(), e.start_ns() + e.duration_ns(), e.name(),
+              e.correlation_id())
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            dev.append(ev)
+        elif _RUNTIME.match(e.name()):
+            host[e.correlation_id()] = ev
+    return spans, sorted(dev), host
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "fused"])
+def test_spans_and_counters_agree_with_the_device_trace(cuda_device, path):
+    """The production config at S = 2, 4 warm-up cycles, then the same 4
+    cycles from a factor-refresh cycle profiled from the same carry, spans
+    on and off. The runtime's launch, copy and memset calls are the same
+    in number (counted on the host side: CUPTI can drop device activity
+    records, seen on the card in one window of five, so the device
+    events are not an exact count). The registry counts 100 ew_chain
+    launches per cycle on the default path, and a window whose record
+    kept them all (up to 3 tries) holds exactly that many
+    ew_chain_kernel events. On the fused path it counts one fleet_admm
+    launch per cycle; each fleet_admm_kernel event starts after the start
+    of the `solve` span that holds its runtime launch event (matched by
+    correlation id; where none carries one, the k-th kernel and the k-th
+    span)."""
+    cfg = IntentMPCConfig()
+    if path == "fused":
+        cfg = cfg.replace(planner=dataclasses.replace(
+            cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                    fused_solve=True)))
+    scen = sh.stack_scenarios(cfg, [0, 1])
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
+    occ = empty_grid("cuda")
+    carry = cl.init_carry(cfg, scen)
+    for i in range(4):
+        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
+    torch.cuda.synchronize()
+    trace.reset()
+    spans, dev, host = _profiled(cfg, scen, ref, occ, carry, range(4, 8),
+                                 True)
+    counts = trace.counters()
+    off_spans, _, host_off = _profiled(cfg, scen, ref, occ, carry,
+                                       range(4, 8), False)
+    assert off_spans == [] and len(spans) > 0
+    assert len(host) == len(host_off) > 0
+    solves = [s for s in spans if s.name == "solve"]
+    assert len(solves) == 4
+    if path == "default":
+        want = 4 * cfg.planner.solver.max_iter
+        assert counts["ew_chain.launches"] == want
+        got = [sum("ew_chain_kernel" in e[2] for e in dev)]
+        while got[-1] != want and len(got) < 3:
+            _, d, _ = _profiled(cfg, scen, ref, occ, carry, range(4, 8), True)
+            got.append(sum("ew_chain_kernel" in e[2] for e in d))
+        assert got[-1] == want, got
+        return
+    assert counts["fleet_admm.launches"] == 4
+    kernels = [e for e in dev if "fleet_admm_kernel" in e[2]]
+    assert kernels
+    matched = 0
+    for k in kernels:
+        rt = host.get(k[3])
+        if rt is None:
+            continue
+        inside = [s for s in solves if s.start_ns <= rt[0] <= s.end_ns]
+        assert len(inside) == 1, (rt, solves)
+        assert k[0] >= inside[0].start_ns
+        matched += 1
+    if not matched:
+        # no runtime event carried a kernel's correlation id: the order
+        assert len(kernels) == 4
+        assert all(k[0] >= s.start_ns for k, s in zip(kernels, solves))
+    print("fleet_admm kernels matched by correlation id: %d of %d"
+          % (matched, len(kernels)))
 
 
 @pytest.mark.cuda
@@ -651,13 +763,13 @@ def test_oracle_override_round_trip_on_card(cuda_device):
         seen.append(res)
         return res
     carry = cl.init_carry(cfg, scen)
-    ew.EW_LAUNCHES = 0
+    trace.reset("ew_chain.launches")
     for i in range(3):
         carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0],
                                    empty_grid(cuda_device), carry, i,
                                    solve_override=spy)
     torch.cuda.synchronize()
-    assert ew.EW_LAUNCHES == 0
+    assert _launches("ew_chain") == 0
     res = seen[-1]
     for t in (res.x, res.prim_res, res.dual_res, res.rho_suggest) \
             + tuple(res.y):
@@ -735,12 +847,12 @@ def test_truncation_loop_ew_chain_bit_equal_to_grouped_step(cuda_device):
     out = {}
     for ew_kernel in (True, False):
         scfg = dataclasses.replace(pcfg.solver, ew_kernel=ew_kernel)
-        ew.EW_LAUNCHES = 0
+        trace.reset("ew_chain.launches")
         out[ew_kernel] = admmlib.admm_solve(pcfg, qps, scfg=scfg,
                                             rho_override=rho)
         torch.cuda.synchronize()
         if ew_kernel:
-            assert ew.EW_LAUNCHES == int(out[True].iters.max())
+            assert _launches("ew_chain") == int(out[True].iters.max())
     a, b = out[True], out[False]
     assert torch.equal(a.iters, b.iters)
     assert len(set(a.iters.flatten().tolist())) > 1, a.iters
@@ -814,14 +926,14 @@ def test_quad_plant_on_card_matches_cpu(cuda_device, ticks):
 def test_real_path_waits_only_for_dbscan_flags(cuda_device):
     """On the real-perception DYNUS path the only waits for the device are
     DBSCAN's reads of its "labels changed" flag, once per block of rounds
-    (models/clustering.HOST_READS, the count chip_smoke's real_perception
-    phase reports): under torch.cuda.set_sync_debug_mode("warn") two
-    cycles after two warm-up cycles warn exactly HOST_READS times, at
-    least once per sense tick and static clustering."""
+    (the counter "clustering.host_reads" of utils/trace, which chip_smoke's
+    real_perception phase reports): under
+    torch.cuda.set_sync_debug_mode("warn") two cycles after two warm-up
+    cycles warn exactly that many times, at least once per sense tick and
+    static clustering."""
     import warnings
     from intent_mpc_torch.benchmark.capture import real_dynus_config
     from intent_mpc_torch.benchmark.real_loop import static_maps
-    from intent_mpc_torch.models import clustering as clus
     cfg = real_dynus_config()
     scen = sh.stack_scenarios(cfg, [0, 1])
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
@@ -831,7 +943,7 @@ def test_real_path_waits_only_for_dbscan_flags(cuda_device):
         carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry,
                                    i, veto_occ=veto)
     torch.cuda.synchronize()
-    clus.HOST_READS = 0
+    trace.reset("clustering.host_reads")
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -843,8 +955,9 @@ def test_real_path_waits_only_for_dbscan_flags(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     per_cycle = len(cfg.engine.hist_ticks) + 1
-    assert clus.HOST_READS >= 2 * per_cycle
-    assert len(syncs) == clus.HOST_READS, [str(w.message) for w in syncs[:3]]
+    reads = trace.counters()["clustering.host_reads"]
+    assert reads >= 2 * per_cycle
+    assert len(syncs) == reads, [str(w.message) for w in syncs[:3]]
     assert bool(torch.isfinite(carry.pos).all())
 
 
@@ -855,8 +968,8 @@ def test_goal_mode_waits_only_for_the_build_flag(cuda_device, mode):
     goal_dynus, 2 scenarios): under torch.cuda.set_sync_debug_mode("warn")
     a factor-refresh cycle (4) with every input trajectory due for a
     rebuild (the composed modes' build pass) and a reuse cycle (5), after
-    4 warm-up cycles, wait for the device exactly closed_loop.HOST_READS
-    times: once per cycle in the composed modes (the "does any scenario
+    4 warm-up cycles, wait for the device exactly as often as the counter
+    "closed_loop.host_reads" of utils/trace says: once per cycle in the composed modes (the "does any scenario
     build" flag), never with the straight input trajectory."""
     import traceback
     import warnings
@@ -868,7 +981,7 @@ def test_goal_mode_waits_only_for_the_build_flag(cuda_device, mode):
     if mode != "linspace":
         carry = C.rearm_build(carry)
     torch.cuda.synchronize()
-    cl.HOST_READS = 0
+    trace.reset("closed_loop.host_reads")
     syncs = []
 
     def record(message, *args, **kw):
@@ -886,8 +999,9 @@ def test_goal_mode_waits_only_for_the_build_flag(cuda_device, mode):
                 carry, _ = C.goal_step(cfg, run, carry, i)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    assert cl.HOST_READS == (0 if mode == "linspace" else 2)
-    assert len(syncs) == cl.HOST_READS, sorted(set(syncs))
+    reads = trace.counters().get("closed_loop.host_reads", 0)
+    assert reads == (0 if mode == "linspace" else 2)
+    assert len(syncs) == reads, sorted(set(syncs))
     assert bool(torch.isfinite(carry.pos).all())
     if mode != "linspace":
         assert not bool(carry.need_ref.any())

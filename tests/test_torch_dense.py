@@ -29,7 +29,7 @@ from intent_mpc_tpu.ops import qp as jqp
 from intent_mpc_torch.ops import admm as tadmm
 from intent_mpc_torch.ops import dense_loop as tdl
 from intent_mpc_torch.ops import qp as tqp
-from intent_mpc_torch.utils import convert
+from intent_mpc_torch.utils import convert, trace
 
 from test_torch_qp import build_both, configs, stack_jax, to_torch
 
@@ -342,10 +342,10 @@ def test_admm_iterations_dense_on_cpu_is_the_plain_version(dense):
     launches no kernel; a wrong shape or dtype, or a device that is
     neither CPU nor CUDA, raises."""
     sp = dense["sp"]
-    before = tdl.DENSE_LAUNCHES
+    before = trace.counters().get("dense_loop.launches", 0)
     got = tdl.admm_iterations_dense(sp, 7, SIGMA, ALPHA, 1)
     want = tdl.dense_loop_reference(sp, 7, SIGMA, ALPHA, 1)
-    assert tdl.DENSE_LAUNCHES == before
+    assert trace.counters().get("dense_loop.launches", 0) == before
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="shape"):
         tdl.admm_iterations_dense(sp._replace(q=sp.q[:, :-1].contiguous()),
@@ -356,7 +356,7 @@ def test_admm_iterations_dense_on_cpu_is_the_plain_version(dense):
     meta = tdl.DenseScaledProblem(*(t.to("meta") for t in sp))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tdl.admm_iterations_dense(meta, 1, SIGMA, ALPHA)
-    assert tdl.DENSE_LAUNCHES == before
+    assert trace.counters().get("dense_loop.launches", 0) == before
 
 
 def test_dense_problem_from_numpy_drops_the_column(dense):

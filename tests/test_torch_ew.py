@@ -13,6 +13,7 @@ from intent_mpc_tpu.ops import pallas_ew as pe
 from intent_mpc_tpu.ops.qp import ConVec as JConVec
 from intent_mpc_torch.ops import ew_chain as ew
 from intent_mpc_torch.ops.qp import ConVec
+from intent_mpc_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -114,10 +115,10 @@ def test_cpu_dispatch_runs_plain_version_and_counts_nothing():
     launch adds to the count."""
     rng = np.random.RandomState(2)
     args = _torch_args(_production_args(rng, (4,)))
-    before = ew.EW_LAUNCHES
+    before = trace.counters().get("ew_chain.launches", 0)
     got = ew.ew_chain(ALPHA, *args)
     want = ew.ew_chain_reference(ALPHA, *args)
-    assert ew.EW_LAUNCHES == before
+    assert trace.counters().get("ew_chain.launches", 0) == before
     for g, w in zip(_flat(got), _flat(want)):
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
 

@@ -30,7 +30,7 @@ from intent_mpc_torch.ops import admm as tadmm
 from intent_mpc_torch.ops import fleet as tf
 from intent_mpc_torch.ops import qp as tqp
 from intent_mpc_torch.parallel import sharding as tsh
-from intent_mpc_torch.utils import convert
+from intent_mpc_torch.utils import convert, trace
 from intent_mpc_torch.utils.config import small_config
 
 from test_torch_qp import build_both, configs, stack_jax, to_torch
@@ -148,10 +148,10 @@ def test_fleet_solve_on_cpu_is_the_plain_version(fleet):
     kernel."""
     f = fleet
     fp = convert.fleet_problem_from_lanes(_np(f["jfp"]))
-    before = tf.FLEET_LAUNCHES
+    before = trace.counters().get("fleet_admm.launches", 0)
     got = tf.fleet_solve(f["tcfg"], fp, 5, REFINE)
     want = tf.fleet_solve_reference(f["tcfg"], fp, 5, REFINE)
-    assert tf.FLEET_LAUNCHES == before
+    assert trace.counters().get("fleet_admm.launches", 0) == before
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     bad = fp._replace(q=fp.q[:, :6].contiguous())
@@ -257,7 +257,7 @@ def test_fused_closed_loop_matches_jax():
     tsc = convert.scenario_from_numpy(_np(jsc))
     tc = convert.carry_from_numpy(_np(jc))
     tref = torch.as_tensor(np.array(ref))
-    tf.FLEET_LAUNCHES = 0
+    trace.reset("fleet_admm.launches")
     for i in range(6):
         jc = step(jc, jnp.asarray(i, jnp.int32))
         tc, _ = tcl.episode_step(tcfg, tsc, tref, int(ref.shape[0]),
@@ -267,7 +267,8 @@ def test_fused_closed_loop_matches_jax():
         np.testing.assert_array_equal(
             tc.metrics.solve_successes.numpy(),
             np.asarray(jc.metrics.solve_successes))
-    assert tf.FLEET_LAUNCHES == 0      # CPU tensors: the plain version ran
+    # CPU tensors: the plain version ran
+    assert trace.counters().get("fleet_admm.launches", 0) == 0
 
 
 def test_fused_plan_leaves_carried_factor_unchanged():

@@ -58,7 +58,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
                from its file gives rows identical to the uninterrupted one
  12. latency   bench.latency at 32 scenarios, both paths: 20 blocking and
                20 pipelined depth-1 cycles, p50/p99/max ms against the
-               100 ms budget, with the card's name and power limit
+               100 ms budget, with the card's name and power limit, the
+               host's own launches and engine/graph.py's counters
  13. df        ops/df.py's error-free transforms exact on the card (in
                float64, 2^20 pairs) and df_matvec at 128 x 2510 x 385
                within 1e-12 of the float64 product
@@ -206,6 +207,17 @@ Phases (each prints one line; any failure raises and exits non-zero):
                solves, primal residuals; each on the small config, card
                against CPU (KNOB_TOL)
  29. modules   neither jax nor the JAX package was imported
+Launches. A cycle on the card replays a CUDA graph where
+engine/graph.py's rule allows, and a replay's kernels run from the graph:
+utils/trace's registry counts only the launches the host makes itself.
+So a run whose cycles replay (the GT loops: phases 4, 7, 10, 14-18, 23's
+"linspace", 28's entry and demo, 30, 33) is run again after its timed run
+has captured its graphs, with each cycle in a torch.profiler window of
+its own (DeviceLaunches), and its launches are the kernels that window's
+device record holds; runs whose every cycle is eager (a host read, the
+spans, the oracle's override) and calls outside the loop are counted by
+the registry, and 28's stage_profile and roofline report its count, the
+host's own launches.
 Every phase line carries `run_seconds`, the seconds since the script
 started. Then a JSON line with each kernel's numbers, and last
 {"ok": true, "device": {...}}.
@@ -379,10 +391,21 @@ HARNESS_KEYS = [
 
 
 KERNELS = ("ew_chain", "fleet_admm", "dense_loop")
+GRAPH_COUNTERS = ("closed_loop.graph_captures", "closed_loop.graph_replays",
+                  "closed_loop.graph_eager")
+
+
+def graph_counts():
+    """engine/graph.py's counters: {captures, replays, eager cycles}."""
+    from intent_mpc_torch.utils import trace
+    counts = trace.counters()
+    return {k.split("_")[-1]: counts.get(k, 0) for k in GRAPH_COUNTERS}
 
 
 def launch_counts():
-    """Each kernel's launches since reset_launch_counts (utils/trace)."""
+    """Each kernel's launches since reset_launch_counts that the host made
+    itself (utils/trace, counted at the launcher): a cycle replayed from a
+    CUDA graph adds none (DeviceLaunches counts those)."""
     from intent_mpc_torch.utils import trace
     counts = trace.counters()
     return {k: counts.get(k + ".launches", 0) for k in KERNELS}
@@ -391,6 +414,51 @@ def launch_counts():
 def reset_launch_counts():
     from intent_mpc_torch.utils import trace
     trace.reset(*(k + ".launches" for k in KERNELS))
+
+
+class DeviceLaunches:
+    """Each kernel's launches over the closed-loop cycles of the block, read
+    from the device record: every call of engine/closed_loop.episode_step
+    runs in a torch.profiler window of its own (CUDA activity, a
+    synchronize before it closes; a window of one cycle keeps CUPTI's
+    record whole), whose device events are counted by kernel name.
+    `counts` holds {kernel: launches} after the block."""
+
+    def __enter__(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        from intent_mpc_torch.engine import closed_loop as cl
+        self.cl, self.step = cl, cl.episode_step
+        self.counts = dict.fromkeys(KERNELS, 0)
+        cuda = torch.autograd.DeviceType.CUDA
+
+        def step(*a, **kw):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = self.step(*a, **kw)
+                torch.cuda.synchronize()
+            for e in prof.profiler.kineto_results.events():
+                if e.device_type() == cuda:
+                    for k in KERNELS:
+                        self.counts[k] += k + "_kernel" in e.name()
+            return out
+        cl.episode_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cl.episode_step = self.step
+
+
+def same_bits(a, b):
+    """Whether two trees of tensors hold the same bits, NaNs included."""
+    import torch
+    from intent_mpc_torch.utils.tree import flatten
+
+    def raw(t):
+        return t.contiguous().view(-1).view(torch.uint8)
+    la, lb = flatten(a), flatten(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(raw(x), raw(y)) for x, y in zip(la, lb))
 
 
 def expected_launches(cfg, cycles):
@@ -428,14 +496,18 @@ def first_row_diff(a, b):
 
 def check_harness(cfg, seeds, cycles, out_dir, dev):
     """run_trials on one solve path: JAX's 28 keys in order, finite floats,
-    the 14 aggregate keys, the CSV round trip, and the path's launches."""
+    the 14 aggregate keys, the CSV round trip, and the path's launches
+    (DeviceLaunches over a second run, whose rows must be the first's)."""
     import math
     from intent_mpc_torch.benchmark import analyze, harness
-    reset_launch_counts()
     t0 = time.perf_counter()
     rows = harness.run_trials(cfg, seeds, num_cycles=cycles, device=dev)
     secs = time.perf_counter() - t0
-    launches = launch_counts()
+    with DeviceLaunches() as counted:
+        again = harness.run_trials(cfg, seeds, num_cycles=cycles, device=dev)
+    launches = counted.counts
+    check(again == rows, ("harness rows differ between two runs",
+                          first_row_diff(again, rows)))
     check(launches == expected_launches(cfg, cycles),
           ("harness launches", launches))
     check(all(list(r) == HARNESS_KEYS for r in rows), "harness row keys")
@@ -1003,10 +1075,15 @@ class SolveRecorder:
     """Stands in for models/mpc.py's admm_solve, polish and
     make_plan_with_pred during a run: keeps each solve's per-problem
     iterations and rho switches, each polish's result with CUDA events
-    around the call, and each plan (its factor refreshes)."""
+    around the call, and each plan (its factor refreshes). A cycle
+    replayed from a CUDA graph calls none of them, so the run's cycles
+    are held eager (engine/graph.py's rule turned off)."""
 
     def __enter__(self):
+        from intent_mpc_torch.engine import graph
         from intent_mpc_torch.models import mpc as mpclib
+        self.graph, self.engages = graph, graph.engages
+        graph.engages = lambda *a: False
         self.mpc = mpclib
         self.solve, self.pol = mpclib.admm_solve, mpclib.polish
         self.plan = mpclib.make_plan_with_pred
@@ -1039,40 +1116,50 @@ class SolveRecorder:
     def __exit__(self, *exc):
         self.mpc.admm_solve, self.mpc.polish = self.solve, self.pol
         self.mpc.make_plan_with_pred = self.plan
+        self.graph.engages = self.engages
 
 
 def run_path(cfg, S, cycles, dev, start=None):
-    """One warm-up cycle, then `cycles` cycles of cfg's loop from a fresh
-    carry (changed by `start(carry, cfg)` where given) with the launch
-    counts and the truncation host reads set to 0 just before and read
-    just after, the peak device memory, and the recorded solves,
-    polishes and plans. Every float leaf of the carry but the metrics
-    must be finite; the metrics' non-finite fields are returned as
-    `non_finite_metrics` (a cycle whose every candidate is rejected adds
-    the chosen candidate's non-finite residual to prim_res_sum, in JAX
-    too), and the default paths hold them finite."""
+    """One warm-up cycle, then `cycles` cycles of cfg's loop from a fresh carry
+    (changed by `start(carry, cfg)` where given), three times. First as the
+    main path runs them (replayed from CUDA graphs where engine/graph.py's rule
+    allows): ms per cycle and the peak device memory. Then again with each
+    kernel's launches read from the device record (DeviceLaunches). Then
+    eagerly under a SolveRecorder, with the truncation host reads set to 0 just
+    before and read just after: the recorded solves, polishes and plans, ms per
+    eager cycle, and whether the eager carry holds the first run's bits
+    (`eager_bit_equal`). Every float leaf of the carry but the metrics must be
+    finite; the metrics' non-finite fields are returned as `non_finite_metrics`
+    (a cycle whose every candidate is rejected adds the chosen candidate's
+    non-finite residual to prim_res_sum, in JAX too), and the default paths
+    hold them finite."""
     import torch
     from intent_mpc_torch.benchmark.capture import run_loop
     from intent_mpc_torch.utils import trace
     run_loop(cfg, S, 1, dev, start)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    carry, secs, _ = run_loop(cfg, S, cycles, dev, start)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with DeviceLaunches() as counted:
+        run_loop(cfg, S, cycles, dev, start)
     trace.reset("admm.host_reads")
     with SolveRecorder() as rec:
-        carry, secs, _ = run_loop(cfg, S, cycles, dev, start)
-    launches = launch_counts()
+        eager, eager_secs, _ = run_loop(cfg, S, cycles, dev, start)
+    reads = trace.counters().get("admm.host_reads", 0)
     check(finite_carry(carry._replace(metrics=None)), "non-finite carry leaf")
     check(int(carry.metrics.solve_successes.sum()) > 0, "no successful solve")
     bad = [f for f, t in zip(carry.metrics._fields, carry.metrics)
            if t.is_floating_point() and not bool(torch.isfinite(t).all())]
-    out = dict(scenarios=S, cycles=cycles, launches=launches,
+    out = dict(scenarios=S, cycles=cycles, launches=counted.counts,
                cycle_ms=sum(secs) / cycles * 1e3,
                cycle_ms_each=[round(x * 1e3, 3) for x in secs],
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_memory_gb=peak,
                min_solve_successes=int(carry.metrics.solve_successes.min()),
-               non_finite_metrics=bad)
-    return out, carry, rec, trace.counters().get("admm.host_reads", 0)
+               non_finite_metrics=bad,
+               eager_cycle_ms=sum(eager_secs) / cycles * 1e3,
+               eager_bit_equal=same_bits(eager, carry))
+    return out, carry, rec, reads
 
 
 def check_loop_osqp(cfg, S, cycles, dev):
@@ -1132,16 +1219,16 @@ def check_loop_adaptive(cfg, S, cycles, dev):
 
 
 def check_loop_polish(cfg, S, cycles, dev, held=4):
-    """polish=True on one path: the polish's CUDA-event span per cycle and
-    its share of the cycle, the share of scenarios whose polish passed the
-    gate, the median final KKT residual over the finite ones and the share
-    that is NaN (on the infeasible DYNUS QPs the correction rounds do not
-    converge: duals near 3e7, residuals that grow; the JAX version
-    diverges there too, to other values, and both gates reject), and the
-    path's launches. Held: an accepted polish is finite, a rejected one
-    hands back its input bit for bit, and the last cycle's polish of the
-    first `held` scenarios, rerun on the CPU from the same inputs, has the
-    same acceptance and, where accepted, x within 1e-4."""
+    """polish=True on one path: the polish's CUDA-event span per cycle and its
+    share of the eager cycle (both from run_path's eager run), the share of
+    scenarios whose polish passed the gate, the median final KKT residual over
+    the finite ones and the share that is NaN (on the infeasible DYNUS QPs the
+    correction rounds do not converge: duals near 3e7, residuals that grow; the
+    JAX version diverges there too, to other values, and both gates reject),
+    and the path's launches. Held: an accepted polish is finite, a rejected one
+    hands back its input bit for bit, and the last cycle's polish of the first
+    `held` scenarios, rerun on the CPU from the same inputs, has the same
+    acceptance and, where accepted, x within 1e-4."""
     import math
     import torch
     from intent_mpc_torch.ops import polish as pol
@@ -1178,7 +1265,7 @@ def check_loop_polish(cfg, S, cycles, dev, held=4):
            card.accepted[:held].tolist(), cpu.accepted.tolist()))
     check(diff <= 1e-4, ("polish card against CPU", diff))
     out.update(polish_ms_each=[round(v, 3) for v in pol_ms],
-               polish_share=sum(pol_ms) / (out["cycle_ms"] * cycles),
+               polish_share=sum(pol_ms) / (out["eager_cycle_ms"] * cycles),
                accepted_share=float(sum(int(a.sum()) for a in acc))
                / sum(a.numel() for a in acc),
                accepted_per_cycle=[int(a.sum()) for a in acc],
@@ -1392,7 +1479,7 @@ def check_real_perception(cfg, S, cycles, dev, stages):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    trace.reset("clustering.host_reads", "clustering.rounds")
+    trace.reset("clustering.host_reads", "clustering.rounds", *GRAPH_COUNTERS)
     timer = StageTimer()
     scen = sh.stack_scenarios(cfg, range(S), device=dev)
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device=dev)
@@ -1416,6 +1503,10 @@ def check_real_perception(cfg, S, cycles, dev, stages):
     reads = counts.get("clustering.host_reads", 0)
     rounds = counts.get("clustering.rounds", 0)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    # DBSCAN reads the host every cycle, so every cycle ran eagerly: the
+    # registry counted each launch and StageTimer saw each stage
+    check(graph_counts()["eager"] == cycles,
+          ("real_perception graphs", graph_counts()))
     check(launches == expected_launches(cfg, cycles),
           ("real_perception launches", launches))
     check(finite_carry(carry), "non-finite carry leaf (real perception)")
@@ -1467,7 +1558,9 @@ def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
     flags of `ref_modes --dynus`) at S scenarios: one warm-up cycle, then
     from a fresh carry the first cycle (in the composed modes the build
     pass) and `mpc_cycles` more, with the launch counts and the engine's
-    build-flag host reads set to 0 just before and read just after: ms
+    build-flag host reads set to 0 just before and read just after (in
+    "linspace", whose cycles replay, the launches of the same cycles run
+    again under DeviceLaunches): ms
     per cycle, device ms of the build's stages, the committed routes'
     properties (head at the drone, end at the goal, steps under 1 m),
     kernel launches of one MPC cycle and (with count_build_launches; the
@@ -1483,7 +1576,7 @@ def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    trace.reset("closed_loop.host_reads")
+    trace.reset("closed_loop.host_reads", *GRAPH_COUNTERS)
     timer = StageTimer(goal_build_sites())
     carry = C.goal_init(cfg, run, dev)
     cycles = 1 + mpc_cycles
@@ -1496,7 +1589,20 @@ def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
             secs.append(time.perf_counter() - t0)
     launches = launch_counts()
     reads = trace.counters().get("closed_loop.host_reads", 0)
+    graphs = graph_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    if composed:
+        # every cycle reads the build flag (held below), so every cycle
+        # ran eagerly and the registry counted each launch
+        check(graphs["eager"] == cycles, ("goal_mode graphs", graphs))
+    else:
+        # linspace reads nothing back and replays CUDA graphs: the same
+        # cycles again, their launches from the device record
+        with DeviceLaunches() as counted:
+            again = C.goal_init(cfg, run, dev)
+            for i in range(cycles):
+                again, _ = C.goal_step(cfg, run, again, i)
+        launches = counted.counts
     check(launches == expected_launches(cfg, cycles),
           ("goal_mode launches", ref_mode, launches))
     check(reads == (cycles if composed else 0),
@@ -1506,7 +1612,7 @@ def check_goal_dynus(ref_mode, S, mpc_cycles, dev, fused_solve=False,
     check(int(carry.metrics.solve_successes.min()) > 0,
           ("a scenario never solved (goal mode)", ref_mode))
     out = dict(ref_mode=ref_mode, fused=fused_solve, scenarios=S,
-               cycles=cycles, launches=launches,
+               cycles=cycles, launches=launches, graph=graphs,
                launches_per_cycle={k: v / cycles for k, v in launches.items()},
                host_reads_per_cycle=reads / cycles,
                first_cycle_ms=secs[0] * 1e3,
@@ -2574,7 +2680,8 @@ def check_fleet(cfg, S, cycles, fleet):
     the mesh on the default and the fused path, S scenarios, `cycles`
     cycles, against the one-device batch_rollout of the same seeds in
     this process (per-scenario metrics and the aggregate bit-equal), the
-    kernel launches of the fleet run (expected_launches), and the
+    kernel launches of the fleet run (expected_launches; DeviceLaunches
+    over a rerun, bit-equal too), and the
     collective inventory of the same program over 2 cycles: exactly two
     all-reduces, 32 bytes."""
     import time
@@ -2592,20 +2699,23 @@ def check_fleet(cfg, S, cycles, fleet):
         L = ref.shape[0]
         sh.batch_rollout(c, scen, ref, L, num_cycles=1, device=dev)
         torch.cuda.synchronize()
-        reset_launch_counts()
         t0 = time.perf_counter()
         m, agg = sh.batch_rollout(c, scen, ref, L, mesh=fleet,
                                   num_cycles=cycles)
         secs = time.perf_counter() - t0
-        launches = launch_counts()
-        check(launches == expected_launches(c, cycles),
-              ("fleet launches", solve, launches))
         m1, agg1 = sh.batch_rollout(c, scen, ref, L, num_cycles=cycles,
                                     device=dev)
-        same = [f for f, a, b in zip(m._fields, m, m1)
-                if not torch.equal(a, b)]
-        check(not same and agg == agg1, ("fleet differs from the one-device"
-                                         " rollout", solve, same, agg, agg1))
+        with DeviceLaunches() as counted:
+            m2, agg2 = sh.batch_rollout(c, scen, ref, L, mesh=fleet,
+                                        num_cycles=cycles)
+        launches = counted.counts
+        check(launches == expected_launches(c, cycles),
+              ("fleet launches", solve, launches))
+        same = [f for f, a, b, b2 in zip(m._fields, m, m1, m2)
+                if not (torch.equal(a, b) and torch.equal(a, b2))]
+        check(not same and agg == agg1 == agg2,
+              ("fleet differs from the one-device rollout or a rerun", solve,
+               same, agg, agg1, agg2))
         _, rep = sh.collective_report(c, scen, ref, L, fleet, num_cycles=2)
         check(rep["counts"] == {"all-reduce": 2}
               and rep["total_bytes"] == 32, ("fleet inventory", rep))
@@ -2620,14 +2730,17 @@ def check_fleet(cfg, S, cycles, fleet):
 
 def check_entry(dev):
     """entry()'s cycle on the card against entry("cpu"), held to 1e-4 m
-    and m/s; exactly SOLVER_ITERS ew_chain launches."""
+    and m/s; exactly SOLVER_ITERS ew_chain launches. On the card the cycle
+    runs three times from the same carry (eagerly, captured, replayed):
+    the replay is counted (DeviceLaunches) and compared."""
     import torch
     from intent_mpc_torch.entry import SOLVER_ITERS, entry
     fn, args = entry()
-    reset_launch_counts()
-    pos, vel = fn(*args)
-    torch.cuda.synchronize()
-    counts = launch_counts()
+    fn(*args)
+    fn(*args)
+    with DeviceLaunches() as counted:
+        pos, vel = fn(*args)
+    counts = counted.counts
     check(counts == {"ew_chain": SOLVER_ITERS, "fleet_admm": 0,
                      "dense_loop": 0}, ("entry launches", counts))
     fn_c, args_c = entry("cpu")
@@ -2742,16 +2855,20 @@ def check_oracle(dev):
 def check_demo(dev):
     """benchmark/demo.run_demo(seed=0) on the production DYNUS world for
     DEMO_TIMEOUT s: summarize's keys, finite values, a finite (C, 3) path,
-    and the default path's launches."""
+    and the default path's launches (DeviceLaunches over a second run,
+    whose row must be the first's)."""
     import torch
     from intent_mpc_torch.benchmark.demo import run_demo
-    reset_launch_counts()
+    out = os.path.join(HERE, "build", "chip_smoke", "demo")
     t0 = time.perf_counter()
-    d = run_demo(seed=0, timeout=DEMO_TIMEOUT, device=dev,
-                 out=os.path.join(HERE, "build", "chip_smoke", "demo"))
+    d = run_demo(seed=0, timeout=DEMO_TIMEOUT, device=dev, out=out)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = launch_counts()
+    with DeviceLaunches() as counted:
+        again = run_demo(seed=0, timeout=DEMO_TIMEOUT, device=dev, out=out)
+    counts = counted.counts
+    check(again.row == d.row, ("demo rows differ between two runs",
+                               again.row, d.row))
     cycles = d.cfg.engine.num_cycles
     check(counts == expected_launches(d.cfg, cycles), ("demo launches",
                                                        counts))
@@ -2774,6 +2891,7 @@ def main():
     from intent_mpc_torch.ops import admm as admmlib
     from intent_mpc_torch.ops import build
     from intent_mpc_torch.ops import ew_chain as ew
+    from intent_mpc_torch.utils import trace
     from intent_mpc_torch.utils.config import IntentMPCConfig, small_config
     from intent_mpc_torch.utils.device import resolve_device
 
@@ -2828,9 +2946,10 @@ def main():
     loop = {}
     for s in (128, 32):
         run_loop(cfg, s, 1, dev)          # warm-up: library handles, caches
-        reset_launch_counts()
         carry, secs, _ = run_loop(cfg, s, 8, dev)
-        counts = launch_counts()
+        with DeviceLaunches() as counted:
+            run_loop(cfg, s, 8, dev)
+        counts = counted.counts
         launches = counts["ew_chain"]
         iters = cfg.planner.solver.max_iter
         check(launches == 8 * iters, ("kernel launches", launches, 8 * iters))
@@ -2884,9 +3003,10 @@ def main():
     loop_f = {}
     for s in (128, 32):
         run_loop(fused(cfg), s, 1, dev)   # warm-up
-        reset_launch_counts()
         carry, secs, _ = run_loop(fused(cfg), s, 8, dev)
-        counts = launch_counts()
+        with DeviceLaunches() as counted:
+            run_loop(fused(cfg), s, 8, dev)
+        counts = counted.counts
         launches, ew_launches = counts["fleet_admm"], counts["ew_chain"]
         check(launches == 8, ("fleet_admm launches", launches, 8))
         check(ew_launches == 0, ("ew_chain launches on the fused path",
@@ -2965,9 +3085,10 @@ def main():
             os.path.join(work, "checkpoint_" + name), dev))
     for name, f in (("default", False), ("fused", True)):
         reset_launch_counts()
+        trace.reset(*GRAPH_COUNTERS)
         lat = bench.latency(32, cycles=20, fused=f, device=dev)
-        phase("latency", solve=name, nvidia_smi=smi, launches=launch_counts(),
-              **lat)
+        phase("latency", solve=name, nvidia_smi=smi,
+              host_launches=launch_counts(), graph=graph_counts(), **lat)
     phase("new_phases", seconds=time.perf_counter() - t_new)
 
     # ---- 13-17. the OSQP-semantics solve: df, truncation, adaptive rho,

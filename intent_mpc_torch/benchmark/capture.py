@@ -24,7 +24,7 @@ from intent_mpc_torch.models import perception, real_detector, sensor
 from intent_mpc_torch.models.world import (obstacle_state,
                                            straight_line_ref_traj)
 from intent_mpc_torch.parallel import sharding as sh
-from intent_mpc_torch.utils import prng
+from intent_mpc_torch.utils import prng, trace
 from intent_mpc_torch.utils.config import RealDetectorConfig, small_config
 from intent_mpc_torch.utils.device import resolve_device
 
@@ -159,10 +159,22 @@ def run_loop(cfg, S, cycles, device, start=None):
     return carry, secs, positions
 
 
+def recorded_loop(cfg, S, cycles, device):
+    """run_loop with utils/trace's spans recording: engine/graph.py then
+    replays no CUDA graph (a replay calls no Python), so a recorder that
+    stands in for a function inside the cycle sees every cycle's call."""
+    trace.start()
+    try:
+        return run_loop(cfg, S, cycles, device)
+    finally:
+        trace.stop()
+
+
 def capture_fused_qps(cfg, S, cycle, device):
     """The candidate QPs that the planner hands to fleet_admm at `cycle` of
-    the fused DYNUS loop (cycles 0..cycle run from a fresh carry): a
-    recorder stands in for mpc.fleet_admm during this run only."""
+    the fused DYNUS loop (cycles 0..cycle run from a fresh carry, eagerly:
+    recorded_loop): a recorder stands in for mpc.fleet_admm during this
+    run only."""
     solve = mpclib.fleet_admm
     seen = []
 
@@ -171,7 +183,7 @@ def capture_fused_qps(cfg, S, cycle, device):
         return solve(cfg_, qps, warm, max_iter, **kw)
     mpclib.fleet_admm = record
     try:
-        run_loop(fused(cfg), S, cycle + 1, device)
+        recorded_loop(fused(cfg), S, cycle + 1, device)
     finally:
         mpclib.fleet_admm = solve
     return seen[cycle]
@@ -180,8 +192,8 @@ def capture_fused_qps(cfg, S, cycle, device):
 def capture_default_qps(cfg, S, cycle, device):
     """The candidate QPs and warm starts that the planner hands to
     admm_solve at `cycle` of the default DYNUS loop (cycles 0..cycle run
-    from a fresh carry): a recorder stands in for mpc.admm_solve during
-    this run only."""
+    from a fresh carry, eagerly: recorded_loop): a recorder stands in for
+    mpc.admm_solve during this run only."""
     solve = mpclib.admm_solve
     seen = []
 
@@ -190,7 +202,7 @@ def capture_default_qps(cfg, S, cycle, device):
         return solve(cfg_, qps, x0, max_iter, **kw)
     mpclib.admm_solve = record
     try:
-        run_loop(cfg, S, cycle + 1, device)
+        recorded_loop(cfg, S, cycle + 1, device)
     finally:
         mpclib.admm_solve = solve
     return seen[cycle]

@@ -12,7 +12,7 @@ detector's track table, history rings and perception stats only with
 real perception, the composed goal modes' input trajectory, its length
 and the build flag only there). The static maps of a real-perception
 fleet are not state: like the scenarios they are rebuilt from the seeds
-(benchmark/real_loop.static_maps). `flatten`
+(benchmark/real_loop.static_maps). `flatten` (utils/tree)
 lists the tensor leaves in field order and skips None; `unflatten` puts
 leaves back into a template built by `init_carry` from the config, so a
 field, shape or dtype mismatch raises instead of mis-zipping leaves.
@@ -23,7 +23,7 @@ the run's device.
 from __future__ import annotations
 
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,33 +33,7 @@ from intent_mpc_torch.models.world import Scenario
 from intent_mpc_torch.parallel import sharding as sh
 from intent_mpc_torch.utils.config import IntentMPCConfig
 from intent_mpc_torch.utils.device import resolve_device
-
-
-def flatten(tree) -> List[torch.Tensor]:
-    """The tensor leaves of nested NamedTuples, in field order; None
-    fields contribute nothing."""
-    if tree is None:
-        return []
-    if isinstance(tree, tuple):
-        return [leaf for sub in tree for leaf in flatten(sub)]
-    return [tree]
-
-
-def unflatten(template, leaves: Sequence[torch.Tensor]):
-    """Nested NamedTuples shaped like `template` holding `leaves` (in
-    `flatten` order); a None field of the template stays None."""
-    it = iter(leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, tuple):
-            return type(t)(*(build(sub) for sub in t))
-        return next(it)
-    out = build(template)
-    if next(it, None) is not None:
-        raise ValueError("more leaves than the template holds")
-    return out
+from intent_mpc_torch.utils.tree import flatten, unflatten
 
 
 def npz_path(path: str) -> str:

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from intent_mpc_torch.engine import graph
 from intent_mpc_torch.engine.ref_builder import build_goal_ref, linspace
 from intent_mpc_torch.models import clustering as clus
 from intent_mpc_torch.models import detector as det
@@ -405,26 +406,42 @@ def episode_step(cfg: IntentMPCConfig, scenario: Scenario,
     oracle-in-the-loop runs). Returns (carry, pos (S, 3)).
 
     The cycle runs inside the span "cycle" of utils/trace, its stages
-    inside "perceive", "predict", "plan" and "ticks"."""
-    with trace.span("cycle", cycle_idx):
-        return _cycle(cfg, scenario, ref_traj, traj_len, occ, carry,
-                      cycle_idx, solver_iters, veto_occ, ref_key,
+    inside "perceive", "predict", "plan" and "ticks". On a CUDA device it
+    is replayed from a CUDA graph where engine/graph.py's rule allows
+    (spans on, a solve_override, or a cycle that reads the host keep it
+    eager): the same kernels and bits, and a new carry either way, with
+    `carry` left as it was."""
+    tree = (scenario, ref_traj, traj_len, occ, carry, veto_occ, ref_key)
+
+    def cycle(t, clock):
+        return _cycle(cfg, *t[:5], cycle_idx, clock, solver_iters, *t[5:],
                       solve_override)
+    dev = carry.pos.device
+    if graph.engages(dev, trace.recording(), solve_override):
+        key = (cfg, solver_iters, mpclib.refresh_cycle(cfg.planner, cycle_idx))
+        return graph.run(key, tree, cycle_idx, cycle)
+    if dev.type == "cuda":
+        trace.count("closed_loop.graph_eager")
+    with trace.span("cycle", cycle_idx):
+        return cycle(tree, graph.clock(cycle_idx, dev))
 
 
 def _cycle(cfg: IntentMPCConfig, scenario: Scenario, ref_traj: torch.Tensor,
            traj_len: int, occ: OccupancyGrid, carry: EngineCarry,
-           cycle_idx: int, solver_iters: Optional[int],
+           cycle_idx: int, clock: torch.Tensor, solver_iters: Optional[int],
            veto_occ: Optional[OccupancyGrid], ref_key: Optional[torch.Tensor],
            solve_override) -> Tuple[EngineCarry, torch.Tensor]:
-    """episode_step's body."""
+    """episode_step's body. `clock` holds cycle_idx as a float32 scalar on
+    the device, the cycle's time read from it; a graph's replays write
+    their own cycle into it. cycle_idx itself steers the shared factor's
+    refresh, part of a graph's variant key, and a goal-mode build's RRT
+    key, whose cycles read the host and stay eager."""
     ecfg = cfg.engine
     dev = carry.pos.device
     S = carry.pos.shape[0]
     cycle_dt = ecfg.control_dt * ecfg.ticks_per_cycle
     dt = ecfg.control_dt
-    t0 = torch.full((), float(cycle_idx), dtype=torch.float32,
-                    device=dev) * cycle_dt
+    t0 = clock * cycle_dt
     goal = constant(tuple(cfg.goal), dev)
     active = ~carry.done
 

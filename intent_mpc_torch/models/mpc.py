@@ -547,6 +547,19 @@ def make_plan_with_pred(cfg: PlannerConfig, state: PlannerState,
                       prim_res=res.prim_res, refreshed=refreshed)
 
 
+def refresh_cycle(cfg: PlannerConfig, cycle_idx: Optional[int]) -> bool:
+    """Whether the shared factor's temporal reuse refreshes on cycle
+    `cycle_idx`: every factor_reuse_cycles-th cycle, and every cycle
+    without reuse, without a cycle counter, or on a solve path that does
+    not take `_shared_factor` (the fused, Woodbury and per-candidate
+    paths factor every cycle)."""
+    sv = cfg.solver
+    k = sv.factor_reuse_cycles
+    return (cycle_idx is None or k <= 1 or sv.fused_solve
+            or not sv.shared_factor or sv.woodbury_candidates
+            or cycle_idx % k == 0)
+
+
 def _shared_factor(cfg: PlannerConfig, state: PlannerState,
                    qp_mean: qplib.QPData, cycle_idx: Optional[int],
                    curr_yaw: Optional[torch.Tensor]):
@@ -572,7 +585,7 @@ def _shared_factor(cfg: PlannerConfig, state: PlannerState,
         fac = admm_factor(cfg, qp_mean, rho_override=state.rho)
         return fac, None, torch.ones((S,), dtype=torch.bool, device=dev)
     Kq = qp_mean.G.shape[-2]  # the carried obs scaling is sized for the maximum
-    on_cycle = cycle_idx % k_reuse == 0
+    on_cycle = refresh_cycle(cfg, cycle_idx)
     drift_t = cfg.solver.factor_drift_refresh
     drift = drift_t > 0 and state.fac_gref is not None
     carried = Factor(D=state.fac_d,

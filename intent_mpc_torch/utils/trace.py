@@ -35,13 +35,21 @@ A stage's self time is its span's duration less its children's (`self_ms`).
 Counters. `count(name, n)` adds to one process-wide registry, always on;
 `counters()` reads it and `reset()` clears it. The names:
 
-    ew_chain.launches       ops/ew_chain kernel launches
-    fleet_admm.launches     ops/fleet kernel launches
-    dense_loop.launches     ops/dense_loop kernel launches
+    ew_chain.launches       ops/ew_chain kernel launches by the host
+    fleet_admm.launches     ops/fleet kernel launches by the host
+    dense_loop.launches     ops/dense_loop kernel launches by the host
     admm.host_reads         all-done flag reads of truncation="osqp" solves
     closed_loop.host_reads  the composed goal modes' build-flag reads
     clustering.host_reads   DBSCAN changed-flag reads
     clustering.rounds       DBSCAN label-propagation rounds
+    closed_loop.graph_captures  cycles captured into a CUDA graph
+    closed_loop.graph_replays   cycles replayed from one
+    closed_loop.graph_eager     cycles on a CUDA device run eagerly
+                                (engine/graph.py says when)
+    <name>.replayed         a counter's change over a cycle captured into a
+                            CUDA graph, once per replay of it (the kernels
+                            the replays held; the device record sees them
+                            run, and <name> counts none of them)
 """
 
 from __future__ import annotations
@@ -103,6 +111,11 @@ def span(name: str, cycle=None):
     if not _on:
         return _OFF
     return _On(name, cycle)
+
+
+def recording() -> bool:
+    """Whether spans are being recorded (between `start()` and `stop()`)."""
+    return _on
 
 
 def start() -> None:

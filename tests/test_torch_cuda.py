@@ -27,6 +27,7 @@ from intent_mpc_torch.benchmark import bench  # noqa: E402
 from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
 from intent_mpc_torch.engine import closed_loop as cl  # noqa: E402
+from intent_mpc_torch.engine import graph  # noqa: E402
 from intent_mpc_torch.models.occupancy import empty_grid  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
 from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
@@ -40,6 +41,7 @@ from intent_mpc_torch.utils import trace  # noqa: E402
 from intent_mpc_torch.utils.config import (IntentMPCConfig,  # noqa: E402
                                            PlannerConfig, SolverConfig,
                                            small_config)
+from intent_mpc_torch.utils.tree import flatten  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -54,8 +56,24 @@ def cuda_device():
 
 
 def _launches(kernel):
-    """The kernel's launches counted by utils/trace since its last reset."""
+    """The kernel's launches by the host, counted by utils/trace since its
+    last reset."""
     return trace.counters().get(kernel + ".launches", 0)
+
+
+def _kernel_events(fn):
+    """fn()'s result and each kernel's events in its device record
+    (torch.profiler's CUDA activity): a cycle replayed from a CUDA graph
+    launches its kernels from the graph, which only the device record
+    sees run."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return out, {k: sum(k + "_kernel" in n for n in names)
+                 for k in ("ew_chain", "fleet_admm", "dense_loop")}
 
 
 def _regime_args(device, batch=(6, 6), H=10, W=9, K=8, n=125):
@@ -141,14 +159,21 @@ def test_closed_loop_on_card_matches_cpu(cuda_device):
     points with their default device: positions agree to 1e-4 m over 4
     cycles (the iterates of this config are stable; see
     intent_mpc_torch/benchmark/sensitivity.py for the production one),
-    and every cycle's solve launched the kernel 30 times."""
+    and every cycle's solve launched the kernel 30 times (the device
+    record of a third run, which replays the earlier runs' graphs and
+    gives their bits)."""
     cfg = small_config(num_obstacles=4, horizon=8, timeout=0.5,
                        max_obstacles=4, hist=8).replace(goal=(6.0, 0.0, 2.0))
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 0.5)
-    trace.reset("ew_chain.launches")
-    gpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1]), ref,
-                            ref.shape[0], num_cycles=4)
-    assert _launches("ew_chain") == 4 * cfg.planner.solver.max_iter
+    scen = sh.stack_scenarios(cfg, [0, 1])
+
+    def fly():
+        return cl.run_episode(cfg, scen, ref, ref.shape[0], num_cycles=4)[0]
+    gpu = fly()
+    fly()                       # every variant captured before the record
+    again, counts = _kernel_events(fly)
+    assert counts["ew_chain"] == 4 * cfg.planner.solver.max_iter
+    assert torch.equal(again.pos, gpu.pos)
     cpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1], device="cpu"),
                             ref, ref.shape[0], num_cycles=4, device="cpu")
     assert gpu.pos.device.type == "cuda"
@@ -498,16 +523,22 @@ def _fused(cfg):
 @pytest.mark.cuda
 def test_fused_loop_on_card_matches_cpu(cuda_device):
     """The small closed loop with fused_solve=True on the card and on the
-    CPU: one fleet_admm launch per cycle, no ew_chain launch, positions
-    within 1e-3 m over 4 cycles."""
+    CPU: one fleet_admm launch per cycle, no ew_chain launch (the device
+    record of a third run, which replays the earlier runs' graphs and
+    gives their bits), positions within 1e-3 m over 4 cycles."""
     cfg = _fused(small_config(num_obstacles=4, horizon=8, timeout=0.5,
                               max_obstacles=4, hist=8).replace(
         goal=(6.0, 0.0, 2.0)))
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 0.5)
-    trace.reset("fleet_admm.launches", "ew_chain.launches")
-    gpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1]), ref,
-                            ref.shape[0], num_cycles=4)
-    assert _launches("fleet_admm") == 4 and _launches("ew_chain") == 0
+    scen = sh.stack_scenarios(cfg, [0, 1])
+
+    def fly():
+        return cl.run_episode(cfg, scen, ref, ref.shape[0], num_cycles=4)[0]
+    gpu = fly()
+    fly()                       # every variant captured before the record
+    again, counts = _kernel_events(fly)
+    assert counts["fleet_admm"] == 4 and counts["ew_chain"] == 0
+    assert torch.equal(again.pos, gpu.pos)
     cpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1], device="cpu"),
                             ref, ref.shape[0], num_cycles=4, device="cpu")
     assert torch.allclose(gpu.pos.cpu(), cpu.pos, atol=1e-3, rtol=0)
@@ -654,6 +685,16 @@ def test_episode_step_does_not_synchronize(cuda_device, solve):
 _RUNTIME = re.compile(r"^cu(da)?(Launch|Memcpy|Memset)")
 
 
+def _path_config(path):
+    """The production config on the default or the fused solve path."""
+    cfg = IntentMPCConfig()
+    if path == "fused":
+        cfg = cfg.replace(planner=dataclasses.replace(
+            cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
+                                                    fused_solve=True)))
+    return cfg
+
+
 def _profiled(cfg, scen, ref, occ, carry, cycles, spans_on):
     """Run `cycles` under torch.profiler's CUDA activity (the benchmark's
     traced sub-window), the spans of utils/trace on or off. Returns
@@ -682,24 +723,20 @@ def _profiled(cfg, scen, ref, occ, carry, cycles, spans_on):
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["default", "fused"])
 def test_spans_and_counters_agree_with_the_device_trace(cuda_device, path):
-    """The production config at S = 2, 4 warm-up cycles, then the same 4
-    cycles from a factor-refresh cycle profiled from the same carry, spans
-    on and off. The runtime's launch, copy and memset calls are the same
-    in number (counted on the host side: CUPTI can drop device activity
-    records, seen on the card in one window of five, so the device
-    events are not an exact count). The registry counts 100 ew_chain
-    launches per cycle on the default path, and a window whose record
-    kept them all (up to 3 tries) holds exactly that many
-    ew_chain_kernel events. On the fused path it counts one fleet_admm
-    launch per cycle; each fleet_admm_kernel event starts after the start
-    of the `solve` span that holds its runtime launch event (matched by
-    correlation id; where none carries one, the k-th kernel and the k-th
+    """The production config at S = 2, 4 warm-up cycles, then the same 4 cycles
+    from a factor-refresh cycle profiled from the same carry, spans on and off
+    (both eager: spans on keep engine/graph.py's rule off, and the spans-off
+    window turns it off). The runtime's launch, copy and memset calls are the
+    same in number (counted on the host side: CUPTI can drop device activity
+    records, seen on the card in one window of five, so the device events are
+    not an exact count). The registry counts 100 ew_chain launches per cycle on
+    the default path, and a window whose record kept them all (up to 3 tries)
+    holds exactly that many ew_chain_kernel events. On the fused path it counts
+    one fleet_admm launch per cycle; each fleet_admm_kernel event starts after
+    the start of the `solve` span that holds its runtime launch event (matched
+    by correlation id; where none carries one, the k-th kernel and the k-th
     span)."""
-    cfg = IntentMPCConfig()
-    if path == "fused":
-        cfg = cfg.replace(planner=dataclasses.replace(
-            cfg.planner, solver=dataclasses.replace(cfg.planner.solver,
-                                                    fused_solve=True)))
+    cfg = _path_config(path)
     scen = sh.stack_scenarios(cfg, [0, 1])
     ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
     occ = empty_grid("cuda")
@@ -711,8 +748,12 @@ def test_spans_and_counters_agree_with_the_device_trace(cuda_device, path):
     spans, dev, host = _profiled(cfg, scen, ref, occ, carry, range(4, 8),
                                  True)
     counts = trace.counters()
-    off_spans, _, host_off = _profiled(cfg, scen, ref, occ, carry,
-                                       range(4, 8), False)
+    with pytest.MonkeyPatch.context() as mp:
+        # spans off would replay CUDA graphs (engine/graph.py): held to
+        # the eager cycle, the window issues the same calls as with spans
+        mp.setattr(graph, "engages", lambda *a: False)
+        off_spans, _, host_off = _profiled(cfg, scen, ref, occ, carry,
+                                           range(4, 8), False)
     assert off_spans == [] and len(spans) > 0
     assert len(host) == len(host_off) > 0
     solves = [s for s in spans if s.name == "solve"]
@@ -744,6 +785,177 @@ def test_spans_and_counters_agree_with_the_device_trace(cuda_device, path):
         assert all(k[0] >= s.start_ns for k, s in zip(kernels, solves))
     print("fleet_admm kernels matched by correlation id: %d of %d"
           % (matched, len(kernels)))
+
+
+_GRAPH_COUNTERS = ("closed_loop.graph_captures", "closed_loop.graph_replays",
+                   "closed_loop.graph_eager")
+
+
+def _graph_counts():
+    c = trace.counters()
+    return tuple(c.get(k, 0) for k in _GRAPH_COUNTERS)
+
+
+def _host_leaves(carry):
+    """Each leaf of a carry, copied to the host."""
+    return [t.to("cpu", copy=True) for t in flatten(carry)]
+
+
+def _gap(a, b):
+    """None where two lists of host leaves hold the same bits, else the
+    largest absolute difference of a differing leaf (inf for a differing
+    leaf that is not floating point, or a NaN against a number)."""
+    worst = None
+    for x, y in zip(a, b):
+        if x.numpy().tobytes() == y.numpy().tobytes():
+            continue
+        d = float("inf")
+        if x.is_floating_point():
+            d = float((x.double() - y.double()).abs()
+                      .nan_to_num(nan=float("inf")).max())
+        worst = d if worst is None else max(worst, d)
+    return worst
+
+
+def _graph_flight(cfg, scen, ref, occ, cycles=12, flight=9):
+    """`cycles` cycles from init_carry, a new flight at cycle `flight`:
+    the carries returned and their leaves on the host when each was
+    returned."""
+    carry, i = cl.init_carry(cfg, scen), 0
+    out, snaps = [], []
+    for n in range(cycles):
+        if n == flight:
+            carry, i = cl.init_carry(cfg, scen), 0
+        carry, pos = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                     carry, i)
+        assert pos is carry.pos
+        out.append(carry)
+        snaps.append(_host_leaves(carry))
+        i += 1
+    return out, snaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "fused"])
+def test_graphed_cycles_are_the_eager_cycles_on_card(cuda_device, path,
+                                                     monkeypatch):
+    """The production config at S = 32, 12 cycles over refresh and reuse
+    cycles and a flight boundary (init_carry at cycle 9), replayed from
+    CUDA graphs (engine/graph.py) and run eagerly: every carry has the
+    same bits; every carry returned, 8 and more cycles back included,
+    still holds the bits it had when it was returned; the counters read
+    on the default path 2 eager cycles (each variant's first), 2 captures
+    (the refresh and the reuse variant) and 8 replays, on the fused path
+    (one variant: it factors every cycle) 1 eager, 1 capture and 10
+    replays, and the eager run 12 eager cycles."""
+    cfg = _path_config(path)
+    scen = sh.stack_scenarios(cfg, list(range(32)))
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
+    occ = empty_grid("cuda")
+    graph.clear()
+    trace.reset(*_GRAPH_COUNTERS)
+    with monkeypatch.context() as mp:
+        mp.setattr(graph, "engages", lambda *a: False)
+        _, eager = _graph_flight(cfg, scen, ref, occ)
+    assert _graph_counts() == (0, 0, 12)
+    trace.reset(*_GRAPH_COUNTERS)
+    got, snaps = _graph_flight(cfg, scen, ref, occ)
+    assert _graph_counts() == ((2, 8, 2) if path == "default" else (1, 10, 1))
+    gaps = [_gap(a, b) for a, b in zip(eager, snaps)]
+    print("largest gap to the eager cycle, per cycle:", gaps)
+    assert gaps == [None] * 12
+    for i, (carry, b) in enumerate(zip(got, snaps)):
+        assert _gap(_host_leaves(carry), b) is None, \
+            "carry of cycle %d overwritten" % i
+    graph.clear()
+
+
+@pytest.mark.cuda
+def test_host_reads_and_spans_keep_the_cycle_eager_on_card(cuda_device):
+    """A truncation="osqp" cycle reads the host (100 iterations: a flag
+    after each of the first three blocks of 25), so its variant stays
+    eager after its first run and is never captured; with spans on every
+    cycle runs eagerly and records its span."""
+    cfg = small_config(num_obstacles=8, horizon=10, max_obstacles=8)
+    osqp = cfg.replace(planner=dataclasses.replace(
+        cfg.planner, solver=dataclasses.replace(
+            cfg.planner.solver, truncation="osqp", max_iter=100)))
+    scen = sh.stack_scenarios(cfg, [0, 1])
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
+    occ = empty_grid("cuda")
+    graph.clear()
+    trace.reset(*_GRAPH_COUNTERS, "admm.host_reads")
+    carry = cl.init_carry(osqp, scen)
+    for i in range(5):
+        carry, _ = cl.episode_step(osqp, scen, ref, ref.shape[0], occ, carry,
+                                   1 + 4 * i)
+    assert trace.counters()["admm.host_reads"] >= 5
+    assert _graph_counts() == (0, 0, 5)
+    trace.reset(*_GRAPH_COUNTERS)
+    carry = cl.init_carry(cfg, scen)
+    trace.start()
+    try:
+        for i in range(4):
+            carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                       carry, i)
+    finally:
+        spans = trace.stop()
+    assert [s.cycle for s in spans if s.name == "cycle"] == [0, 1, 2, 3]
+    assert _graph_counts() == (0, 0, 4)
+    graph.clear()
+
+
+def _device_events(cfg, scen, ref, occ, carry, cycles):
+    """Device events of `cycles` under torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in cycles:
+            carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ,
+                                       carry, i)
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["default", "fused"])
+def test_profiler_records_the_graphs_kernels(cuda_device, path, monkeypatch):
+    """torch.profiler sees the kernels of replayed cycles: over 4 replays
+    from a refresh cycle (S = 32) it records within 5% of the device
+    events of the same 4 cycles run eagerly, and the same number of the
+    path's own kernel (up to 3 tries each: CUPTI can drop records)."""
+    cfg = _path_config(path)
+    kernel = "fleet_admm_kernel" if path == "fused" else "ew_chain_kernel"
+    scen = sh.stack_scenarios(cfg, list(range(32)))
+    ref = straight_line_ref_traj(cfg.start, cfg.goal, 2.5, device="cuda")
+    occ = empty_grid("cuda")
+    graph.clear()
+    carry = cl.init_carry(cfg, scen)
+    for i in range(4):
+        carry, _ = cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
+    for i in range(4, 8):       # the refresh variant captured too
+        cl.episode_step(cfg, scen, ref, ref.shape[0], occ, carry, i)
+    torch.cuda.synchronize()
+
+    def counted(engaged):
+        with monkeypatch.context() as mp:
+            if not engaged:
+                mp.setattr(graph, "engages", lambda *a: False)
+            best = None
+            for _ in range(3):
+                ev = _device_events(cfg, scen, ref, occ, carry, range(4, 8))
+                n = (len(ev), sum(kernel in e for e in ev))
+                best = n if best is None or n > best else best
+            return best
+    trace.reset(*_GRAPH_COUNTERS)
+    replayed = counted(True)
+    assert _graph_counts() == (0, 12, 0)
+    eager = counted(False)
+    print("device events over 4 cycles: eager %s, replayed %s"
+          % (eager, replayed))
+    assert replayed[1] == eager[1] > 0
+    assert abs(replayed[0] - eager[0]) <= 0.05 * eager[0]
+    graph.clear()
 
 
 @pytest.mark.cuda

@@ -4,64 +4,76 @@ reference (mpcbench/reference), stage by stage.
 The timed window keeps the program's carries of a sample of its cycles,
 drawn from the seed (`Sampler`). Once the window has closed, each sample
 (cycle i; its factor-refresh cycle r <= i; the carries before r, before
-i and after i) is moved to the host and the reference recomputes, from
-the program's state before the cycle:
+i and after i) is moved to the host, the whole carry by path
+(`snapshot`), and each stage that the configuration file lists under
+"stages" (default `GT_STAGES`) recomputes its part of the cycle from the
+program's state before it, in blocks of scenarios, and holds it against
+what the program committed after it.
 
-  detector   the world and the ground-truth detector over the cycle,
-             against the program's detector state after it;
-  factor     the shared factor of the refresh cycle's candidate-mean QP
-             (the default path carries it), against the program's;
-  plan       predictor, the six candidate QPs, the shared factor, the
-             solves, the scoring and the choice, against the states the
-             program committed: the median over all sampled world-cycles,
-             the tail over the settled ones (`settled_from`);
-  plant      the controller and the plant over the cycle's ticks along
-             the plan the program committed (the reference follows the
-             program's plan, so the plant is held by itself), against
-             the program's positions, velocities and controller;
-  flags      acceptance, bookkeeping and collision flags, exactly.
+A stage is the file mpcbench/stages/<name>.py, found by name. It holds
+
+  READS          {name: carry path}: what it reads of the snapshots, under
+                 the names its reference takes ("detector.pos_hist" ...)
+  gaps(c, prog)  the reference in float64 from the state before the cycle
+                 (c, a `Cycle`) against `prog`, the view of what the
+                 program (or a control in its place) committed: {compared
+                 number's name: per-scenario gaps (a list) or an exact
+                 mismatch count (an int)}
+  control(c)     the same reference computed in c.prec, the control:
+                 {carry path: tensor} of what the stage commits, so that
+                 a control is held by `gaps` as the program is
+  NUMBERS        the names of the numbers it gives, each the largest gap
+                 over the samples (a count: the sum), or numbers(gaps) of
+                 its own
+  obstacles(c, st, cycle)  (a perception stage) the cycle's obstacle input
+                 of the plan, as reference/cycle.assemble takes it
+
+Stages run in the listed order and hand on what later ones read in
+`Cycle.out`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import random
 from typing import Dict, List
 
-import numpy as np
 import torch
 
-from mpcbench.reference import cycle as refc
 from mpcbench.reference.solve import Precision
 
-DET_KEYS = ("pos_hist", "vel_hist", "acc_hist", "hist_len", "last_pos", "vel",
-            "acc", "last_fd_time")
+GT_STAGES = ("gt_detector", "factor", "plan", "plant", "flags")
+
+
+def stages(cfg: dict) -> list:
+    """The configuration's stage modules, in order."""
+    from mpcbench import harness as hz
+    return [hz.load_module("stages", n) for n in cfg.get("stages", GT_STAGES)]
 
 
 def snapshot(carry) -> Dict[str, torch.Tensor]:
     """The program's state (an EngineCarry) as a flat dict of host
-    tensors, under the reference's key names."""
-    pl, d, c, m = carry.planner, carry.detector, carry.controller, carry.metrics
-    out = dict(pos=carry.pos, vel=carry.vel,
-               states_sol=pl.states_sol, controls_sol=pl.controls_sol,
-               first_time=pl.first_time, has_solution=pl.has_solution,
-               last_ref_start=pl.last_ref_start, xref=pl.xref, rho=pl.rho,
-               pos_err_int=c.pos_err_int, vel_err_int=c.vel_err_int,
-               prev_pos_err=c.prev_pos_err, prev_vel_err=c.prev_vel_err,
-               ctrl_first=c.first, traj_age=carry.traj_age,
-               traj_ready=carry.traj_ready, stopping=carry.stopping,
-               stop_pos=carry.stop_pos, tracking_start=carry.tracking_start,
-               done=carry.done, solve_attempts=m.solve_attempts,
-               solve_successes=m.solve_successes, collision=m.collision,
-               min_obstacle_dist=m.min_obstacle_dist)
-    for k in DET_KEYS:
-        out["det_" + k] = getattr(d, k)
-    if pl.fac_minv is not None:
-        out.update(fac_d=pl.fac_d, fac_c=pl.fac_c, fac_minv=pl.fac_minv,
-                   fac_e=torch.cat([pl.fac_e.eq.flatten(1), pl.fac_e.sb.flatten(1),
-                                    pl.fac_e.cb.flatten(1), pl.fac_e.obs.flatten(1)],
-                                   dim=1))
-    return {k: v.detach().to("cpu", copy=True) for k, v in out.items()}
+    tensors, each under its path of field names ("planner.states_sol",
+    "real_det.tracks.P"); None fields are left out."""
+    out = {}
+
+    def walk(x, path):
+        if x is None:
+            return
+        if isinstance(x, torch.Tensor):
+            out[path] = x.detach().to("cpu", copy=True)
+            return
+        if dataclasses.is_dataclass(x):
+            items = [(f.name, getattr(x, f.name)) for f in dataclasses.fields(x)]
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            items = zip(x._fields, x)
+        else:
+            raise TypeError("carry field %s holds a %s" % (path, type(x).__name__))
+        for k, v in items:
+            walk(v, path + "." + k if path else k)
+    walk(carry, "")
+    return out
 
 
 def settled_from(cfg: dict) -> int:
@@ -124,20 +136,28 @@ class Sampler:
         return out
 
 
-def _state(s: dict, sl, dt, dev) -> dict:
-    """The reference's view of a snapshot, scenarios `sl`."""
-    st = {}
-    for k, v in s.items():
-        if k.startswith("det_"):
-            continue
-        v = v[sl].to(dev)
-        st[k] = v.to(dt) if v.is_floating_point() else v
-    det = {}
-    for k in DET_KEYS:
-        v = s["det_" + k][sl].to(dev)
-        det[k] = v.to(dt) if v.is_floating_point() else v
-    st["detector"] = det
-    return st
+def reads(mods) -> Dict[str, str]:
+    """The stages' READS together; one name read from two paths is an
+    error."""
+    out = {}
+    for m in mods:
+        for name, path in m.READS.items():
+            if out.setdefault(name, path) != path:
+                raise ValueError("stage %s reads %s from %s, another from %s"
+                                 % (m.__name__, name, path, out[name]))
+    return out
+
+
+def view(snap: dict, names: Dict[str, str], sl, dt, dev) -> dict:
+    """The reference's view of a snapshot (or of a control's commits):
+    scenarios `sl` of each path it holds, under the stages' names, on
+    `dev`, floating point in `dt`."""
+    out = {}
+    for name, path in names.items():
+        if path in snap:
+            v = snap[path][sl].to(dev)
+            out[name] = v.to(dt) if v.is_floating_point() else v
+    return out
 
 
 def _scen(sc: dict, sl, dt, dev) -> dict:
@@ -145,107 +165,108 @@ def _scen(sc: dict, sl, dt, dev) -> dict:
             for k, v in sc.items()}
 
 
-def _rel(a, b):
+def rel(a, b):
     """Per scenario max |a - b| over max |b|."""
     a, b = a.flatten(1), b.flatten(1)
     return ((a - b).abs().amax(1) / torch.clamp(b.abs().amax(1), min=1e-300))
 
 
-def stage_gaps(cfg: dict, blocks, ref_traj, sample: dict, chunk: int, device,
-               program: dict = None) -> dict:
-    """Per-scenario gaps of one sampled cycle (lists of floats, exact
-    mismatch counts, and whether the cycle is settled). `program` replaces
-    the program's committed outputs (the control: a lower-precision
-    reference in its place)."""
-    dt = torch.float64
+class Cycle:
+    """One sampled cycle in one block of scenarios, as the stages see it:
+    the configuration, the worlds `sc`, the reference trajectory, the
+    cycle i and its refresh cycle r, the precision, the stages' READS
+    `names`, the state before the cycle `st` and before r `at_refresh`,
+    and `out`, what earlier stages computed."""
+
+    def __init__(self, cfg, mods, names, sc_all, ref, sample, sl, prec, dev):
+        self.cfg, self.prec, self.dev, self.names = cfg, prec, dev, names
+        self.cycle, self.refresh = sample["cycle"], sample["refresh_cycle"]
+        self.sc = _scen(sc_all, sl, prec.dtype, dev)
+        self.ref = ref
+        self.st = view(sample["before"], names, sl, prec.dtype, dev)
+        self.at_refresh = view(sample["at_refresh"], names, sl, prec.dtype, dev)
+        self.perception = next((m for m in mods if hasattr(m, "obstacles")), None)
+        self.out = {}
+
+    def obstacles(self, st: dict, cycle: int) -> dict:
+        """The perception stage's obstacle input of cycle `cycle` from
+        state `st`."""
+        if self.perception is None:
+            raise ValueError("the configuration's stages hold no perception "
+                             "stage (one with obstacles())")
+        return self.perception.obstacles(self, st, cycle)
+
+
+def _blocks(cfg, mods, blocks, ref_traj, sample, prec, chunk, device):
+    """The sample's `Cycle`s, one per block of `chunk` scenarios."""
     sc_all = blocks[sample["block"]]
     S = sc_all["origin"].shape[0]
-    i, r = sample["cycle"], sample["refresh_cycle"]
-    fused = cfg["planner"]["solver"]["fused_solve"]
-    ref = ref_traj.to(device).to(dt)
-    prog = sample["after"] if program is None else program
-    out = {k: [] for k in ("detector_pos", "detector_vel", "factor_minv",
-                           "factor_scale", "plan_state", "plant")}
-    mism = 0
+    ref = ref_traj.to(device).to(prec.dtype)
+    names = reads(mods)
     for a in range(0, S, chunk):
         sl = slice(a, min(S, a + chunk))
-        sc = _scen(sc_all, sl, dt, device)
-        st = _state(sample["before"], sl, dt, device)
-        pg = _state(prog, sl, dt, device)
-        # detector over the cycle
-        det = refc.detector_cycle(cfg, sc, st["detector"], i)
-        pd = pg["detector"]
-        out["detector_pos"] += torch.maximum(
-            (det["pos_hist"] - pd["pos_hist"]).abs().flatten(1).amax(1),
-            (det["last_pos"] - pd["last_pos"]).abs().flatten(1).amax(1)).tolist()
-        out["detector_vel"] += torch.maximum(
-            (det["vel_hist"] - pd["vel_hist"]).abs().flatten(1).amax(1),
-            (det["vel"] - pd["vel"]).abs().flatten(1).amax(1)).tolist()
-        mism += int((det["hist_len"] != pd["hist_len"]).sum())
-        mism += int((det["last_fd_time"] != pd["last_fd_time"]).sum())
-        # the shared factor in force
-        if fused:
-            fac = None
-        else:
-            st_r = _state(sample["at_refresh"], sl, dt, device)
-            asm = refc.assemble(cfg, sc, ref, st_r, r)
-            fac = refc.factor(cfg, asm["qps"], st_r["rho"], Precision("float64"))
-            if "fac_minv" in pg:
-                out["factor_minv"] += _rel(pg["fac_minv"], fac[3]).tolist()
-                out["factor_scale"] += torch.stack(
-                    [_rel(pg["fac_d"], fac[0]), _rel(pg["fac_e"], fac[1]),
-                     _rel(pg["fac_c"][:, None], fac[2][:, None])]).amax(0).tolist()
-        p = refc.plan(cfg, sc, ref, st, i, fac, Precision("float64"))
-        gap = (p["states_sol"][..., 0:6] - pg["states_sol"][..., 0:6]).abs()
-        out["plan_state"] += gap.flatten(1).amax(1).tolist()
-        # flags
-        valid_p = (pg["solve_successes"] - st["solve_successes"]) > 0
-        mism += int((p["valid"] & ~st["done"] & ~st["stopping"] != valid_p).sum())
-        bk = refc.bookkeeping(cfg, st, valid_p, i)
-        for k in ("traj_age", "traj_ready", "stopping"):
-            mism += int((bk[k] != pg[k]).sum())
-        mism += int(((pg["solve_attempts"] - st["solve_attempts"]) > 0).ne(bk["run"]).sum())
-        # plant along the program's committed plan
-        step = dict(states_sol=pg["states_sol"], controls_sol=pg["controls_sol"],
-                    traj_age=pg["traj_age"], traj_ready=pg["traj_ready"],
-                    stopping=pg["stopping"], stop_pos=pg["stop_pos"])
-        tk = refc.ticks(cfg, sc, st, step, i)
-        out["plant"] += torch.stack([
-            (tk["pos"] - pg["pos"]).abs().amax(1),
-            (tk["vel"] - pg["vel"]).abs().amax(1),
-            (tk["pos_err_int"] - pg["pos_err_int"]).abs().amax(1)]).amax(0).tolist()
-        hit_p = pg["collision"] & ~st["collision"]
-        mism += int(((tk["collision"] & ~st["collision"]) != hit_p).sum())
-    out["mismatches"] = mism
-    out["settled"] = i >= settled_from(cfg)
+        yield sl, Cycle(cfg, mods, names, sc_all, ref, sample, sl, prec, device)
+
+
+def stage_gaps(cfg: dict, mods, blocks, ref_traj, sample: dict, chunk: int,
+               device, program: dict = None) -> dict:
+    """Per-scenario gaps of one sampled cycle, stage by stage (lists of
+    floats and exact mismatch counts under the compared numbers' names),
+    and whether the cycle is settled. `program` replaces the program's
+    committed outputs (the control: a lower-precision reference in its
+    place)."""
+    prog = sample["after"] if program is None else program
+    out = {}
+    for sl, c in _blocks(cfg, mods, blocks, ref_traj, sample,
+                         Precision("float64"), chunk, device):
+        pg = view(prog, c.names, sl, torch.float64, device)
+        for m in mods:
+            for k, v in m.gaps(c, pg).items():
+                if isinstance(v, list):
+                    out[k] = out.get(k, []) + v
+                else:
+                    out[k] = out.get(k, 0) + int(v)
+    out["settled"] = sample["cycle"] >= settled_from(cfg)
     return out
 
 
-def numbers(gaps: List[dict]) -> Dict[str, float]:
-    """The compared numbers of a run from its samples' gaps: the largest
-    gap of every stage but the plan; of the plan, the median and the 90th
-    percentile over all sampled scenario-cycles, and the 99th percentile
-    and the largest over the settled ones; and the count of flag
-    mismatches."""
-    def cat(key):
-        return [v for g in gaps for v in g[key]]
+def control_after(cfg: dict, mods, blocks, ref_traj, sample: dict,
+                  prec: Precision, chunk: int, device) -> dict:
+    """The control: the reference in the program's place, computed in
+    `prec` (and its state stored in it), from the program's state before
+    the sampled cycle. Returns a snapshot-like dict of what it committed,
+    as `stage_gaps` reads a program's."""
+    parts = []
+    for _, c in _blocks(cfg, mods, blocks, ref_traj, sample, prec, chunk, device):
+        got = {}
+        for m in mods:
+            got.update(m.control(c))
+        parts.append({k: prec.store(v).detach().cpu() for k, v in got.items()})
+    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+
+
+def largest(gaps: List[dict], names) -> Dict[str, float]:
+    """The largest gap of each name over the samples' gaps, or the sum of
+    its counts; a name no sample gave is left out."""
     out = {}
-    for key, name in (("detector_pos", "detector_pos_m"),
-                      ("detector_vel", "detector_vel_mps"),
-                      ("factor_minv", "factor_minv_rel"),
-                      ("factor_scale", "factor_scale_rel"),
-                      ("plant", "plant_m")):
-        v = cat(key)
-        if v:
-            out[name] = max(v)
-    plan = np.asarray(cat("plan_state"))
-    out["plan_state_p50"] = float(np.percentile(plan, 50))
-    out["plan_state_p90"] = float(np.percentile(plan, 90))
-    settled = np.asarray([v for g in gaps if g["settled"] for v in g["plan_state"]])
-    if settled.size:
-        out["plan_state_p99"] = float(np.percentile(settled, 99))
-        out["plan_state_max"] = float(settled.max())
-    out["flag_mismatches"] = float(sum(g["mismatches"] for g in gaps))
+    for name in names:
+        vs = [g[name] for g in gaps if name in g]
+        if vs and isinstance(vs[0], list):
+            flat = [v for x in vs for v in x]
+            if flat:
+                out[name] = max(flat)
+        elif vs:
+            out[name] = float(sum(vs))
+    return out
+
+
+def numbers(gaps: List[dict], mods) -> Dict[str, float]:
+    """The compared numbers of a run from its samples' gaps, stage by
+    stage."""
+    out = {}
+    for m in mods:
+        out.update(m.numbers(gaps) if hasattr(m, "numbers")
+                   else largest(gaps, m.NUMBERS))
     return out
 
 
@@ -261,49 +282,3 @@ def judge(values: Dict[str, float], limits: Dict[str, float]):
         ok = ok and good
         rows.append((name, v, lim))
     return ok, rows
-
-
-def control_after(cfg: dict, blocks, ref_traj, sample: dict, prec: Precision,
-                  chunk: int, device) -> dict:
-    """The control: the reference in the program's place, computed in
-    `prec` (and its state stored in it), from the program's state before
-    the sampled cycle. Returns a snapshot-like dict of what it committed,
-    as `stage_gaps` reads a program's."""
-    dt = prec.dtype
-    sc_all = blocks[sample["block"]]
-    S = sc_all["origin"].shape[0]
-    i, r = sample["cycle"], sample["refresh_cycle"]
-    fused = cfg["planner"]["solver"]["fused_solve"]
-    ref = ref_traj.to(device).to(dt)
-    parts = []
-    for a in range(0, S, chunk):
-        sl = slice(a, min(S, a + chunk))
-        sc = _scen(sc_all, sl, dt, device)
-        st = _state(sample["before"], sl, dt, device)
-        det = refc.detector_cycle(cfg, sc, st["detector"], i)
-        fac = None
-        if not fused:
-            st_r = _state(sample["at_refresh"], sl, dt, device)
-            fac = refc.factor(cfg, refc.assemble(cfg, sc, ref, st_r, r)["qps"],
-                              st_r["rho"], prec)
-        p = refc.plan(cfg, sc, ref, st, i, fac, prec)
-        bk = refc.bookkeeping(cfg, st, p["valid"], i)
-        step = dict(states_sol=p["states_sol"], controls_sol=p["controls_sol"],
-                    traj_age=bk["traj_age"], traj_ready=bk["traj_ready"],
-                    stopping=bk["stopping"], stop_pos=bk["stop_pos"])
-        tk = refc.ticks(cfg, sc, st, step, i)
-        out = dict(pos=tk["pos"], vel=tk["vel"], states_sol=p["states_sol"],
-                   controls_sol=p["controls_sol"], traj_age=bk["traj_age"],
-                   traj_ready=bk["traj_ready"], stopping=bk["stopping"],
-                   stop_pos=bk["stop_pos"],
-                   solve_attempts=st["solve_attempts"] + bk["run"].to(torch.int32),
-                   solve_successes=st["solve_successes"] + bk["valid"].to(torch.int32),
-                   collision=st["collision"] | tk["collision"],
-                   pos_err_int=tk["pos_err_int"])
-        if not fused:
-            out.update(fac_d=p["factor"][0], fac_e=p["factor"][1],
-                       fac_c=p["factor"][2], fac_minv=p["factor"][3])
-        for k in DET_KEYS:
-            out["det_" + k] = det[k]
-        parts.append({k: prec.store(v).detach().cpu() for k, v in out.items()})
-    return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}

@@ -6,10 +6,12 @@
 For each seed, in one process: the cell's set-up and a window of
 `--seconds` at the cell's own load, then the compared numbers of the
 program's sampled cycles (the lower readings), with each sampled cycle's
-median and largest plan gap. For the first `--control` seeds also the
-controls' numbers (the upper readings), from the program's state of the
-same cycles: the reference in the program's place with its products in
-TF32 ("tf32") and with its stored results in bfloat16 ("bf16"); and, as
+median and largest plan gap where the configuration's stages hold one.
+For the first `--control` seeds also the controls' numbers (the upper
+readings), from the program's state of the same cycles, through the
+configuration's own stages (its "stages", mpcbench/stages/<name>.py):
+the reference in the program's place with its products in TF32
+("tf32") and with its stored results in bfloat16 ("bf16"); and, as
 a witness beside them, the program itself run once more on the seed with
 cuBLAS's TF32 switched back on after each flight's `init_carry` (which
 switches it off), its own sampled cycles held against the reference
@@ -89,23 +91,18 @@ def main(argv=None):
         pre, win, samples = sampled_window(c, seed, dev, args.seconds)
         gaps = pre.gaps(samples)
         line = dict(workload=args.workload, seed=seed, cycles=win["cycles"],
-                    program=check.numbers(gaps),
+                    program=check.numbers(gaps, pre.stages),
                     plan_by_cycle=[[s["cycle"], g["settled"],
                                     float(np.median(g["plan_state"])),
                                     max(g["plan_state"])]
-                                   for s, g in zip(samples, gaps)])
+                                   for s, g in zip(samples, gaps)
+                                   if "plan_state" in g])
         if n < args.control:
-            blocks = pre.host_blocks()
-            ref = torch.as_tensor(pre.ref_np)
-            chunk = c["traffic"]["reference_chunk"]
             for name in ("tf32", "bf16"):
-                def ctl(s, prec=Precision(name)):
-                    return check.control_after(c["config"], blocks, ref, s,
-                                               prec, chunk, dev)
-                line[name] = check.numbers(pre.gaps(samples, ctl))
+                line[name] = pre.numbers(samples, Precision(name))
             with program_tf32():
                 pre_t, _, samples_t = sampled_window(c, seed, dev, args.seconds)
-            line["program_tf32"] = check.numbers(pre_t.gaps(samples_t))
+            line["program_tf32"] = pre_t.numbers(samples_t)
         line["seconds"] = time.perf_counter() - t0
         print(json.dumps(line), flush=True)
 

@@ -5,11 +5,26 @@ traced sub-window and its reading.
 Everything of one configuration, traffic mix or per-layer metric sits
 in a file of its own, found by the names in BENCHMARK.json:
 
-    configs/<config>.json     the configuration as it is run
+    configs/<config>.json     the configuration as it is run; its "maps"
+                              and "stages" name the files below
     traffic/<traffic>.json    the traffic mix; its "mode" names
     modes/<mode>.py           the window's loop and its end-to-end metrics
+    maps/<maps>.py            each block's static maps (default "empty")
+    stages/<stage>.py         one stage of the check of `correct` (default
+                              check.GT_STAGES)
     metrics/<metric>.py       one reader per per-layer metric
     counts/<kernel>.py        a kernel's operations and bytes
+
+A reader's `read(rec)` takes the traced run's record (run.run_cell) and
+returns a number, or None where it finds nothing to read. The record:
+the traced sub-window's device operations `ops` (start_ns, duration_ns,
+name), `busy_s`, `window_s`, `window` (start and end ns on the spans'
+clock), `traced_cycles`, the runtime's launch, copy and memset host
+starts `runtime`, `counters` (utils/trace's registry, its change over
+the traced cycles), `spans` (utils/trace's records, where the traffic or
+configuration file sets "spans": true, else None; spans keep a cycle
+eager), the window's `enqueue_s`, `scenarios`, `candidates`, `config`,
+`peaks`, and `counts(kernel)` and `kernel_time(pattern)`.
 """
 
 from __future__ import annotations
@@ -18,6 +33,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 import time
 from typing import Optional
 
@@ -61,14 +77,11 @@ def cell(bench: dict, workload: str) -> dict:
                 per_layer=per_layer)
 
 
-# sections of the program's IntentMPCConfig that a configuration file sets
-SECTIONS = ("world", "detector", "predictor", "planner", "control", "engine")
-
-
 def program_config(cfg: dict):
-    """The program's IntentMPCConfig with every section the file gives
-    set field by field; a field the program lacks, or lacks in the file,
-    is an error."""
+    """The program's IntentMPCConfig with each of its sections (the fields
+    that hold a dataclass) set field by field from the file; a section or
+    field that the program lacks, or that the file leaves out, is an
+    error."""
     from intent_mpc_torch.utils.config import IntentMPCConfig
 
     def build(dc, values: dict):
@@ -88,20 +101,38 @@ def program_config(cfg: dict):
         return dataclasses.replace(dc, **kw)
 
     base = IntentMPCConfig()
-    kw = {s: build(getattr(base, s), cfg[s]) for s in SECTIONS}
+    sections = [f.name for f in dataclasses.fields(base)
+                if dataclasses.is_dataclass(getattr(base, f.name))]
+    missing = [s for s in sections if s not in cfg]
+    if missing:
+        raise KeyError("configuration lacks the sections %s" % missing)
+    kw = {s: build(getattr(base, s), cfg[s]) for s in sections}
     return base.replace(start=tuple(cfg["start"]), goal=tuple(cfg["goal"]), **kw)
+
+
+def maps(cfg: dict, blocks_np, device) -> list:
+    """Each block's (occ, veto_occ) as the program takes them, built by
+    maps/<name>.py (the file's "maps", default "empty") from the block's
+    seeded worlds."""
+    from intent_mpc_torch.models.occupancy import OccupancyGrid
+    mod = load_module("maps", cfg.get("maps", "empty"))
+
+    def grid(g):
+        return None if g is None else OccupancyGrid(**g)
+    return [tuple(grid(g) for g in mod.build(cfg, b, device)) for b in blocks_np]
 
 
 class Flights:
     """The window's flights: blocks of seeded worlds flown for
     `episode_cycles` cycles each, the next block when one ends (back to
-    the first after the last). `sampler` sees every cycle."""
+    the first after the last), each on its block's maps ((occ,
+    veto_occ) pairs). `sampler` sees every cycle."""
 
-    def __init__(self, pcfg, blocks, ref, occ, episode_cycles: int,
+    def __init__(self, pcfg, blocks, ref, maps, episode_cycles: int,
                  sampler=None):
         from intent_mpc_torch.engine import closed_loop as cl
         self.cl, self.cfg = cl, pcfg
-        self.blocks, self.ref, self.occ = blocks, ref, occ
+        self.blocks, self.ref, self.maps = blocks, ref, maps
         self.episode = episode_cycles
         self.sampler = sampler
         self.b, self.i = 0, 0
@@ -119,8 +150,10 @@ class Flights:
         b, i, carry = self.b, self.i, self.carry
         if self.sampler is not None:
             self.sampler.before(b, i, carry)
+        occ, veto = self.maps[b]
         new, _ = self.cl.episode_step(self.cfg, self.blocks[b], self.ref,
-                                      self.ref.shape[0], self.occ, carry, i)
+                                      self.ref.shape[0], occ, carry, i,
+                                      veto_occ=veto)
         if self.sampler is not None:
             self.sampler.after(b, i, carry, new)
         self.carry, self.i = new, i + 1
@@ -156,30 +189,52 @@ class Flights:
         return [int(m.solve_attempts.sum()), int(m.solve_successes.sum())]
 
 
-def traced(flights: Flights, mode, cycles: int, every: int):
+# the runtime API calls that put work on the device
+RUNTIME = re.compile(r"^cu(da)?(Launch|Memcpy|Memset)")
+
+
+def traced(flights: Flights, mode, cycles: int, every: int,
+           spans: bool = False) -> dict:
     """Continue the flights to a factor-refresh cycle, then run `cycles`
     cycles as the traffic's mode sends them (`mode.cycle`) under
-    torch.profiler's CUDA activity, read in memory. Returns the record
-    the per-layer readers take."""
+    torch.profiler's CUDA activity, read in memory, with the program's
+    spans recorded when `spans` (they keep a cycle eager). Returns the
+    device operations (start_ns, duration_ns, name), the host start
+    times of the runtime's launch, copy and memset events, the window
+    on the spans' clock (`window`, ns) and its seconds (`window_s`), the
+    spans (None when off) and the change of utils/trace's counters."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from intent_mpc_torch.utils import trace
 
     while flights.i % every != 0:
         flights.step()
     flights.sync()
     acts = [ProfilerActivity.CUDA if flights.ref.device.type == "cuda"
             else ProfilerActivity.CPU]
+    before = trace.counters()
     with profile(activities=acts) as prof:
+        if spans:
+            trace.start()
+        w0 = time.time_ns()
         t0 = time.perf_counter()
         for _ in range(cycles):
             mode.cycle(flights)
         flights.sync()
         window = time.perf_counter() - t0
+        w1 = time.time_ns()
+        got = trace.stop() if spans else None
+    counters = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+                if v != before.get(k, 0)}
     cuda = torch.autograd.DeviceType.CUDA
-    ops = sorted((e.start_ns(), e.duration_ns(), e.name())
-                 for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == cuda)
-    return dict(ops=ops, window_s=window, cycles=cycles)
+    ops, runtime = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            ops.append((e.start_ns(), e.duration_ns(), e.name()))
+        elif RUNTIME.match(e.name()):
+            runtime.append(e.start_ns())
+    return dict(ops=sorted(ops), runtime=runtime, window=(w0, w1),
+                window_s=window, cycles=cycles, spans=got, counters=counters)
 
 
 def busy_seconds(ops) -> float:

@@ -14,7 +14,8 @@ def cycle(flights):
     return flights.step()
 
 
-def window(flights, seconds: float, traffic: dict) -> dict:
+def window(flights, seconds: float, traffic: dict, cycles=None) -> dict:
+    """`seconds` of cycles, or exactly `cycles` cycles where given."""
     start = flights.mark()
     flights.sync()
     enq = []
@@ -24,7 +25,7 @@ def window(flights, seconds: float, traffic: dict) -> dict:
         cycle(flights)
         b = time.perf_counter()
         enq.append(b - a)
-        if b - t0 >= seconds:
+        if (len(enq) == cycles) if cycles else (b - t0 >= seconds):
             break
     flights.sync()
     elapsed = time.perf_counter() - t0

@@ -25,7 +25,8 @@ def cycle(flights):
     return fetch(flights.step())
 
 
-def window(flights, seconds: float, traffic: dict) -> dict:
+def window(flights, seconds: float, traffic: dict, cycles=None) -> dict:
+    """`seconds` of cycles, or exactly `cycles` cycles where given."""
     start = flights.mark()
     flights.sync()
     lat, enq = [], []
@@ -38,7 +39,7 @@ def window(flights, seconds: float, traffic: dict) -> dict:
         c = time.perf_counter()
         lat.append(c - a)
         enq.append(b - a)
-        if c - t0 >= seconds:
+        if (len(lat) == cycles) if cycles else (c - t0 >= seconds):
             break
     elapsed = time.perf_counter() - t0
     attempted, failed = flights.counters(start)

@@ -7,9 +7,12 @@ precision's dtype, and returns plain tensors.
 
     detector_cycle  the world at the cycle start and at the history
                     ticks, the detector's finite differences and pushes
-    plan            detector query, predictor, the six candidate QPs of
-                    each scenario, the shared factor, the solves, the
-                    scoring and the chosen candidate
+    query           the ground-truth detector's obstacle input of a cycle
+    plan            predictor, the six candidate QPs of each scenario on
+                    the cycle's obstacle input (a perception stage's:
+                    histories, sizes and visibility, and any extra
+                    rows), the shared factor, the solves, the scoring and
+                    the chosen candidate
     factor          the shared factor of a cycle's candidate-mean QP
     ticks           the controller and the plant over the cycle's ticks,
                     with the collision monitor
@@ -187,14 +190,19 @@ def choose(cons, det, safety, weights, ok):
     return torch.argmax(s, dim=-1)
 
 
-def assemble(cfg: dict, sc: dict, ref, st: dict, cycle: int):
-    """The cycle's detector query, predictions and six candidate QPs of
-    each scenario. Returns a dict of the pieces the solve and the
-    scoring read."""
+def assemble(cfg: dict, ref, st: dict, obs: dict):
+    """The cycle's predictions and six candidate QPs of each scenario
+    from its obstacle input `obs`: pos_hist, vel_hist, size_hist (S, O,
+    Hh, 3), hist_len and visible (S, O), and "extra", None or rows the
+    same in every candidate (pos and size (S, C, 3) boxes, yaw (S, C),
+    active (S, C) bool) with the static safety distance and the static
+    slack, which count for the first-cycle test and stay out of the
+    scoring. Returns a dict of the pieces the solve and the scoring
+    read."""
     pl = cfg["planner"]
     H, W = pl["horizon"], pl["horizon"] - 1
-    d = detector_start(cfg, sc, st["detector"], cycle)
-    ph, vh, size_h, hl, vis = query(cfg["detector"], d, sc["bbox"], st["pos"])
+    ph, vh, size_h = obs["pos_hist"], obs["vel_hist"], obs["size_hist"]
+    hl, vis, extra = obs["hist_len"], obs["visible"], obs.get("extra")
     ppos, psize, prob = predlib.predict(cfg["predictor"], ph, vh, size_h, hl)
     S, O = ppos.shape[:2]
     pos = st["pos"]
@@ -225,15 +233,27 @@ def assemble(cfg: dict, sc: dict, ref, st: dict, cycle: int):
     order = torch.argsort(w6, dim=-1, stable=True).flip(-1)
     cpos, csize, cact = _rows(cpos, order), _rows(csize, order), _rows(cact, order)
     use_obs = (~st["first_time"]) & torch.any(vis, dim=-1)
+    if extra is not None:
+        use_obs = use_obs | ((~st["first_time"]) & torch.any(extra["active"], -1))
     cact = cact * use_obs.to(cact.dtype)[:, None, None]
     qsize = csize[:, :, :W] / 2.0 + pl["dynamic_safety_dist"]
     qpos = cpos[:, :, :W]
     act = cact[:, :, None, :].expand(qpos.shape[:-1])
+    dyn, yaw = torch.ones_like(act), None
+    if extra is not None:
+        shape = (S, 6, W, extra["pos"].shape[1])
+        xact = extra["active"].to(act.dtype) * use_obs.to(act.dtype)[:, None]
+        qpos = torch.cat([qpos, extra["pos"][:, None, None].expand(shape + (3,))], 3)
+        qsize = torch.cat([qsize, (extra["size"] / 2.0 + pl["static_safety_dist"])
+                           [:, None, None].expand(shape + (3,))], 3)
+        yaw = torch.cat([torch.zeros_like(act), extra["yaw"][:, None, None].expand(shape)], 3)
+        dyn = torch.cat([dyn, torch.zeros(shape, dtype=act.dtype, device=act.device)], 3)
+        act = torch.cat([act, xact[:, None, None].expand(shape)], 3)
     lin = torch.where(st["has_solution"][:, None, None], X0[:, :W, 0:3],
                       pos[:, None, :].expand(S, W, 3))
     x0 = torch.cat([pos, st["vel"]], dim=-1)
-    qps = qplib.build(pl, x0[:, None], xref[:, None], qpos, qsize,
-                      torch.ones_like(act), act, lin[:, None])
+    qps = qplib.build(pl, x0[:, None], xref[:, None], qpos, qsize, dyn, act,
+                      lin[:, None], yaw)
     return dict(qps=qps, xref=xref, start=start, w6=w6, cpos=cpos, csize=csize,
                 cact=cact)
 
@@ -280,14 +300,14 @@ def solve(cfg: dict, qps: qplib.QP, fac, warm, rho, prec: Precision):
     return x, prim
 
 
-def plan(cfg: dict, sc: dict, ref, st: dict, cycle: int, fac,
-         prec: Precision) -> dict:
-    """The planner's cycle from state `st`; `fac` the shared factor in
-    force (None: factor this cycle's candidate-mean QP). Returns the
-    chosen states and controls, the bookkeeping and the factor used."""
+def plan(cfg: dict, ref, st: dict, obs: dict, fac, prec: Precision) -> dict:
+    """The planner's cycle from state `st` on the obstacle input `obs`
+    (as `assemble` takes it); `fac` the shared factor in force (None:
+    factor this cycle's candidate-mean QP). Returns the chosen states
+    and controls, the bookkeeping and the factor used."""
     pl = cfg["planner"]
     H, W = pl["horizon"], pl["horizon"] - 1
-    a = assemble(cfg, sc, ref, st, cycle)
+    a = assemble(cfg, ref, st, obs)
     qps = a["qps"]
     S = qps.q.shape[0]
     n = 8 * H + 5 * W

@@ -87,10 +87,11 @@ def linear_rows(pl: dict, dtype, device):
     return M
 
 
-def build(pl: dict, x0, xref, opos, osize, dyn, active, lin):
+def build(pl: dict, x0, xref, opos, osize, dyn, active, lin, yaw=None):
     """QPs of the candidates: x0 (..., 6), xref (..., H, 3), opos/osize
-    (..., W, K, 3) ellipsoid centres and semi-axes (yaw 0), dyn/active
-    (..., W, K), lin (..., W, 3) linearization points."""
+    (..., W, K, 3) ellipsoid centres and semi-axes, dyn/active
+    (..., W, K), lin (..., W, 3) linearization points; yaw (..., W, K)
+    each ellipsoid's turn about z (None: 0)."""
     H, W, n, m_lin, _ = dims(pl, opos.shape[-2])
     dt, dev = opos.dtype, opos.device
     lead = active.shape[:-2]
@@ -101,10 +102,20 @@ def build(pl: dict, x0, xref, opos, osize, dyn, active, lin):
                                       device=dev)], dim=-1)
     q = torch.cat([(-Q * xr).flatten(-2).expand(lead + (NX * H,)),
                    torch.zeros(lead + (NU * W,), dtype=dt, device=dev)], -1)
-    # ellipsoid f(p) = sum ((p - o) / s)^2 linearized at c
+    # ellipsoid f(p) = sum ((R^T (p - o)) / s)^2 linearized at c, R the
+    # turn by yaw about z
     dlt = lin[..., :, None, :] - opos
-    G = 2.0 * dlt / osize ** 2
-    f = torch.sum((dlt / osize) ** 2, dim=-1)
+    if yaw is None:
+        G = 2.0 * dlt / osize ** 2
+        f = torch.sum((dlt / osize) ** 2, dim=-1)
+    else:
+        cy, sy = torch.cos(yaw), torch.sin(yaw)
+        b = torch.stack([cy * dlt[..., 0] + sy * dlt[..., 1],
+                         cy * dlt[..., 1] - sy * dlt[..., 0], dlt[..., 2]], -1)
+        gb = 2.0 * b / osize ** 2
+        G = torch.stack([cy * gb[..., 0] - sy * gb[..., 1],
+                         sy * gb[..., 0] + cy * gb[..., 1], gb[..., 2]], -1)
+        f = torch.sum((b / osize) ** 2, dim=-1)
     lo = 1.0 - f + torch.sum(G * lin[..., :, None, :], dim=-1)
     G = G * active[..., None]
     lo = torch.where(active > 0, lo, torch.full_like(lo, -inf))

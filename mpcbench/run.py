@@ -39,6 +39,7 @@ def parse(argv=None):
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    ap.set_defaults(cycles=None)    # the CPU rehearsals' windows count cycles
     return ap.parse_args(argv)
 
 
@@ -69,16 +70,15 @@ def main(argv=None):
 
 class Prepared:
     """A cell's set-up on `dev`: the program's configuration, the seeded
-    worlds (host and device copies), the reference trajectory, the mode,
-    and the program's kernels built and warmed on the cell's own shapes
-    (one factor-refresh cycle and one reuse cycle, sent as the traffic
-    sends them)."""
+    worlds (host and device copies) and each block's maps, the reference
+    trajectory, the mode, the check's stages, and the program's kernels
+    built and warmed on the cell's own shapes (one factor-refresh cycle
+    and one reuse cycle, sent as the traffic sends them)."""
 
     def __init__(self, c: dict, seed: int, dev):
         import torch
-        from mpcbench import generator
+        from mpcbench import check, generator
         from mpcbench import harness as hz
-        from intent_mpc_torch.models.occupancy import empty_grid
         from intent_mpc_torch.models.world import Scenario
         from intent_mpc_torch.ops import build
 
@@ -92,8 +92,9 @@ class Prepared:
                                    for k, v in b.items()})
                        for b in self.blocks_np]
         self.ref = torch.as_tensor(self.ref_np, device=dev)
-        self.occ = empty_grid(dev)
+        self.maps = hz.maps(self.cfg, self.blocks_np, dev)
         self.mode = hz.load_module("modes", self.traffic["mode"])
+        self.stages = check.stages(self.cfg)
         self.every = self.pcfg.planner.solver.factor_reuse_cycles
         warm = self.flights()
         for _ in range(2):
@@ -103,7 +104,7 @@ class Prepared:
 
     def flights(self, sampler=None):
         from mpcbench import harness as hz
-        return hz.Flights(self.pcfg, self.blocks, self.ref, self.occ,
+        return hz.Flights(self.pcfg, self.blocks, self.ref, self.maps,
                           self.traffic["episode_cycles"], sampler)
 
     def sampler(self):
@@ -116,21 +117,32 @@ class Prepared:
         return [{k: torch.as_tensor(v) for k, v in b.items()}
                 for b in self.blocks_np]
 
-    def gaps(self, samples, program=None):
-        """The reference's gaps of the samples; `program(sample)` gives
-        the outputs held in the program's place (the control)."""
+    def gaps(self, samples, prec=None):
+        """The reference's gaps of the samples, stage by stage; with a
+        Precision `prec`, of the control: the reference computed in it,
+        held in the program's place."""
         import torch
         from mpcbench import check
         blocks, ref = self.host_blocks(), torch.as_tensor(self.ref_np)
         chunk = self.traffic["reference_chunk"]
-        return [check.stage_gaps(self.cfg, blocks, ref, s, chunk, self.dev,
-                                 program=None if program is None else program(s))
-                for s in samples]
+        out = []
+        for s in samples:
+            prog = None if prec is None else check.control_after(
+                self.cfg, self.stages, blocks, ref, s, prec, chunk, self.dev)
+            out.append(check.stage_gaps(self.cfg, self.stages, blocks, ref, s,
+                                        chunk, self.dev, program=prog))
+        return out
+
+    def numbers(self, samples, prec=None) -> dict:
+        """The compared numbers of the samples (of the control, with
+        `prec`)."""
+        from mpcbench import check
+        return check.numbers(self.gaps(samples, prec), self.stages)
 
     def release(self):
         """Drop the program's device state (the reference runs after)."""
         import torch
-        self.blocks = self.ref = self.occ = None
+        self.blocks = self.ref = self.maps = None
         if self.dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -148,7 +160,7 @@ def run_cell(c: dict, args, dev):
     flights = pre.flights(sampler)
     flights.sync()
     setup_s = time.perf_counter() - T_START
-    win = pre.mode.window(flights, args.seconds, traffic)
+    win = pre.mode.window(flights, args.seconds, traffic, args.cycles)
     flights.sync()
     device = hz.card(dev)
     print("mpcbench: %s seed %d: %d cycles in %.3f s, setup %.3f s, build %s, "
@@ -159,10 +171,13 @@ def run_cell(c: dict, args, dev):
     result = dict(correct=False, attempted=win["attempted"], failed=win["failed"])
     if args.trace:
         flights.sampler = None
-        tr = hz.traced(flights, pre.mode, traffic["trace_cycles"], pre.every)
+        tr = hz.traced(flights, pre.mode, traffic["trace_cycles"], pre.every,
+                       spans=bool(traffic.get("spans") or cfg.get("spans")))
         busy = hz.busy_seconds(tr["ops"])
         rec = dict(mode=traffic["mode"], ops=tr["ops"], window_s=tr["window_s"],
-                   busy_s=busy, traced_cycles=tr["cycles"],
+                   busy_s=busy, traced_cycles=tr["cycles"], spans=tr["spans"],
+                   counters=tr["counters"], runtime=tr["runtime"],
+                   window=tr["window"],
                    enqueue_s=win["enqueue_s"], scenarios=traffic["scenarios"],
                    candidates=cfg["planner"]["num_intent_candidates"], config=cfg,
                    peaks=hz.load_json(os.path.join(hz.HERE, "peaks.json")),
@@ -190,7 +205,7 @@ def run_cell(c: dict, args, dev):
     del flights, sampler
     pre.release()
     t0 = time.perf_counter()
-    values = check.numbers(pre.gaps(samples))
+    values = pre.numbers(samples)
     ok, rows = check.judge(values, cfg["correct_limits"])
     print("mpcbench: reference check of %d sampled cycles in %.3f s: %s"
           % (len(samples), time.perf_counter() - t0, json.dumps(values)),

@@ -39,16 +39,12 @@ import argparse
 import bisect
 import json
 import os
-import re
 import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 if os.path.dirname(HERE) not in sys.path:
     sys.path.insert(0, os.path.dirname(HERE))
-
-# the runtime API calls that put work on the device
-RUNTIME = re.compile(r"^cu(da)?(Launch|Memcpy|Memset)")
 
 
 def union(intervals):
@@ -146,40 +142,6 @@ def stages(spans, ops, window, runtime=None) -> dict:
             "stages": out}
 
 
-def traced(flights, mode, cycles: int, every: int, spans_on: bool) -> dict:
-    """harness.traced's sub-window (from a refresh cycle, `cycles` cycles
-    under torch.profiler's CUDA activity) with the program's spans on or
-    off; also keeps the runtime's launch, copy and memset events and the
-    window on the spans' clock."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from intent_mpc_torch.utils import trace
-
-    while flights.i % every != 0:
-        flights.step()
-    flights.sync()
-    acts = [ProfilerActivity.CUDA if flights.ref.device.type == "cuda"
-            else ProfilerActivity.CPU]
-    with profile(activities=acts) as prof:
-        if spans_on:
-            trace.start()
-        w0 = time.time_ns()
-        for _ in range(cycles):
-            mode.cycle(flights)
-        flights.sync()
-        w1 = time.time_ns()
-        spans = trace.stop()
-    cuda = torch.autograd.DeviceType.CUDA
-    ops, runtime = [], []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda:
-            ops.append((e.start_ns(), e.duration_ns(), e.name()))
-        elif RUNTIME.match(e.name()):
-            runtime.append(e.start_ns())
-    return dict(spans=spans, ops=sorted(ops), runtime=runtime,
-                window=(w0, w1), cycles=cycles)
-
-
 def span_ns(n: int = 100_000) -> dict:
     """Host ns of one empty `with span(...)` block, tracing off and on."""
     from intent_mpc_torch.utils import trace
@@ -226,10 +188,10 @@ def measure(c: dict, seed: int, seconds: float, dev) -> dict:
     while flights.i % pre.every != 0:
         flights.step()
     state = flights.b, flights.i, flights.carry
-    tr = traced(flights, pre.mode, traffic["trace_cycles"], pre.every, True)
+    tr = hz.traced(flights, pre.mode, traffic["trace_cycles"], pre.every,
+                   spans=True)
     flights.b, flights.i, flights.carry = state
-    again = traced(flights, pre.mode, traffic["trace_cycles"], pre.every,
-                   False)
+    again = hz.traced(flights, pre.mode, traffic["trace_cycles"], pre.every)
     split = stages(tr["spans"], tr["ops"], tr["window"], tr["runtime"])
     cyc = tr["cycles"]
     w0, w1 = tr["window"]

@@ -33,6 +33,8 @@ def tiny_cell(workload: str) -> dict:
 
 
 def tiny_args(workload: str, seed: int = 2 ** 31 + 11, seconds: float = 1.5,
-              trace: int = 0):
+              trace: int = 0, cycles=None):
+    """run.py's arguments; `cycles` makes the window that many cycles
+    (the CPU's pace varies under parallel workers)."""
     return types.SimpleNamespace(workload=workload, seed=seed, seconds=seconds,
-                                 trace=trace)
+                                 trace=trace, cycles=cycles)

@@ -43,10 +43,7 @@ def test_control_fails_at_the_cells_size(card, prec):
     pre.mode.window(pre.flights(sampler), 8.0, c["traffic"])
     samples = sampler.take()
     pre.release()
-    blocks, ref = pre.host_blocks(), torch.as_tensor(pre.ref_np)
-    ctl = check.numbers(pre.gaps(samples, lambda s: check.control_after(
-        c["config"], blocks, ref, s, Precision(prec),
-        c["traffic"]["reference_chunk"], card)))
+    ctl = pre.numbers(samples, Precision(prec))
     ok, rows = check.judge(ctl, c["config"]["correct_limits"])
     assert not ok, rows
 
@@ -63,6 +60,5 @@ def test_program_with_tf32_fails(card):
     with control.program_tf32():
         pre, _, samples = control.sampled_window(c, 4244, card, 8.0)
     assert not torch.backends.cuda.matmul.allow_tf32
-    ok, rows = check.judge(check.numbers(pre.gaps(samples)),
-                           c["config"]["correct_limits"])
+    ok, rows = check.judge(pre.numbers(samples), c["config"]["correct_limits"])
     assert not ok, rows

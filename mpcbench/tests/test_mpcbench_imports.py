@@ -10,6 +10,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from mpcbench_cells import ROOT
 
 JAX = {"jax", "jaxlib", "flax", "intent_mpc_tpu"}
@@ -62,3 +64,31 @@ def test_reference_imports_nothing_of_the_program():
                 for m in mods:
                     assert m.split(".")[0] in {"math", "typing", "numpy", "torch",
                                                 "__future__"}, (name, m)
+
+
+@pytest.mark.parametrize("kind", ["stages", "maps"])
+def test_stages_and_maps_import_nothing_of_the_program(kind):
+    """A configuration's check stages and maps are the benchmark's own, as
+    the reference is: loaded, they bring in nothing of the program."""
+    code = ("import sys, os, json; sys.path.insert(0, %r);"
+            "from mpcbench import harness as hz;"
+            "[hz.load_module(%r, n[:-3]) for n in os.listdir(os.path.join(hz.HERE, %r))"
+            " if n.endswith('.py')];"
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))"
+            % (ROOT, kind, kind))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert not (set(json.loads(out.stdout)) & (JAX | {"intent_mpc_torch"}))
+    d = os.path.join(ROOT, "mpcbench", kind)
+    for name in os.listdir(d):
+        if name.endswith(".py"):
+            for node in ast.walk(ast.parse(open(os.path.join(d, name)).read())):
+                mods = []
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module]
+                for m in mods:
+                    assert m.split(".")[0] in {"math", "typing", "numpy", "torch",
+                                                "__future__", "mpcbench"}, (name, m)

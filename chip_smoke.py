@@ -11,12 +11,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
                horizon 30, 65 obstacle slots, timed; 33 and 1 scenarios,
                whose x and cb segments end inside a float4), including
                +-inf bounds, rho = 1e-6 rows, duals of 1e4 and a NaN row;
-               bit-equal, NaN masks equal
+               bit-equal, NaN masks equal; constraint_op's three entries
+               at 128 and 32 scenarios x 6 candidates, every obstacle row
+               in use, on a shared factor and on one per candidate:
+               within 2e-5 of the plain version per problem, a rerun
+               bit-equal; the normal product's time (median of 50
+               launches), the plain version's and the bytes bound; and
+               ew_chain's time at 128 after an L2 flush and after one
+               iteration's operator products through constraint_op and
+               through the plain version
   4. loop      the default DYNUS closed loop (IntentMPCConfig defaults:
                200 obstacles, 100 ADMM iterations, factor refresh every 4th
                cycle) for 8 cycles at 128 and at 32 scenarios, through the
-               public entry points; the kernel must launch exactly
-               100 x 8 times per run
+               public entry points; in the device record ew_chain must
+               launch exactly 100 x 8 times per run and constraint_op
+               (5 x 100 + 1) x 8 times, which utils/trace's launches and
+               replays must match
   5. card/cpu  the same scenarios on the GPU and on the CPU (plain
                versions): positions held to 1e-3 m where the iteration is
                stable (see the phase)
@@ -356,6 +366,171 @@ def ew_bound(args, outs):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
 
 
+# constraint_op against its plain version: the kernel sums each step's K
+# obstacle rows lane by lane and down a shuffle tree, and each gradient
+# dot product left to right; cuBLAS and torch.sum take other orders. A sum
+# of m float32 terms then moves by at most ~m ulps of its largest term
+# (m <= 65 here), and on these random inputs no output cancels far below
+# its terms: each problem's outputs of a group are held to this share of
+# its largest one
+CONSTRAINT_OP_TOL = 2e-5
+
+
+def constraint_op_inputs(pcfg, S, shared, device):
+    """(qps, D, E, rho, h_s) of dense_constraint_qps's (S, 6) QPs as
+    admm_solve binds them: a shared factor's (S, 1, ...) scaling (of the
+    candidates' mean QP) or each candidate's own (3 Ruiz rounds), rho 0.1
+    with the equality rows' x 1e3."""
+    import torch
+    from intent_mpc_torch.ops import admm as admmlib
+    from intent_mpc_torch.ops import qp as qplib
+    qps = dense_constraint_qps(pcfg, S, device)
+    hdiag = qplib.hessian_diag(pcfg, device)
+    if shared:
+        fac = admmlib.admm_factor(pcfg, admmlib.candidate_mean(qps))
+        D, E, c = (fac.D.unsqueeze(-2), fac.E.map(lambda e: e.unsqueeze(-3)),
+                   fac.c.unsqueeze(-1))
+    else:
+        D, E, c = admmlib.ruiz_equilibrate(pcfg, qps, hdiag, 3)
+    h_s = c[..., None] * D * D * hdiag
+    rho = qplib.rho_vec(pcfg, qps, torch.full((S, 1), 0.1, device=device),
+                        1e3)
+    return qps, D, E.map(torch.Tensor.contiguous), rho, h_s
+
+
+def constraint_op_rel_err(got, want):
+    """The largest difference of each problem's outputs in a group (the
+    (S, 6) leading axes), relative to the group's largest output there,
+    over problems and groups."""
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return max(float(((a - b).abs().flatten(2).amax(-1)
+                      / b.abs().flatten(2).amax(-1).clamp(min=1e-30)).max())
+               for a, b in pairs)
+
+
+def check_constraint_op(S, dev):
+    """constraint_op's three entries on dense_constraint_qps's (S, 6) QPs
+    at the production shapes (horizon 30, 65 slots, every row in use),
+    with a shared factor's scaling (candidate stride 0) and with each
+    candidate's: the largest difference from the plain version
+    (constraint_op_rel_err, held to CONSTRAINT_OP_TOL), a rerun's bits;
+    for the normal product on the shared factor (the default path's CG
+    operator) CUDA-event times of the kernel and of the plain version, and
+    the bound: each input read once and the output written once at HBM
+    rate, against the float32 operations at peak."""
+    import torch
+    from intent_mpc_torch.benchmark.capture import cuda_time_ms
+    from intent_mpc_torch.ops import constraint_op as cop
+    from intent_mpc_torch.ops.qp import ConVec
+    from intent_mpc_torch.utils.config import PlannerConfig
+    cfg = PlannerConfig(horizon=30, max_obstacles=65)
+    errs = {}
+    for shared in (True, False):
+        qps, D, E, rho, h_s = constraint_op_inputs(cfg, S, shared, dev)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn(qps.q.shape, generator=g, device=dev)
+        w = ConVec(*(torch.randn(t.shape, generator=g, device=dev) * 10
+                     for t in rho))
+        op = cop.ConstraintOp(cfg, qps, D, E)
+        plain = cop.ConstraintOpReference(cfg, qps, D, E)
+        for entry, args in (("forward", (x,)), ("transpose", (w,)),
+                            ("normal", (rho, h_s, 1e-6, x))):
+            got = getattr(op, entry)(*args)
+            again = getattr(op, entry)(*args)
+            want = getattr(plain, entry)(*args)
+            torch.cuda.synchronize()
+            name = "%s_%s" % (entry, "shared" if shared else "per_candidate")
+            errs[name] = constraint_op_rel_err(got, want)
+            check(errs[name] <= CONSTRAINT_OP_TOL,
+                  ("constraint_op against its plain version", name,
+                   errs[name]))
+            check(same_bits(got, again), ("constraint_op reruns differ",
+                                          name))
+        if shared:
+            ms = cuda_time_ms(lambda: op.normal(rho, h_s, 1e-6, x))
+            plain_ms = cuda_time_ms(lambda: plain.normal(rho, h_s, 1e-6, x))
+            ins = [x, D, h_s, qps.G, qps.obs_dyn, qps.obs_active,
+                   qps.obs_slack, *E, *rho]
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in ins + [got])
+    H, W, K = cfg.horizon, cfg.mpc_window, qps.G.shape[-2]
+    # per obstacle row: the row 13, its weights 3, the transposed sums 12;
+    # per linear row 8 (the stencil, three scalings); per column 8
+    flops = S * 6 * (28 * W * K + 8 * (16 * H + 5 * W) + 8 * cfg.num_vars)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    return dict(kernel="constraint_op", scenarios=S, problems=S * 6,
+                max_rel_err=max(errs.values()), max_rel_err_of=errs,
+                tol=CONSTRAINT_OP_TOL, rerun_equal=True, timed="normal",
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes)
+
+
+def ew_chain_after_products(S, dev, reps=20):
+    """ew_chain's CUDA-event time (median of `reps`) on the default path's
+    shapes at S scenarios, in three states of the L2 cache: after a 256 MB
+    write that leaves none of its inputs there ("cold"), after the
+    operator products of one default iteration through constraint_op (A^T,
+    three normal products, then A, whose result ew_chain reads), and after
+    the same products through the plain version (the former closures).
+    Each timing starts behind a ~10 ms device-side spin, so the host has
+    enqueued the products and the chain before the device reaches them,
+    and the events hold the chain alone."""
+    import torch
+    from intent_mpc_torch.ops import constraint_op as cop
+    from intent_mpc_torch.ops import ew_chain as ew
+    from intent_mpc_torch.ops.qp import ConVec
+    from intent_mpc_torch.utils.config import IntentMPCConfig, PlannerConfig
+    cfg = PlannerConfig(horizon=30, max_obstacles=65)
+    alpha = IntentMPCConfig().planner.solver.alpha
+    qps, D, E, rho, h_s = constraint_op_inputs(cfg, S, True, dev)
+    ops = {"constraint_op": cop.ConstraintOp(cfg, qps, D, E),
+           "plain": cop.ConstraintOpReference(cfg, qps, D, E)}
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(t, scale=1.0):
+        return torch.randn(t.shape, generator=g, device=dev) * scale
+    xs, x_t = rnd(qps.q), rnd(qps.q)
+    zs = ops["constraint_op"].forward(xs)
+    ys = ConVec(*(rnd(t, 10.0) for t in zs))
+    rzy = zs.map(lambda zi, ri, yi: ri * zi - yi, rho, ys)
+    l_s, u_s = qps.l.scale(E), qps.u.scale(E)
+
+    def flat(t):
+        return (t.map(lambda a: a.flatten(0, 1)) if isinstance(t, ConVec)
+                else t.flatten(0, 1))
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def before(state):
+        if state == "cold":
+            ax = ops["constraint_op"].forward(x_t)
+            flush.zero_()
+            return ax
+        op = ops[state]
+        op.transpose(rzy)
+        for _ in range(3):
+            op.normal(rho, h_s, 1e-6, x_t)
+        return op.forward(x_t)
+    out = {}
+    for state in ("cold", "constraint_op", "plain"):
+        times = []
+        for _ in range(reps + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            ax = before(state)
+            a.record()
+            ew.ew_chain(alpha, *map(flat, (xs, x_t, zs, ys, ax, rho, l_s,
+                                           u_s)))
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        out[state] = statistics.median(times[1:])
+    return dict(kernel="ew_chain", scenarios=S, l2_test=True,
+                ms_after=out, reps=reps)
+
+
 def finite_carry(carry):
     import torch
     from intent_mpc_torch.engine.checkpoint import flatten
@@ -390,7 +565,7 @@ HARNESS_KEYS = [
     "mpc_prim_res_avg", "mpc_prim_res_max"]
 
 
-KERNELS = ("ew_chain", "fleet_admm", "dense_loop")
+KERNELS = ("ew_chain", "fleet_admm", "dense_loop", "constraint_op")
 GRAPH_COUNTERS = ("closed_loop.graph_captures", "closed_loop.graph_replays",
                   "closed_loop.graph_eager")
 
@@ -466,18 +641,42 @@ def expected_launches(cfg, cycles):
     the shared factor of the predictor path the flat iteration (unless
     the refinement is by blocks or folded), the Woodbury x-update and the
     two-phase refinement take no ew_chain (JAX's dispatch; truncation
-    runs one phase)."""
+    runs one phase). constraint_op: per solve one for its first z, and per
+    iteration A^T (the x-update's right side), A (the new x-tilde) and the
+    refinement's normal products (k steps: CG k + 1, stationary k, none at
+    k = 0 or where Woodbury's solve or the block or folded operator takes
+    their place); the flat iteration applies its own operator. None where
+    the count depends on the data (adaptive rho, truncation)."""
     sv = cfg.planner.solver
     if sv.fused_solve:
-        return {"ew_chain": 0, "fleet_admm": cycles, "dense_loop": 0}
+        return {"ew_chain": 0, "fleet_admm": cycles, "dense_loop": 0,
+                "constraint_op": 0}
     shared = sv.shared_factor and cfg.engine.use_predictor
     osqp = sv.truncation == "osqp"
     grouped = shared and (sv.woodbury_candidates or (
         not osqp and int(sv.max_iter * sv.shared_refine_warm_frac) > 0))
     flat = (shared and sv.flat_iter and not osqp and not sv.block_refine
             and not sv.folded_refine)
+
+    def per_iter(k):
+        if shared and (sv.woodbury_candidates or sv.block_refine
+                       or sv.folded_refine):
+            return 2
+        return 2 + (0 if k == 0 else
+                    k + 1 if sv.shared_refine_mode == "cg" else k)
+    if osqp or (sv.adaptive_rho and not shared):
+        op = None
+    elif not shared:
+        op = 1 + sv.max_iter * per_iter(sv.refine_iters)
+    elif flat and not grouped:
+        op = 1
+    else:
+        warm = int(sv.max_iter * sv.shared_refine_warm_frac)
+        op = (1 + warm * per_iter(sv.shared_refine_warm)
+              + (sv.max_iter - warm) * per_iter(sv.shared_refine_iters))
     return {"ew_chain": 0 if grouped or flat else cycles * sv.max_iter,
-            "fleet_admm": 0, "dense_loop": 0}
+            "fleet_admm": 0, "dense_loop": 0,
+            "constraint_op": None if op is None else cycles * op}
 
 
 def with_timeout(cfg, seconds):
@@ -602,6 +801,27 @@ def small_fleet_qps(pcfg, S, device):
     return qplib.build_qp(pcfg, *args)
 
 
+def dense_constraint_qps(pcfg, S, device, seed=0):
+    """small_fleet_qps's (S, 6) QPs with every obstacle row in use: the
+    gradients G drawn from N(0, 1) over (S, 6, W, K, 3), and per row
+    obs_active 1 with odds 7 in 8, obs_slack and obs_dyn 1 with odds 1 in
+    2 (0 else), all from one CPU generator seeded with `seed`, so the CPU
+    and the card get the same bits. Every slot of every step carries a
+    term of constraint_op's sums, and the candidates of a group differ."""
+    import torch
+    qps = small_fleet_qps(pcfg, S, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    wk = qps.obs_active.shape
+
+    def bits(p):
+        return (torch.rand(wk, generator=g) < p).float()
+    qps = qps._replace(G=torch.randn(qps.G.shape, generator=g),
+                       obs_active=bits(7 / 8), obs_slack=bits(1 / 2),
+                       obs_dyn=bits(1 / 2))
+    return type(qps)(*(v.map(lambda t: t.to(device)) if isinstance(v, tuple)
+                       else v.to(device) for v in qps))
+
+
 # tests/test_fullscale_parity.py's bounds on the horizon-30 problem: the
 # polished solve within the north star (BASELINE.md: 1e-3 m in positions,
 # 1e-1 in accelerations), the unpolished 2000-iteration iterate within
@@ -675,8 +895,11 @@ def check_north_star(dev):
     pos, acc = errs(pr.x)
     raw_pos, raw_acc = errs(res.x)
     iters = pcfg.solver.max_iter
+    # a factor of its own, refine 1 by CG: per iteration A^T, A and two
+    # normal products, and the first z
     want = {"ew_chain": iters if qp.q.is_cuda else 0, "fleet_admm": 0,
-            "dense_loop": 0}
+            "dense_loop": 0,
+            "constraint_op": 1 + 4 * iters if qp.q.is_cuda else 0}
     check(launches == want, ("north-star solve launches", launches, want))
     check(bool(pr.accepted), "polish rejected the 2000-iteration iterate")
     b = NORTH_STAR_BOUNDS
@@ -1178,6 +1401,12 @@ def check_loop_osqp(cfg, S, cycles, dev):
           ("ew_chain launches against iterations run", out["launches"], ran))
     check(out["launches"]["fleet_admm"] == 0
           and out["launches"]["dense_loop"] == 0, out["launches"])
+    # per solve the first z, per iteration run A^T, A and CG's normal
+    # products (shared_refine_iters + 1)
+    per_iter = 3 + sv.shared_refine_iters
+    check(out["launches"]["constraint_op"] == cycles + per_iter * sum(ran),
+          ("constraint_op launches against iterations run",
+           out["launches"], ran))
     out.update(max_iter=sv.max_iter, check_interval=sv.term_check_interval,
                blocks_per_cycle=[r / sv.term_check_interval for r in ran],
                frozen_before_cap=float(sum(
@@ -2730,7 +2959,8 @@ def check_fleet(cfg, S, cycles, fleet):
 
 def check_entry(dev):
     """entry()'s cycle on the card against entry("cpu"), held to 1e-4 m
-    and m/s; exactly SOLVER_ITERS ew_chain launches. On the card the cycle
+    and m/s; exactly SOLVER_ITERS ew_chain launches and 1 + 5 x
+    SOLVER_ITERS constraint_op launches. On the card the cycle
     runs three times from the same carry (eagerly, captured, replayed):
     the replay is counted (DeviceLaunches) and compared."""
     import torch
@@ -2742,7 +2972,9 @@ def check_entry(dev):
         pos, vel = fn(*args)
     counts = counted.counts
     check(counts == {"ew_chain": SOLVER_ITERS, "fleet_admm": 0,
-                     "dense_loop": 0}, ("entry launches", counts))
+                     "dense_loop": 0,
+                     "constraint_op": 1 + 5 * SOLVER_ITERS},
+          ("entry launches", counts))
     fn_c, args_c = entry("cpu")
     pos_c, vel_c = fn_c(*args_c)
     dp = float((pos.cpu() - pos_c).abs().max())
@@ -2940,19 +3172,36 @@ def main():
         phase("kernel", kernel="ew_chain", scenarios=S, problems=S * 6,
               bit_equal=True, max_abs_err=check_bit_equal(got, want))
         del args, got, want
+    op_timed = {}
+    for S in (128, 32):
+        op_timed[S] = check_constraint_op(S, dev)
+        phase("kernel", **op_timed[S],
+              **build.kernel_resources("constraint_op"))
+    phase("kernel", **ew_chain_after_products(128, dev))
     max_err, ms, plain_ms, bound_ms, bound_by = timed[128]
 
     # ---- 4. closed loop at production size ----
     loop = {}
     for s in (128, 32):
         run_loop(cfg, s, 1, dev)          # warm-up: library handles, caches
+        before = trace.counters()
         carry, secs, _ = run_loop(cfg, s, 8, dev)
+        after = trace.counters()
+        # the registry: the host's own launches and the captured ones that
+        # each replay adds (utils/trace); the device record below counts
+        op_registry = sum(after.get(k, 0) - before.get(k, 0) for k in (
+            "constraint_op.launches", "constraint_op.launches.replayed"))
+        iters = cfg.planner.solver.max_iter
         with DeviceLaunches() as counted:
             run_loop(cfg, s, 8, dev)
         counts = counted.counts
         launches = counts["ew_chain"]
-        iters = cfg.planner.solver.max_iter
         check(launches == 8 * iters, ("kernel launches", launches, 8 * iters))
+        check(counts["constraint_op"] == 8 * (5 * iters + 1),
+              ("constraint_op launches", counts))
+        check(op_registry == counts["constraint_op"],
+              ("constraint_op registry against the device record",
+               op_registry, counts))
         check(counts["fleet_admm"] == 0, ("fleet_admm launches on the "
                                           "default path", counts))
         check(counts["dense_loop"] == 0, ("dense_loop launches on the "
@@ -2963,6 +3212,8 @@ def main():
         elapsed = sum(secs)
         loop[s] = dict(launches=launches, fleet_admm_launches=0,
                        dense_loop_launches=0,
+                       constraint_op_launches=counts["constraint_op"],
+                       constraint_op_registry=op_registry,
                        cycle_ms=elapsed / 8 * 1e3,
                        cycle_ms_each=[round(x * 1e3, 3) for x in secs],
                        solves_per_s=s * 6 * 8 / elapsed,
@@ -3225,7 +3476,7 @@ def main():
                             [tools["entry"], tools["stage_profile"],
                              tools["oracle"], tools["demo"]]
                             + tools["roofline"])
-                     for k in ("ew_chain", "fleet_admm", "dense_loop")}
+                     for k in KERNELS}
     phase("tools_phases", seconds=time.perf_counter() - t_tools,
           launches=tool_launches)
 
@@ -3349,6 +3600,45 @@ def main():
         "plain_ms": dense[128]["plain_ms"],
         "bound_ms": dense[128]["bound_ms"],
         "bound_by": dense[128]["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "constraint_op",
+        "route": "cuda",
+        "source": "intent_mpc_torch/csrc/constraint_op.cu",
+        "replaces": "none: XLA fused these products (intent_mpc_tpu/ops/"
+                    "qp.py a_matvec / at_matvec under ops/admm.py's a_s, "
+                    "at_s and m_apply)",
+        "launches": loop[128]["constraint_op_launches"],
+        "launches_of_other_paths": {
+            "default_32": loop[32]["constraint_op_launches"],
+            "real_perception_32": real["launches"]["constraint_op"],
+            "goal_global_8": goal["global"]["launches"]["constraint_op"],
+            "goal_linspace_8": goal["linspace"]["launches"]["constraint_op"],
+            "truncation_osqp_128": osqp[128]["launches"]["constraint_op"],
+            "truncation_osqp_32": osqp[32]["launches"]["constraint_op"],
+            "per_candidate_adaptive_32":
+                adaptive["launches"]["constraint_op"],
+            "polish_32": polished["default"]["launches"]["constraint_op"],
+            "north_star_solve_1":
+                polish_small["north_star"]["launches"]["constraint_op"],
+            "tools": tool_launches["constraint_op"],
+            "fleet_nccl_world1_128":
+                fleet_runs["default"]["launches"]["constraint_op"],
+            **{"solver_knob_%s_32" % k["option"]:
+               k["launches"]["constraint_op"] for k in knobs},
+            **{"%s_32" % o["option"]: o["launches"]["constraint_op"]
+               for o in options if o["solve"] == "default"},
+            **{"%s_fused_32" % o["option"]: o["launches"]["constraint_op"]
+               for o in options if o["solve"] == "fused"}},
+        "max_rel_err": op_timed[128]["max_rel_err"],
+        "max_rel_err_of": "each problem's outputs of a group against its "
+                          "largest, the three entries, shared and "
+                          "per-candidate factors",
+        "timed": "normal product, shared factor, 128 scenarios",
+        "ms": op_timed[128]["ms"],
+        "plain_ms": op_timed[128]["plain_ms"],
+        "bound_ms": op_timed[128]["bound_ms"],
+        "bound_by": op_timed[128]["bound_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,10 @@ equality rows, 1e-6 on loose rows), over-relaxed ADMM:
   z+ = clip(alpha A x~ + (1-alpha) z + y/rho, l, u)
   y+ = y + rho (alpha A x~ + (1-alpha) z - z+)
 
-A never materializes (ops/qp.py closed forms); the x-update normal matrix
+A never materializes (ops/qp.py closed forms), and the iteration applies
+it scaled, its transpose and the normal product through
+ops/constraint_op.py: one launch of csrc/constraint_op.cu per product on
+a CUDA device, the plain closed forms on the CPU. The x-update normal matrix
 has an explicit inverse from the block-tridiagonal Cholesky
 (ops/block_chol.py), or with `structured_factor=False` from the dense
 Cholesky of the assembled matrix. With a shared Factor (one per scenario), each
@@ -60,6 +63,8 @@ import torch
 
 from intent_mpc_torch.ops import block_chol as bc
 from intent_mpc_torch.ops import qp as qplib
+from intent_mpc_torch.ops.constraint_op import (ConstraintOp,
+                                                ConstraintOpReference)
 from intent_mpc_torch.ops.dense_loop import (DenseScaledProblem,
                                              admm_iterations_dense,
                                              csr_capacity)
@@ -409,16 +414,19 @@ def admm_solve(cfg: PlannerConfig, qp: QPData,
     rho_base = scfg.rho if rho_override is None else rho_override
     rho = qplib.rho_vec(cfg, qp, rho_base, scfg.rho_eq_scale)
 
-    def a_s(x):      # scaled A: E * A(D x)
-        return qplib.a_matvec(cfg, qp, D * x).scale(E)
-
-    def at_s(w):     # scaled A^T: D * A^T(E w)
-        return D * qplib.at_matvec(cfg, qp, w.scale(E))
+    # the scaled constraint operator: one kernel launch per product on a
+    # CUDA device (ops/constraint_op.py), plain PyTorch on the CPU
+    if dev.type == "cuda":
+        op = ConstraintOp(cfg, _contiguous(qp), D.contiguous(),
+                          E.map(torch.Tensor.contiguous))
+    else:
+        op = ConstraintOpReference(cfg, qp, D, E)
+    a_s = op.forward         # scaled A: E * A(D x)
+    at_s = op.transpose      # scaled A^T: D * A^T(E w)
 
     def m_apply(v):
         # THIS QP's scaled normal matrix in closed form
-        return h_s * v + sigma * v + at_s(a_s(v).map(
-            lambda a, ri: a * ri, rho))
+        return op.normal(rho, h_s, sigma, v)
 
     if x0 is None:
         x0 = torch.zeros(qp.q.shape[:-1] + (n,), dtype=qp.q.dtype, device=dev)
@@ -976,6 +984,12 @@ def dense_pads(cfg: PlannerConfig, K: int):
     n = cfg.num_vars
     m = 2 * qplib.NX * cfg.horizon + (qplib.NU + K) * cfg.mpc_window
     return ((n + 127) // 128) * 128, ((m + 127) // 128) * 128
+
+
+def _contiguous(qp: QPData) -> QPData:
+    """The QP with every tensor contiguous (each one itself if it is)."""
+    return QPData(*(v.map(torch.Tensor.contiguous) if isinstance(v, ConVec)
+                    else v.contiguous() for v in qp))
 
 
 def _flatten(qp: QPData, nb: int) -> QPData:

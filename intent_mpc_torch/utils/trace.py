@@ -38,6 +38,9 @@ Counters. `count(name, n)` adds to one process-wide registry, always on;
     ew_chain.launches       ops/ew_chain kernel launches by the host
     fleet_admm.launches     ops/fleet kernel launches by the host
     dense_loop.launches     ops/dense_loop kernel launches by the host
+    constraint_op.launches  ops/constraint_op kernel launches by the host
+                            (admm_solve: 5 per default-path iteration and
+                            1 for its first z)
     admm.host_reads         all-done flag reads of truncation="osqp" solves
     closed_loop.host_reads  the composed goal modes' build-flag reads
     clustering.host_reads   DBSCAN changed-flag reads

@@ -19,10 +19,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (NORTH_STAR_BOUNDS, accepted,  # noqa: E402
-                        check_exploration_small, check_fusion_small,
-                        check_knobs_small, check_mapping_small,
-                        check_north_star, small_fleet_qps)
+from chip_smoke import (CONSTRAINT_OP_TOL, NORTH_STAR_BOUNDS,  # noqa: E402
+                        accepted, check_exploration_small,
+                        check_fusion_small, check_knobs_small,
+                        check_mapping_small,
+                        check_north_star, constraint_op_inputs,
+                        small_fleet_qps)
 from intent_mpc_torch.benchmark import bench  # noqa: E402
 from intent_mpc_torch.benchmark import harness  # noqa: E402
 from intent_mpc_torch.benchmark.capture import capture_fused_qps  # noqa: E402
@@ -31,6 +33,7 @@ from intent_mpc_torch.engine import graph  # noqa: E402
 from intent_mpc_torch.models.occupancy import empty_grid  # noqa: E402
 from intent_mpc_torch.models.world import straight_line_ref_traj  # noqa: E402
 from intent_mpc_torch.ops import admm as admmlib  # noqa: E402
+from intent_mpc_torch.ops import constraint_op as cop  # noqa: E402
 from intent_mpc_torch.ops import dense_loop as dl  # noqa: E402
 from intent_mpc_torch.ops import ew_chain as ew  # noqa: E402
 from intent_mpc_torch.ops import fleet as fl  # noqa: E402
@@ -61,8 +64,8 @@ def _launches(kernel):
     return trace.counters().get(kernel + ".launches", 0)
 
 
-def _kernel_events(fn):
-    """fn()'s result and each kernel's events in its device record
+def _device_names(fn):
+    """fn()'s result and the names of the device events of its record
     (torch.profiler's CUDA activity): a cycle replayed from a CUDA graph
     launches its kernels from the graph, which only the device record
     sees run."""
@@ -70,10 +73,16 @@ def _kernel_events(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    names = [e.name() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return out, [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def _kernel_events(fn):
+    """fn()'s result and each kernel's events in its device record."""
+    out, names = _device_names(fn)
     return out, {k: sum(k + "_kernel" in n for n in names)
-                 for k in ("ew_chain", "fleet_admm", "dense_loop")}
+                 for k in ("ew_chain", "fleet_admm", "dense_loop",
+                           "constraint_op")}
 
 
 def _regime_args(device, batch=(6, 6), H=10, W=9, K=8, n=125):
@@ -153,6 +162,118 @@ def test_kernel_refuses_a_misaligned_view(cuda_device):
     assert _launches("ew_chain") == before
 
 
+def _constraint_op_setup(device, S, shared, horizon=30, K=65):
+    """(cfg, qps, D, E, rho, h_s) of (S, 6) seeded candidate QPs on
+    `device` with every obstacle row in use (chip_smoke's
+    constraint_op_inputs: random gradients, mixed masks): a shared
+    factor's (S, 1, ...) scaling or each candidate's."""
+    cfg = PlannerConfig(horizon=horizon, max_obstacles=K)
+    return (cfg,) + constraint_op_inputs(cfg, S, shared, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("entry", ["forward", "transpose", "normal"])
+def test_constraint_op_matches_plain_version(cuda_device, shared, entry):
+    """Each entry of csrc/constraint_op.cu against its plain version on the
+    card at the cell's shapes (128 scenarios x 6 candidates, horizon 30,
+    65 slots), with a shared factor's scaling (candidate stride 0) and with
+    each candidate's: within chip_smoke.CONSTRAINT_OP_TOL of each problem's
+    largest output in a group (the order of summation differs); one
+    launch per call, and a second launch gives the same bits."""
+    cfg, qps, D, E, rho, h_s = _constraint_op_setup(cuda_device, 128, shared)
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(qps.q.shape, generator=g, device=cuda_device)
+    w = ConVec(*(torch.randn(t.shape, generator=g, device=cuda_device) * 10
+                 for t in rho))
+    args = {"forward": (x,), "transpose": (w,),
+            "normal": (rho, h_s, 1e-6, x)}[entry]
+    op = cop.ConstraintOp(cfg, qps, D, E)
+    before = _launches("constraint_op")
+    got = getattr(op, entry)(*args)
+    again = getattr(op, entry)(*args)
+    want = getattr(cop.ConstraintOpReference(cfg, qps, D, E), entry)(*args)
+    torch.cuda.synchronize()
+    assert _launches("constraint_op") == before + 2
+    pairs = (zip(got, want, again) if entry == "forward"
+             else [(got, want, again)])
+    for a, b, c in pairs:
+        assert _same_bits(a, c)
+        err = (a - b).abs().flatten(2).amax(-1)
+        scale = b.abs().flatten(2).amax(-1)
+        assert bool((err <= CONSTRAINT_OP_TOL * scale).all()), float(
+            (err / scale.clamp(min=1e-30)).max())
+
+
+def _entry_bad_cases():
+    """(name, entry, how to break its arguments, the exception, a pattern
+    of its message)."""
+    def x(f):
+        return lambda c: c.update(x=f(c["x"]))
+    return [
+        ("x_float64", "normal", x(torch.Tensor.double), TypeError,
+         "float32"),
+        ("x_strided", "normal", x(lambda t: t.mT.contiguous().mT),
+         ValueError, "contiguous"),
+        ("x_shape", "normal", x(lambda t: t[..., 1:]), ValueError, "shape"),
+        ("x_one_candidate", "forward", x(lambda t: t[:, :1]), ValueError,
+         "shape"),
+        ("x_on_cpu", "forward", x(lambda t: t.cpu()), ValueError, "on cpu"),
+        ("w_shape", "transpose", lambda c: c.update(w=c["w"]._replace(
+            obs=c["w"].obs[..., :-1])), ValueError, "shape"),
+        ("rho_shared", "normal", lambda c: c.update(rho=c["rho"]._replace(
+            cb=c["rho"].cb[:, :1].contiguous())), ValueError, "shape"),
+        ("h_s_strided", "normal", lambda c: c.update(h_s=c["h_s"].expand(
+            c["x"].shape)), ValueError, "contiguous"),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,entry,brk,exc,says", _entry_bad_cases(),
+                         ids=[c[0] for c in _entry_bad_cases()])
+def test_constraint_op_refuses_before_launching(cuda_device, name, entry,
+                                                brk, exc, says):
+    """An entry given a vector of the wrong dtype, layout, shape or device,
+    or a rho or h_s of the wrong shape or layout, raises, and the kernel
+    does not launch."""
+    cfg, qps, D, E, rho, h_s = _constraint_op_setup(cuda_device, 2, True,
+                                                    horizon=10, K=4)
+    op = cop.ConstraintOp(cfg, qps, D, E)
+    x = torch.randn(qps.q.shape, device=cuda_device)
+    c = dict(x=x, w=op.forward(x), rho=rho, h_s=h_s)
+    torch.cuda.synchronize()
+    brk(c)
+    args = {"forward": (c["x"],), "transpose": (c["w"],),
+            "normal": (c["rho"], c["h_s"], 1e-6, c["x"])}[entry]
+    before = _launches("constraint_op")
+    with pytest.raises(exc, match=says):
+        getattr(op, entry)(*args)
+    torch.cuda.synchronize()
+    assert _launches("constraint_op") == before
+
+
+@pytest.mark.cuda
+def test_default_solve_iterates_without_gemv(cuda_device):
+    """admm_solve on the default path (shared factor, CG-2) at the cell's
+    batch launches the constraint operator 5 times per iteration and once
+    for its first z; the cuBLAS gemv launches that remain (the unscale of
+    its result) do not grow with the iterations."""
+    cfg = PlannerConfig(horizon=30, max_obstacles=65)
+    qps = small_fleet_qps(cfg, 128, cuda_device)
+    fac = admmlib.admm_factor(cfg, admmlib.candidate_mean(qps))
+    x0 = torch.zeros(qps.q.shape, device=cuda_device)
+    rho = torch.full((128, 1), 0.1, device=cuda_device)
+    counts = {}
+    for iters in (10, 20):
+        admmlib.admm_solve(cfg, qps, x0, iters, rho_override=rho, factor=fac)
+        _, names = _device_names(lambda: admmlib.admm_solve(
+            cfg, qps, x0, iters, rho_override=rho, factor=fac))
+        counts[iters] = (sum("constraint_op_kernel" in n for n in names),
+                         sum("gemv" in n for n in names))
+    assert counts[10][0] == 5 * 10 + 1 and counts[20][0] == 5 * 20 + 1
+    assert counts[10][1] == counts[20][1]
+
+
 @pytest.mark.cuda
 def test_closed_loop_on_card_matches_cpu(cuda_device):
     """The small closed loop on the card and on the CPU, through the entry
@@ -172,7 +293,9 @@ def test_closed_loop_on_card_matches_cpu(cuda_device):
     gpu = fly()
     fly()                       # every variant captured before the record
     again, counts = _kernel_events(fly)
-    assert counts["ew_chain"] == 4 * cfg.planner.solver.max_iter
+    iters = cfg.planner.solver.max_iter
+    assert counts["ew_chain"] == 4 * iters
+    assert counts["constraint_op"] == 4 * (5 * iters + 1)
     assert torch.equal(again.pos, gpu.pos)
     cpu, _ = cl.run_episode(cfg, sh.stack_scenarios(cfg, [0, 1], device="cpu"),
                             ref, ref.shape[0], num_cycles=4, device="cpu")
@@ -1374,12 +1497,14 @@ def test_solver_knobs_on_card_match_cpu(cuda_device):
 def test_north_star_parity_on_card(cuda_device):
     """The north-star check of tests/test_fullscale_parity.py on the card:
     the horizon-30 QP through build_qp, admm_solve (2000 iterations, each
-    one ew_chain launch) and polish against the port's float64 oracle:
+    one ew_chain launch and four of the constraint operator, refine 1 by
+    CG, and one for the first z) and polish against the port's float64
+    oracle:
     the polish accepted, positions within 1e-3 m and accelerations within
     1e-1 (the unpolished iterate within 2e-2 m and 1.5)."""
     out = check_north_star(cuda_device)
     assert out["launches"] == {"ew_chain": 2000, "fleet_admm": 0,
-                               "dense_loop": 0}
+                               "dense_loop": 0, "constraint_op": 8001}
     assert out["accepted"]
     b = NORTH_STAR_BOUNDS
     assert out["pos_err"] < b["pos"] and out["acc_err"] < b["acc"], out

@@ -411,7 +411,8 @@ def test_north_star_parity_on_cpu():
     1e-1; the unpolished iterate within 2e-2 m and 1.5
     (tests/test_fullscale_parity.py's bounds; measured ~5.5e-6 m and
     ~1.1e-3 polished, ~3.0e-3 m and ~1.06 unpolished). On the CPU
-    ew_chain runs its plain version: no launch."""
+    ew_chain and the constraint operator run their plain versions: no
+    launch."""
     out = chip_smoke.check_north_star("cpu")
     b = chip_smoke.NORTH_STAR_BOUNDS
     assert b == {"pos": 1e-3, "acc": 1e-1, "raw_pos": 2e-2, "raw_acc": 1.5}
@@ -419,7 +420,7 @@ def test_north_star_parity_on_cpu():
     assert out["pos_err"] < 1e-3 and out["acc_err"] < 1e-1, out
     assert out["raw_pos_err"] < 2e-2 and out["raw_acc_err"] < 1.5, out
     assert out["launches"] == {"ew_chain": 0, "fleet_admm": 0,
-                               "dense_loop": 0}
+                               "dense_loop": 0, "constraint_op": 0}
 
 
 @pytest.mark.parametrize("horizon,K,num_active,seed,with_static,feasible", [
